@@ -1,0 +1,22 @@
+"""rna_algos_tpu_torch: the PyTorch / CUDA port of rna_algos_tpu.
+
+The CONTRAfold centroid-fold main path, held against the JAX package:
+
+  FASTA -> parallel.runner.FoldEngine.fold_batch
+        -> models.mccaskill.mccaskill_bpp_batch_auto
+        -> ops.pallas_fold_prob8.mccaskill_contra_prob   (kernels K1, K2, K3)
+        -> models.mccaskill._prob_finish                 (kernel K3, inverse)
+        -> models.centroid.mea_fill_gammas + traceback -> dot-bracket files
+
+Module names mirror the JAX package so each counterpart is easy to find.
+Every hand-written kernel (CUDA C++ under ``csrc/``) has a plain PyTorch
+version beside its wrapper; the wrapper takes the plain version only for
+tensors on the CPU and launches the kernel for CUDA tensors.  Kernels are
+built with ``nvcc`` at first use (``ops/_build.py``), never on import.
+
+This package imports ``torch`` and never ``jax``.  It reuses the JAX
+package's framework-free modules: ``constants``, ``params``, ``utils.io``,
+``utils.output``, ``utils.checkpoint`` and ``_native``.
+"""
+
+__version__ = "0.1.0"

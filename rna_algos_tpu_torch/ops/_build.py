@@ -1,0 +1,149 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+One shared library with a plain C interface, compiled by ``nvcc`` for
+``sm_90a`` at first use and loaded with ``ctypes``.  The library's name
+carries a hash of the sources, so an edit rebuilds and a stale build is
+never loaded.  It lives in ``rna_algos_tpu_torch/_build/`` (git-ignored).
+Nothing here runs at import time.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import subprocess
+import tempfile
+import time
+
+PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argument types.  Every pointer (and the stream)
+# is a c_void_p so ctypes never narrows it to a 32-bit int.
+SIGNATURES = {
+    "rna_skew": [ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _I, _I, _P],
+    "rna_contra_inside": [_P] * 17 + [_I, _I, _P],
+    "rna_contra_outside": [_P] * 20 + [_I, _I, _I, _P],
+}
+
+
+def sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def source_hash():
+    h = hashlib.sha256()
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+class LaunchCounter:
+    """Launches of one kernel: its wrapper adds one where it launches the
+    kernel and nowhere else; a run resets the count before and reads it
+    after."""
+
+    def __init__(self, name):
+        self.name = name
+        self.count = 0
+
+    def reset(self):
+        self.count = 0
+
+
+class KernelLibrary:
+    """The loaded library plus what its build reported."""
+
+    def __init__(self, lib, path, build_seconds, compiler_output):
+        self.lib = lib
+        self.path = path
+        self.build_seconds = build_seconds
+        self.compiler_output = compiler_output
+
+    def call(self, name, *args):
+        """Call a C entry point; raise if it reports a CUDA error."""
+        err = getattr(self.lib, name)(*args)
+        if err != 0:
+            msg = self.lib.rna_error_string(err).decode()
+            raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("CUDA toolkit not found: nvcc is needed to build "
+                           "the rna_algos_tpu_torch kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+@functools.lru_cache(maxsize=None)
+def library():
+    """Build (if needed) and load the kernel library; cached per process."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    so = BUILD_DIR / f"librna_kernels_{source_hash()}.so"
+    build_seconds, out = 0.0, ""
+    if not so.exists():
+        t0 = time.perf_counter()
+        cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        res = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu],
+            capture_output=True, text=True,
+        )
+        out = res.stdout + res.stderr
+        if res.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{out}")
+        os.replace(tmp, so)
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.rna_error_string.argtypes = [ctypes.c_int]
+    lib.rna_error_string.restype = ctypes.c_char_p
+    return KernelLibrary(lib, so, build_seconds, out)
+
+
+def stream_ptr(device):
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_cuda(name, tensors, shapes, device):
+    """Validate what a kernel takes: device, float32/int32, shape, layout."""
+    import torch
+
+    for key, t in tensors.items():
+        want = shapes[key]
+        if t.device != device:
+            raise ValueError(f"{name}: {key} on {t.device}, expected {device}")
+        dt = torch.int32 if key == "ns" else torch.float32
+        if t.dtype != dt:
+            raise ValueError(f"{name}: {key} is {t.dtype}, expected {dt}")
+        if tuple(t.shape) != tuple(want):
+            raise ValueError(
+                f"{name}: {key} has shape {tuple(t.shape)}, expected {want}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} is not contiguous")

@@ -1,0 +1,122 @@
+"""Scaled probability-space helpers (``rna_algos_tpu.ops.pallas_fold_prob``).
+
+The CONTRA pieces of the slice: the scale constants, the 2-loop length
+matrix and its banded form, the per-sequence scalar rows and the
+rescale-retry loop.  A state covering span s stores Z * sigma^-s for a
+per-sequence ``ln_sigma``; sequences whose scaled partition function
+leaves [GLOB_LO, GLOB_HI] re-run at a corrected scale (``_retrying``).
+"""
+
+import torch
+
+from .pallas_fold import W, W2, _contra_len_di
+
+LN_SIGMA0 = 0.9          # initial per-base scale (CONTRA; typical folded RNA)
+RETRY_STEP = 0.9         # ln_sigma bisection step on over/underflow
+MAX_RETRIES = 10
+# Scaled-Z guard band: anything outside [GLOB_LO, GLOB_HI] re-runs (a
+# partition function near the float32 denormal cliff silently flushes the
+# small outside intermediates).
+GLOB_LO = 1e-24
+GLOB_HI = 1e24
+
+
+def _contra_len_prob(ct, ln_sigma):
+    """(B, W2, W) [b, a] 2-loop length constants exp(LEN - (a+b+2)*ln_s)."""
+    base = _contra_len_di(ct)
+    dev = base.device
+    ab = (
+        torch.arange(W2, dtype=torch.float32, device=dev)[:, None]
+        + torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+        + 2.0
+    )
+    return torch.exp(base[None] - ab[None] * ln_sigma[:, None, None])
+
+
+def _banded_kernel(LENp, keep):
+    """(B, 32, 32) banded matrix K[a, r] = LEN[r-a-1, a] on keep(a, b)."""
+    dev = LENp.device
+    a_i = torch.arange(32, device=dev)[:, None]
+    r_i = torch.arange(32, device=dev)[None, :]
+    b_v = r_i - a_i - 1
+    valid = (b_v >= 0) & (b_v <= 30 - a_i) & (a_i <= 30) & keep(a_i, b_v)
+    bs = b_v.clamp(0, W2 - 1)
+    as_ = torch.broadcast_to(a_i.clamp(0, W - 1), bs.shape)
+    gathered = LENp[:, bs, as_]
+    return torch.where(valid[None], gathered, torch.zeros((), device=dev))
+
+
+# The 2-loop cells (a, b) the kernels add as separate terms (stack, bulge
+# 0x1 / 1x0, interior 1x1), left out of the window matrix.
+SPECIALS = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+
+def _banded_window_kernel(LENp):
+    """CONTRA window matrix: the full band minus the 4 special cells."""
+
+    def keep(a_i, b_v):
+        v = torch.ones(torch.broadcast_shapes(a_i.shape, b_v.shape),
+                       dtype=torch.bool, device=a_i.device)
+        for (sa, sb) in SPECIALS:
+            v = v & ~((a_i == sa) & (b_v == sb))
+        return v
+
+    return _banded_kernel(LENp, keep)
+
+
+def _scal_rows(ct, ln_sigma):
+    """(B, 4) per-sequence scalars of both kernels: [eu1, ebp, mbu1, mbbp]
+    (the first four columns of the JAX package's scalar rows)."""
+    B = ln_sigma.shape[0]
+    eu1 = torch.exp(ct["external_score_unpair"] - ln_sigma)
+    ebp = torch.exp(ct["external_score_basepair"]).expand(B)
+    mbu1 = torch.exp(ct["multibranch_score_unpair"] - ln_sigma)
+    mbbp = torch.exp(ct["multibranch_score_basepair"]).expand(B)
+    return torch.stack([eu1, ebp, mbu1, mbbp], dim=1).to(torch.float32)
+
+
+def _flags(bppo, glob):
+    """(bad_hi, bad_lo) per sequence.  Underflow evidence wins: glob == 0
+    makes 1/glob (and the bppo sum) non-finite, and reading that as
+    overflow would walk ln_sigma the wrong way."""
+    s = bppo.sum(dim=(1, 2))
+    bad_lo = torch.isfinite(glob) & (glob < GLOB_LO)
+    bad_hi = (
+        ~torch.isfinite(glob) | (glob > GLOB_HI)
+        | (~torch.isfinite(s) & ~bad_lo)
+    )
+    return bad_hi, bad_lo
+
+
+def _retrying(run, ns):
+    """Rescale-retry loop around a (ln_sigma,) -> (bppo, glob) run for
+    sequences of lengths ``ns`` (B,).
+
+    A host loop that syncs once per iteration (``any()``) with the JAX
+    loop's logic: sequences whose scaled Z left the guard band re-run; a
+    finite positive glob jumps straight to ln(glob)/n, a 0/inf one walks
+    by RETRY_STEP, halving on a direction flip; at most MAX_RETRIES
+    iterations.  The JAX loop's gentler step for n > 512 belongs to the
+    span-chunked tier, which is not ported (ROADMAP A8).  Returns (bppo,
+    ln_sigma)."""
+    f32 = torch.float32
+    B, dev = ns.shape[0], ns.device
+    nf = ns.to(f32).clamp(min=1.0)
+    ls = torch.full((B,), LN_SIGMA0, dtype=f32, device=dev)
+    bppo, glob = run(ls)
+    bh, bl = _flags(bppo, glob)
+    step = torch.full((B,), RETRY_STEP, dtype=f32, device=dev)
+    last_dir = torch.zeros((B,), dtype=f32, device=dev)
+    k = 0
+    while k < MAX_RETRIES and bool((bh | bl).any()):
+        bad = bh | bl
+        direction = bh.to(f32) - bl.to(f32)
+        step = torch.where(direction * last_dir < 0, step * 0.5, step)
+        can_jump = bad & torch.isfinite(glob) & (glob > 0.0)
+        jump = torch.log(torch.where(can_jump, glob, torch.ones_like(glob))) / nf
+        ls = ls + torch.where(can_jump, jump, step * direction)
+        bppo, glob = run(ls)
+        bh, bl = _flags(bppo, glob)
+        last_dir = direction
+        k += 1
+    return bppo, ls

@@ -1,0 +1,360 @@
+"""CONTRA McCaskill in scaled probability space, N <= 256
+(``rna_algos_tpu.ops.pallas_fold_prob8``): the merged table precompute,
+kernels K1 (inside) and K2 (outside), and the fixed-scale run wrapped in
+the rescale-retry loop.
+
+The TPU stacked G sequences along sublanes and aged a lane-major window;
+none of that layout is carried over.  Here each kernel runs one CUDA block
+per sequence (``csrc/contra_inside.cu``, ``csrc/contra_outside.cu``).  The
+plain versions below compute the same recurrences for the whole batch with
+tensor ops per span; the wrappers use them for CPU tensors only.
+"""
+
+import functools
+
+import torch
+
+from rna_algos_tpu.constants import MIN_SPAN_HAIRPIN_CLOSE
+
+from . import _build
+from . import pallas_fold as PF
+from . import pallas_fold_prob as PP
+from .diag import shift_pq as sh
+from .pallas_skew import skew_pq_batch
+
+INSIDE_TABLES = ("H", "MBC", "ACC", "JS", "STK", "I11", "B0R", "B0L", "JB")
+OUTSIDE_TABLES = (
+    "CLOSE", "MBC", "ACCB", "ACCMB", "STKO", "I11O", "B0RO", "JRB", "JSN",
+)
+MAX_N = 256  # one CUDA block of N threads per sequence
+
+inside_launches = _build.LaunchCounter("contra_inside")
+outside_launches = _build.LaunchCounter("contra_outside")
+
+
+def contra_prob_mats_merged(seqs, ns, ct, ln_sigma, N):
+    """Merged probability-space tables, built in [p, q] log space, then
+    exponentiated and skewed (kernel K3) to the [d, i] layout.
+
+    Returns (mi, mo_pre, ACC_di, b0lo): the inside tables, the outside
+    tables known before the inside pass, the raw ACC grid and the outside
+    b0lo lane vector (B, N)."""
+    pq, v_m1, v_x1 = PF.contra_pq_tables(seqs, ns, ct, N)
+    LENlog = PF._contra_len_di(ct)
+    len11_log = LENlog[1, 1]
+    len10_log = LENlog[1, 0]
+    len01_log = LENlog[0, 1]
+    hp_cum = ct["hairpin_scores_len_cumulative"]
+    MAXL = hp_cum.shape[0] - 1
+    dev = seqs.device
+    zero = torch.zeros((), device=dev)
+
+    p = torch.arange(N, device=dev)[:, None]
+    q = torch.arange(N, device=dev)[None, :]
+    span = (q - p + 1).to(torch.float32)
+    hlen = q - p - 1
+    ls = ln_sigma.view(-1, 1, 1)
+    ls1 = ln_sigma.view(-1, 1)
+    canon = pq["CANON"]
+    JS, JB = pq["JS"], pq["JB"]
+    STK, I11 = pq["STK"], pq["I11"]
+    vq2 = torch.where(q[0] + 2 < N, torch.roll(v_m1, -2, dims=1), zero)
+    e = torch.exp
+    tabs = {
+        "H": canon * torch.where(
+            (hlen >= 0) & (hlen <= MAXL),
+            e(hp_cum[hlen.clamp(0, MAXL)] + JS - span * ls),
+            zero,
+        ),
+        "MBC": canon * e(pq["MBC"] - 2.0 * ls),
+        "ACC": e(pq["ACC"]),
+        "JS": canon * e(JS),
+        "STK": canon * e(STK - sh(JB, 1, -1) - 2.0 * ls),
+        "I11": canon * e(JS + I11 + len11_log - 4.0 * ls),
+        "B0R": canon * e(JS + v_m1[:, None, :] + len10_log - 3.0 * ls),
+        "JB": e(JB),
+        "STKO": e(sh(STK, -1, 1) - sh(JS, -1, 1) - 2.0 * ls),
+        "I11O": e(JB + sh(I11, -2, 2) + len11_log - 4.0 * ls),
+        "B0RO": e(JB + vq2[:, None, :] + len10_log - 3.0 * ls),
+    }
+    b0l_vec = e(v_x1 + len01_log - 3.0 * ls1)
+    b0lo = e(v_m1 + len01_log - 3.0 * ls1)
+
+    names = sorted(tabs)
+    skewed = skew_pq_batch([tabs[k] for k in names])
+    di = {
+        k: v.transpose(1, 2).contiguous() for k, v in zip(names, skewed)
+    }
+    mbbp = torch.exp(ct["multibranch_score_basepair"])
+    mi = {
+        "H": di["H"],
+        "MBC": di["MBC"],
+        "ACC": di["ACC"],
+        "JS": di["JS"],
+        "STK": di["STK"],
+        "I11": di["I11"],
+        "B0R": di["B0R"],
+        "B0L": di["JS"] * b0l_vec[:, None, :],
+        "JB": di["JB"],
+    }
+    mo_pre = {
+        "MBC": di["MBC"],
+        "ACCMB": di["ACC"] * mbbp,
+        "STKO": di["STKO"],
+        "I11O": di["I11O"],
+        "B0RO": di["B0RO"],
+        "JRB": di["JB"],
+        "JSN": di["JS"],
+    }
+    return mi, mo_pre, di["ACC"], b0lo
+
+
+# ---------------------------------------------------------------------------
+# K1: inside wavefront
+# ---------------------------------------------------------------------------
+
+def contra_inside_plain(mi, KW, scal, ns):
+    """Plain version of K1 for the whole batch: (close, ext, one), each
+    (B, N, N) [d, i], rows at or past each sequence's length zero."""
+    H, MBC, ACC, JS, STK, I11, B0R, B0L, JB = (mi[k] for k in INSIDE_TABLES)
+    B, N, _ = H.shape
+    dev = H.device
+    eu1, ebp, mbu1, mbbp = (scal[:, k:k + 1] for k in range(4))
+    n_max = int(ns.max())
+    zeros = functools.partial(torch.zeros, device=dev)
+    close, ext, one = zeros(B, N, N), zeros(B, N, N), zeros(B, N, N)
+    INSp = zeros(B, N + 32, N + 33)   # close*JB of span s at row s + 32
+    S2 = zeros(B, N, N + 1)           # s2 of span s at row s
+    RMp, RMMp = zeros(B, N, 2 * N), zeros(B, N, 2 * N)
+    EXTsh = zeros(B, N + 1, N)        # row t = ext(t - 1); row 0 = 1
+    EXTsh[:, 0] = 1.0
+    ONEsh = zeros(B, N + 1, N)        # row t = one(t - 1)
+    S1 = zeros(B, N + 1)
+    lanes = torch.arange(N, device=dev)
+    r32 = torch.arange(32, device=dev)
+    gidx = (lanes[None, :] + 1 + r32[:, None]).expand(B, 32, N)
+    rm_prev, rmmb_prev = zeros(B, N), zeros(B, N)
+    epow = torch.ones((B, 1), device=dev)
+    for d in range(n_max):
+        rows = INSp[:, d + 31 - r32]                 # row r = span d-1-r
+        win = torch.bmm(KW, rows).gather(2, gidx).sum(1)
+        two = JS[:, d] * win
+        two = two + STK[:, d] * INSp[:, d + 30, 1:N + 1]
+        two = two + B0R[:, d] * INSp[:, d + 29, 1:N + 1]
+        two = two + B0L[:, d] * INSp[:, d + 29, 2:N + 2]
+        two = two + I11[:, d] * INSp[:, d + 28, 2:N + 2]
+        mb_term = S2[:, d - 2, 1:N + 1] * MBC[:, d] if d >= 2 else 0.0
+        c = H[:, d] + two + mb_term
+        if d + 1 < MIN_SPAN_HAIRPIN_CLOSE:
+            c = torch.zeros_like(c)
+        close[:, d] = c
+        acc = c * ACC[:, d]
+        rm_new = rm_prev * eu1 + acc * ebp
+        rmmb_new = rmmb_prev * mbu1 + acc * mbbp
+        epow = epow * eu1
+        RMp[:, d, :N] = rm_new
+        RMMp[:, d, :N] = rmmb_new
+        INSp[:, d + 32, :N] = c * JB[:, d]
+        if d >= 1:
+            t = torch.arange(d, device=dev)
+            rt, ct_ = (d - t)[:, None], lanes[None, :] + t[:, None]
+            es = (RMp[:, rt, ct_] * EXTsh[:, :d]).sum(1)
+            s2 = (RMMp[:, rt, ct_][:, 1:] * ONEsh[:, 1:d]).sum(1)
+            rmm_nb = RMMp[:, d - 1, 1:N + 1]
+        else:
+            es = s2 = rmm_nb = zeros(B, N)
+        ext_new = epow + es
+        s1v = mbu1 * (rmm_nb + S1[:, 1:N + 1])
+        S1[:, :N] = s1v
+        one_new = rmmb_new + s1v + s2
+        S2[:, d, :N] = s2
+        ext[:, d] = ext_new
+        one[:, d] = one_new
+        EXTsh[:, d + 1] = ext_new
+        ONEsh[:, d + 1] = one_new
+        rm_prev, rmmb_prev = rm_new, rmmb_new
+    live = lanes[None, :, None] < ns.to(dev).view(-1, 1, 1)
+    z = torch.zeros((), device=dev)
+    return (torch.where(live, close, z), torch.where(live, ext, z),
+            torch.where(live, one, z))
+
+
+def contra_inside(mi, KW, scal, ns):
+    """Kernel K1 (``csrc/contra_inside.cu``) for CUDA tensors, its plain
+    version for CPU tensors.  ``mi``: the 9 merged (B, N, N) [d, i] inside
+    tables; ``KW`` (B, 32, 32) window matrix; ``scal`` (B, 4); ``ns`` (B,)."""
+    dev = mi["H"].device
+    if dev.type == "cpu":
+        return contra_inside_plain(mi, KW, scal, ns)
+    if dev.type != "cuda":
+        raise ValueError(f"contra_inside: no kernel for device {dev}")
+    B, N, _ = mi["H"].shape
+    if N > MAX_N or N % 32:
+        raise ValueError(f"contra_inside: N = {N} (need N <= 256, N % 32 == 0)")
+    ins = {k: mi[k] for k in INSIDE_TABLES}
+    ins.update(KW=KW, scal=scal, ns=ns)
+    shapes = {k: (B, N, N) for k in INSIDE_TABLES}
+    shapes.update(KW=(B, 32, 32), scal=(B, 4), ns=(B,))
+    _build.check_cuda("contra_inside", ins, shapes, dev)
+    close, ext, one = (torch.zeros((B, N, N), device=dev) for _ in range(3))
+    rm, rmm = torch.empty((B, N, N), device=dev), torch.empty((B, N, N), device=dev)
+    args = [ins[k] for k in INSIDE_TABLES] + [KW, scal, ns, close, ext, one, rm, rmm]
+    _build.library().call(
+        "rna_contra_inside", *[_build.ptr(t) for t in args], B, N,
+        _build.stream_ptr(dev),
+    )
+    inside_launches.count += 1
+    return close, ext, one
+
+
+# ---------------------------------------------------------------------------
+# K2: outside wavefront
+# ---------------------------------------------------------------------------
+
+def contra_outside_plain(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
+    """Plain version of K2 for the whole batch: bppo (B, N, N) [d, i]."""
+    (CLOSE, MBC, ACCB, ACCMB, STKO, I11O, B0RO, JRB, JSN) = (
+        mo[k] for k in OUTSIDE_TABLES
+    )
+    B, N, _ = CLOSE.shape
+    dev = CLOSE.device
+    mbu1 = scal[:, 2:3]
+    n_max = int(ns.max())
+    zeros = functools.partial(torch.zeros, device=dev)
+    z = torch.zeros((), device=dev)
+    bppo = zeros(B, N, N)
+    G2p = zeros(B, N + 32, N + 32)    # g2 of span s at row s, lane 32 + l
+    Gt = zeros(B, N + 1, N)           # g of span s at row s
+    ONEpad = torch.cat([one, zeros(B, N, N)], dim=2)
+    PMp, PM2p = zeros(B, N + 1, 2 * N), zeros(B, N + 1, 2 * N)  # lane N + l
+    lanes = torch.arange(N, device=dev)
+    r32 = torch.arange(32, device=dev)
+    gidx = (lanes[None, :] + 31 - r32[:, None]).expand(B, 32, N)
+    qa = zeros(B, N)
+    p2prev = zeros(B, N)
+    for d in range(n_max - 1, -1, -1):
+        span_ok = d + 1 >= min_span
+        c = CLOSE[:, d]
+        pos = c > 0.0
+        inv_close = torch.where(pos, 1.0 / torch.where(pos, c, 1.0), z)
+        basev = c * ACCB[:, d] * extR[:, d + 1:d + 1 + N]
+        win = torch.bmm(KW, G2p[:, d + 1:d + 33]).gather(2, gidx).sum(1)
+        jrb = JRB[:, d]
+        two = jrb * win
+        two = two + STKO[:, d] * G2p[:, d + 2, 31:31 + N]
+        two = two + B0RO[:, d] * G2p[:, d + 3, 31:31 + N]
+        two = two + jrb * b0lo * G2p[:, d + 3, 30:30 + N]
+        two = two + I11O[:, d] * G2p[:, d + 4, 30:30 + N]
+        two = two * c
+        acc_mb = c * ACCMB[:, d]
+        T = N - 2 - d
+        pm = (
+            (Gt[:, d + 2:d + 2 + T] * ONEpad[:, :T, d + 1:d + 1 + N]).sum(1)
+            if T > 0 else zeros(B, N)
+        )
+        pm_new = pm if span_ok else zeros(B, N)
+        pm2_raw = Gt[:, d + 1] + mbu1 * p2prev
+        p2prev = pm2_raw
+        pm2_new = pm2_raw if span_ok else zeros(B, N)
+        qa = torch.cat(
+            [zeros(B, 1), PMp[:, d + 1, N:2 * N - 1] + mbu1 * qa[:, :N - 1]],
+            dim=1,
+        )
+        T2 = N - 1 - d
+        if T2 > 0:
+            t = torch.arange(1, T2 + 1, device=dev)
+            rt, ct_ = (d + t)[:, None], N + lanes[None, :] - t[:, None]
+            qo = QONE[:, 1:T2 + 1]
+            sa = (PM2p[:, rt, ct_] * qo).sum(1)
+            sbc = (PMp[:, rt, ct_] * qo).sum(1)
+        else:
+            sa = sbc = zeros(B, N)
+        mb_ctx = acc_mb * (sa + sbc + qa)
+        bp = basev + two + mb_ctx
+        if not span_ok:
+            bp = torch.zeros_like(bp)
+        bp = torch.where(pos, bp, z)
+        bppo[:, d] = bp
+        G2p[:, d, 32:] = bp * JSN[:, d] * inv_close
+        Gt[:, d] = bp * MBC[:, d] * inv_close
+        PMp[:, d, N:] = pm_new
+        PM2p[:, d, N:] = pm2_new
+    return bppo
+
+
+def contra_outside(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
+    """Kernel K2 (``csrc/contra_outside.cu``) for CUDA tensors, its plain
+    version for CPU tensors.  ``mo``: the 9 merged (B, N, N) outside
+    tables; ``one`` the inside one-table; ``QONE`` (B, N, N); ``extR``
+    (B, 2N); ``b0lo`` (B, N); ``KW`` (B, 32, 32); ``scal`` (B, 4);
+    ``ns`` (B,)."""
+    dev = one.device
+    if dev.type == "cpu":
+        return contra_outside_plain(
+            mo, one, QONE, extR, b0lo, KW, scal, ns, min_span
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"contra_outside: no kernel for device {dev}")
+    B, N, _ = one.shape
+    if N > MAX_N or N % 32:
+        raise ValueError(f"contra_outside: N = {N} (need N <= 256, N % 32 == 0)")
+    ins = {k: mo[k] for k in OUTSIDE_TABLES}
+    ins.update(ONE=one, QONE=QONE, EXTR=extR, B0LO=b0lo, KW=KW, scal=scal,
+               ns=ns)
+    shapes = {k: (B, N, N) for k in OUTSIDE_TABLES + ("ONE", "QONE")}
+    shapes.update(EXTR=(B, 2 * N), B0LO=(B, N), KW=(B, 32, 32), scal=(B, 4),
+                  ns=(B,))
+    _build.check_cuda("contra_outside", ins, shapes, dev)
+    bppo = torch.zeros((B, N, N), device=dev)
+    pm, pm2, g = (torch.empty((B, N, N), device=dev) for _ in range(3))
+    args = [ins[k] for k in OUTSIDE_TABLES] + [
+        one, QONE, extR, b0lo, KW, scal, ns, bppo, pm, pm2, g,
+    ]
+    _build.library().call(
+        "rna_contra_outside", *[_build.ptr(t) for t in args], B, N,
+        int(min_span), _build.stream_ptr(dev),
+    )
+    outside_launches.count += 1
+    return bppo
+
+
+# ---------------------------------------------------------------------------
+# One fixed-scale run and the rescale-retry loop
+# ---------------------------------------------------------------------------
+
+def _prob8_run_body(seqs, ns, ct, ln_sigma, N, allows_short_hairpins):
+    """Fixed-``ln_sigma`` inside + outside: (bppo [d, i], glob)."""
+    mi, mo_pre, ACC_di, b0lo = contra_prob_mats_merged(
+        seqs, ns, ct, ln_sigma, N
+    )
+    KW = PP._banded_window_kernel(PP._contra_len_prob(ct, ln_sigma))
+    scal = PP._scal_rows(ct, ln_sigma)
+    close, ext, one = contra_inside(mi, KW, scal, ns)
+    QONE, extL, extR, glob = PF.contra_outside_aux(ns, ext, one, N)
+    ebp = scal[:, 1]
+    mo = dict(mo_pre)
+    mo["ACCB"] = (
+        ACC_di * extL[:, None, :] * (1.0 / glob)[:, None, None]
+        * ebp[:, None, None]
+    )
+    mo["CLOSE"] = close
+    min_span = 2 if allows_short_hairpins else MIN_SPAN_HAIRPIN_CLOSE
+    bppo = contra_outside(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span)
+    return bppo, glob
+
+
+def mccaskill_contra_prob(seqs, ns, ct, N, allows_short_hairpins=False):
+    """Scaled-probability CONTRA McCaskill with rescale retries
+    (``mccaskill_contra_pallas_prob8``).  ``seqs`` (B, N) int64 and ``ns``
+    (B,) int32 on the device that runs it.  Returns (bppo [d, i] basepair
+    probabilities, ln_sigma per sequence)."""
+    if N > MAX_N:
+        raise NotImplementedError(
+            f"bucket N = {N} > 256 needs the span-chunked kernels, not "
+            "ported yet (ROADMAP A8)"
+        )
+
+    def run(ls):
+        return _prob8_run_body(seqs, ns, ct, ls, N, allows_short_hairpins)
+
+    return PP._retrying(run, ns)

@@ -1,0 +1,95 @@
+"""Batch execution: length buckets and padded device batches
+(``rna_algos_tpu.parallel.runner``), CONTRA only and without a mesh."""
+
+import numpy as np
+import torch
+
+from rna_algos_tpu.constants import PSEUDO_BASE
+from rna_algos_tpu.params import build_fold_score_sets
+
+from ..models import mccaskill as M
+from ..ops.pallas_fold_prob8 import MAX_N
+from ..weights import contra_tables
+
+# Static length buckets (as in the JAX package).
+BUCKETS = (64, 96, 128, 192, 256, 384, 512)
+# The JAX kernel path folds in power-of-two buckets; the port folds the
+# same padded shapes so the two are held against each other like for like.
+POW2_BUCKET = {96: 128, 192: 256}
+
+
+def pick_bucket(n):
+    for b in BUCKETS:
+        if n <= b:
+            return b
+    return ((n + 127) // 128) * 128
+
+
+def kernel_bucket(n):
+    """The bucket the port folds a length-n sequence in."""
+    N = pick_bucket(n)
+    N = POW2_BUCKET.get(N, N)
+    if N > MAX_N:
+        raise NotImplementedError(
+            f"sequence length {n} > 256 needs the span-chunked kernels, not "
+            "ported yet (ROADMAP A8)"
+        )
+    return N
+
+
+def pad_seqs(seqs, N):
+    out = np.full((len(seqs), N), PSEUDO_BASE, dtype=np.int32)
+    for k, s in enumerate(seqs):
+        out[k, : len(s)] = s
+    return out
+
+
+def resolve_device(device):
+    """torch.device for ``device``; a CUDA device with no GPU raises (the
+    port never falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but no CUDA GPU is available"
+        )
+    return device
+
+
+class FoldEngine:
+    """Cached-table, bucketed McCaskill batch runner on one device."""
+
+    def __init__(self, uses_contra_model=False, allows_short_hairpins=False,
+                 device="cuda"):
+        if not uses_contra_model:
+            raise NotImplementedError(
+                "the Turner model is not ported yet (ROADMAP A7: kernels "
+                "K4/K5); pass -c for CONTRAfold"
+            )
+        self.contra = True
+        self.allows_short_hairpins = bool(allows_short_hairpins)
+        self.device = resolve_device(device)
+        self.tbl = contra_tables(build_fold_score_sets(), self.device)
+
+    def fold_batch(self, seqs):
+        """BPPs for a list of int sequences: a list of (bpp, presence)
+        numpy arrays cropped to each true length, in input order."""
+        order = sorted(range(len(seqs)), key=lambda k: len(seqs[k]))
+        results = [None] * len(seqs)
+        by_bucket = {}
+        for k in order:
+            by_bucket.setdefault(kernel_bucket(len(seqs[k])), []).append(k)
+        for N, idxs in by_bucket.items():
+            arr = torch.as_tensor(pad_seqs([seqs[k] for k in idxs], N),
+                                  dtype=torch.int64, device=self.device)
+            ns = torch.as_tensor([len(seqs[k]) for k in idxs],
+                                 dtype=torch.int32, device=self.device)
+            bpp, presence = M.mccaskill_bpp_batch_auto(
+                arr, ns, self.tbl, N=N, contra=self.contra,
+                allows_short_hairpins=self.allows_short_hairpins,
+            )
+            bpp = bpp.cpu().numpy()
+            presence = presence.cpu().numpy()
+            for slot, k in enumerate(idxs):
+                n = len(seqs[k])
+                results[k] = (bpp[slot, :n, :n], presence[slot, :n, :n])
+        return results

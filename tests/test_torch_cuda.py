@@ -1,0 +1,51 @@
+"""Kernels K1-K3 against their plain versions on a CUDA GPU: the checks of
+chip_smoke.py, at the main path's buckets.  Skipped without a GPU; run on
+the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
+
+import pytest
+import torch
+
+import chip_smoke
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module", params=chip_smoke.SHAPES_CHECK,
+                ids=lambda s: f"N{s[0]}_B{s[1]}")
+def inputs(device, request):
+    N, B = request.param
+    return chip_smoke.kernel_inputs(N, B, seed=N + B, device=device)
+
+
+def test_skew_kernel_bitwise(inputs):
+    assert chip_smoke.check_skew(inputs) == 0.0
+
+
+def test_inside_kernel_matches_plain(inputs):
+    chip_smoke.check_inside(inputs)
+
+
+def test_outside_kernel_matches_plain(inputs):
+    assert chip_smoke.check_outside(inputs) <= chip_smoke.ATOL_BPPO
+
+
+def test_main_path_launches_every_kernel(device):
+    from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
+    from rna_algos_tpu_torch.ops import pallas_skew as K3
+    from rna_algos_tpu_torch.parallel.runner import FoldEngine
+
+    counters = (K3.launches, P8.inside_launches, P8.outside_launches)
+    for c in counters:
+        c.reset()
+    engine = FoldEngine(uses_contra_model=True, device=device)
+    out = engine.fold_batch(chip_smoke.random_batch(8, 60, 120, seed=3))
+    assert all(c.count >= 1 for c in counters)
+    assert all(bpp.shape[0] == presence.shape[0] for bpp, presence in out)

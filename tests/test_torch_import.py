@@ -1,0 +1,52 @@
+"""The port imports torch and never jax, and importing it builds nothing."""
+
+import json
+import subprocess
+import sys
+
+from .conftest import REPO_ROOT
+
+PROBE = r"""
+import importlib, json, os, pkgutil, sys
+import rna_algos_tpu_torch as pkg
+from rna_algos_tpu_torch.ops import _build
+before = sorted(os.listdir(_build.BUILD_DIR)) if _build.BUILD_DIR.exists() else None
+mods = []
+for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(info.name)
+    mods.append(info.name)
+after = sorted(os.listdir(_build.BUILD_DIR)) if _build.BUILD_DIR.exists() else None
+print(json.dumps({
+    "mods": mods,
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "torch": "torch" in sys.modules,
+    "built": _build.library.cache_info().currsize,
+    "build_dir_same": before == after,
+}))
+"""
+
+
+def _probe():
+    res = subprocess.run(
+        [sys.executable, "-c", PROBE], cwd=str(REPO_ROOT),
+        capture_output=True, text=True, check=True,
+    )
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_no_jax_and_builds_nothing():
+    got = _probe()
+    expected = {
+        "rna_algos_tpu_torch.weights",
+        "rna_algos_tpu_torch.ops.pallas_fold_prob8",
+        "rna_algos_tpu_torch.ops.pallas_skew",
+        "rna_algos_tpu_torch.models.centroid",
+        "rna_algos_tpu_torch.parallel.runner",
+        "rna_algos_tpu_torch.cli.centroid_fold",
+        "rna_algos_tpu_torch.cli.mccaskill",
+    }
+    assert expected <= set(got["mods"]), got["mods"]
+    assert got["jax"] == []
+    assert got["torch"]
+    assert got["built"] == 0
+    assert got["build_dir_same"]
