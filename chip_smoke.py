@@ -4,18 +4,22 @@
 
 Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
 
-1. card name and power limit, the kernels' nvcc build from csrc/;
+1. card name and power limit, the kernels' nvcc build from csrc/ (one
+   nvcc per source, in parallel);
 2. each kernel against its plain PyTorch version on the card (K3 bitwise in
-   both directions, K1 and K2 within stated tolerances at N = 128, B = 64
-   and N = 256, B = 32), and each one's time beside the plain version's at
-   the main path's shapes;
-3. the main path, FoldEngine(device="cuda").fold_batch, on the six tRNAs
-   tiled to B = 192 (bucket 128) and on 96 seeded random sequences of
-   150-200 nt (bucket 256), with every kernel's launch count;  its BPPs
+   both directions, also on the Turner precompute's 18 tables at once; K1,
+   K2 (CONTRA) and K4, K5 (Turner) within stated tolerances at N = 128,
+   B = 64 and N = 256, B = 32), and each one's time beside the plain
+   version's at the main path's shapes;
+3. the main paths, FoldEngine(device="cuda").fold_batch for CONTRA and for
+   Turner, each on the six tRNAs tiled to B = 192 (bucket 128) and on 96
+   seeded random sequences of 150-200 nt (bucket 256), each run with every
+   launch count set to 0 just before it and read just after; the BPPs
    held against the plain path on the card and the tRNA goldens;
-4. the centroid CLI on assets/sampled_trnas.fa, byte for byte against
-   tests/golden/c_baseline/centroid_contra/;
-5. seqs/s of both main-path configurations, kernel path and plain path.
+4. the centroid CLI on assets/sampled_trnas.fa: with -c byte for byte
+   against tests/golden/c_baseline/centroid_contra/, without -c against
+   centroid_turner/ under the gamma = 1 tie rule (``turner_centroid_verdict``);
+5. seqs/s of every main-path configuration, kernel path and plain path.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and prints
@@ -49,6 +53,11 @@ ATOL_TINY = 1e-30
 ATOL_BPPO = 1e-5
 TOL_MAIN_VS_PLAIN = 1e-4
 TOL_GOLDEN = 5e-4
+# The one Turner centroid cell where the probability path may leave the
+# cubic golden: record 0 of centroid_threshold=1.fa pairs (2, 80) in the
+# golden at BPP 1.0000076; the probability path's BPP there is ~0.999993,
+# and gamma = 1 pairs only above 1 (a tie within ~1e-5).
+TURNER_TIE = ("centroid_threshold=1.fa", 0, (2, 80))
 
 
 def random_batch(B, lo, hi, seed):
@@ -91,12 +100,44 @@ def kernel_inputs(N, B, seed, device):
         seqs=seqs, ns=ns, mi=mi, KW=KW, scal=scal, mo=mo,
         one=one, QONE=QONE, extR=extR, b0lo=b0lo,
         pq=[pq[k].contiguous() for k in sorted(pq)],
+        inside_args=(mi, KW, scal, ns),
         outside_args=(mo, one, QONE, extR, b0lo, KW, scal, ns, 5),
     )
 
 
+def turner_inputs(N, B, seed, device):
+    """The inputs the Turner main path hands K4, K5 and K3 at ln_sigma =
+    0.5 (the Turner seed)."""
+    from rna_algos_tpu_torch.ops import pallas_fold as PF
+    from rna_algos_tpu_torch.ops import pallas_fold_prob as PP
+    from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
+    from rna_algos_tpu_torch.weights import turner_tables
+
+    lo = max(30, N // 2 + 10)
+    seqs, ns = padded(random_batch(B, lo, N, seed), N, device)
+    tt = turner_tables(device)
+    ls = torch.full((B,), PP.LN_SIGMA0_TURNER, device=device)
+    pmats = PP.turner_prob_mats(seqs, ns, tt, ls, N)
+    LENBp, LENIp = PP._turner_len_prob(tt, ls)
+    KB, K2, KI = PP._turner_banded_kernels(LENBp, LENIp)
+    KT = torch.stack([KI, KB, K2], dim=1).contiguous()
+    scal = PP._turner_scal_rows(tt, ls, LENIp)
+    mi = {k: v.contiguous() for k, v in P8._turner_merge_inside(pmats).items()}
+    close, ext, one = P8.turner_inside(mi, KT, scal, ns)
+    QONE, extL, extR, glob = PF.contra_outside_aux(ns, ext, one, N)
+    mo = {k: v.contiguous() for k, v in P8._turner_merge_outside(
+        close, pmats, extL, glob, scal[:, 3]).items()}
+    return dict(
+        seqs=seqs, ns=ns, mi=mi, KT=KT, scal=scal,
+        pq=[mi[k] for k in P8.TURNER_INSIDE_TABLES],   # 18 tables, one K3 call
+        inside_args=(mi, KT, scal, ns),
+        outside_args=(mo, one, QONE, extR, KT, scal, ns, 5),
+    )
+
+
 def check_skew(inp):
-    """K3 vs plain, bitwise, both directions; returns max abs error (0)."""
+    """K3 vs plain, bitwise, both directions, all of ``inp["pq"]`` in one
+    launch; returns max abs error (0)."""
     from rna_algos_tpu_torch.ops import pallas_skew as K3
 
     for inv in (False, True):
@@ -105,18 +146,21 @@ def check_skew(inp):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
-                raise AssertionError(f"K3 skew inv={inv} differs from plain")
+                raise AssertionError(
+                    f"K3 skew of {len(got)} tables inv={inv} differs from plain"
+                )
     return 0.0
 
 
-def check_inside(inp):
-    """K1 vs plain on close, ext, one: |k - p| <= RTOL_INSIDE * |p|.
-    Returns (max abs error, max relative error); the scaled partition
-    functions run up to ~1e8, so the relative error is the telling one."""
+def check_inside(inp, label="K1", kernel="contra_inside"):
+    """An inside kernel (K1 or K4) vs its plain version on close, ext, one:
+    |k - p| <= RTOL_INSIDE * |p|.  Returns (max abs error, max relative
+    error); the scaled partition functions run up to ~1e8, so the relative
+    error is the telling one."""
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
 
-    got = P8.contra_inside(inp["mi"], inp["KW"], inp["scal"], inp["ns"])
-    want = P8.contra_inside_plain(inp["mi"], inp["KW"], inp["scal"], inp["ns"])
+    got = getattr(P8, kernel)(*inp["inside_args"])
+    want = getattr(P8, kernel + "_plain")(*inp["inside_args"])
     torch.cuda.synchronize()
     worst_abs = worst_rel = 0.0
     for name, g, w in zip(("close", "ext", "one"), got, want):
@@ -125,29 +169,68 @@ def check_inside(inp):
         worst_abs = max(worst_abs, float(err.max()))
         worst_rel = max(worst_rel, rel)
         bad = ~(err <= RTOL_INSIDE * w.abs() + ATOL_TINY)
-        print(f"  K1 {name}: max rel err {rel:.3e} max abs "
+        print(f"  {label} {name}: max rel err {rel:.3e} max abs "
               f"{float(err.max()):.3e}, {int(bad.sum())} outside tolerance")
         if bool(bad.any()):
             idx = bad.nonzero()[0].tolist()
             raise AssertionError(
-                f"K1 {name} differs from plain at {idx}: kernel "
+                f"{label} {name} differs from plain at {idx}: kernel "
                 f"{float(g[tuple(idx)])!r} plain {float(w[tuple(idx)])!r}"
             )
     return worst_abs, worst_rel
 
 
-def check_outside(inp):
-    """K2 vs plain on bppo: max |k - p| <= ATOL_BPPO."""
+def check_outside(inp, label="K2", kernel="contra_outside"):
+    """An outside kernel (K2 or K5) vs its plain version on bppo:
+    max |k - p| <= ATOL_BPPO."""
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
 
-    got = P8.contra_outside(*inp["outside_args"])
-    want = P8.contra_outside_plain(*inp["outside_args"])
+    got = getattr(P8, kernel)(*inp["outside_args"])
+    want = getattr(P8, kernel + "_plain")(*inp["outside_args"])
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    print(f"  K2 bppo: max abs err {err:.3e}, max bppo {float(want.max()):.4f}")
+    print(f"  {label} bppo: max abs err {err:.3e}, max bppo "
+          f"{float(want.max()):.4f}")
     if not bool(torch.isfinite(got).all()) or err > ATOL_BPPO:
-        raise AssertionError(f"K2 bppo differs from plain: {err}")
+        raise AssertionError(f"{label} bppo differs from plain: {err}")
     return err
+
+
+def dot_bracket_pairs(db):
+    """The (i, j) pairs of a dot-bracket string."""
+    stack, pairs = [], []
+    for k, ch in enumerate(db):
+        if ch == "(":
+            stack.append(k)
+        elif ch == ")":
+            pairs.append((stack.pop(), k))
+    return pairs
+
+
+def turner_centroid_verdict(ref_dir, out_dir):
+    """The Turner centroid files against centroid_turner/: "identical" if
+    all are byte-identical, "tie" if they are except that record 0 of
+    centroid_threshold=1.fa leaves out the golden's pair (2, 80) and
+    nothing else (TURNER_TIE); raises otherwise."""
+    ref_dir, out_dir = pathlib.Path(ref_dir), pathlib.Path(out_dir)
+    names = sorted(os.listdir(ref_dir))
+    if names != sorted(os.listdir(out_dir)):
+        raise AssertionError("centroid CLI wrote other files")
+    tie_file, tie_rec, (p, q) = TURNER_TIE
+    verdict = "identical"
+    for nm in names:
+        want = (ref_dir / nm).read_text()
+        got = (out_dir / nm).read_text()
+        if got == want:
+            continue
+        lines = want.split("\n")
+        rec = lines[2 * tie_rec + 1]
+        lines[2 * tie_rec + 1] = rec[:p] + "." + rec[p + 1:q] + "." + rec[q + 1:]
+        if nm != tie_file or (p, q) not in dot_bracket_pairs(rec) or (
+                got != "\n".join(lines)):
+            raise AssertionError(f"Turner centroid output differs: {nm}")
+        verdict = "tie"
+    return verdict
 
 
 def cuda_ms(fn, reps):
@@ -166,21 +249,40 @@ def cuda_ms(fn, reps):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the main path through the plain versions on the card."""
+    """Route the main paths through the plain versions on the card."""
     from rna_algos_tpu_torch.models import mccaskill as M
+    from rna_algos_tpu_torch.ops import pallas_fold as PF
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
     from rna_algos_tpu_torch.ops import pallas_skew as K3
 
-    saved = (P8.contra_inside, P8.contra_outside, P8.skew_pq_batch,
-             M.skew_pq_batch)
-    P8.contra_inside = P8.contra_inside_plain
-    P8.contra_outside = P8.contra_outside_plain
-    P8.skew_pq_batch = M.skew_pq_batch = K3.skew_pq_batch_plain
+    swaps = [(P8, k, getattr(P8, k + "_plain")) for k in KERNELS_P8]
+    swaps += [(mod, "skew_pq_batch", K3.skew_pq_batch_plain)
+              for mod in (P8, PF, M)]
+    saved = [(mod, k, getattr(mod, k)) for mod, k, _ in swaps]
+    for mod, k, fn in swaps:
+        setattr(mod, k, fn)
     try:
         yield
     finally:
-        (P8.contra_inside, P8.contra_outside, P8.skew_pq_batch,
-         M.skew_pq_batch) = saved
+        for mod, k, fn in saved:
+            setattr(mod, k, fn)
+
+
+KERNELS_P8 = ("contra_inside", "contra_outside", "turner_inside",
+              "turner_outside")
+# kernel -> (its source, the TPU kernel it replaces)
+REPLACES = {
+    "skew": ("rna_algos_tpu_torch/csrc/skew.cu",
+             "rna_algos_tpu/ops/pallas_skew.py:36"),
+    "contra_inside": ("rna_algos_tpu_torch/csrc/contra_inside.cu",
+                      "rna_algos_tpu/ops/pallas_fold_prob8.py:562"),
+    "contra_outside": ("rna_algos_tpu_torch/csrc/contra_outside.cu",
+                       "rna_algos_tpu/ops/pallas_fold_prob8.py:1054"),
+    "turner_inside": ("rna_algos_tpu_torch/csrc/turner_inside.cu",
+                      "rna_algos_tpu/ops/pallas_fold_prob8.py:2016"),
+    "turner_outside": ("rna_algos_tpu_torch/csrc/turner_outside.cu",
+                       "rna_algos_tpu/ops/pallas_fold_prob8.py:2537"),
+}
 
 
 def main():
@@ -217,113 +319,146 @@ def main():
             print(f"  ptxas: {line.strip()}")
 
     # phase 2: kernels vs plain
-    err = {"skew": 0.0, "contra_inside": 0.0, "contra_outside": 0.0}
-    rel_inside = 0.0
+    err = {k: 0.0 for k in REPLACES}
+    rel = {"contra_inside": 0.0, "turner_inside": 0.0}
     for N, B in SHAPES_CHECK:
         print(f"check N={N} B={B}")
         inp = kernel_inputs(N, B, seed=N + B, device=dev)
-        err["skew"] = max(err["skew"], check_skew(inp))
-        abs_in, rel_in = check_inside(inp)
-        err["contra_inside"] = max(err["contra_inside"], abs_in)
-        rel_inside = max(rel_inside, rel_in)
+        tinp = turner_inputs(N, B, seed=N + B + 1, device=dev)
+        err["skew"] = max(err["skew"], check_skew(inp), check_skew(tinp))
+        for key, label, x in (("contra_inside", "K1", inp),
+                              ("turner_inside", "K4", tinp)):
+            a, r = check_inside(x, label, key)
+            err[key] = max(err[key], a)
+            rel[key] = max(rel[key], r)
         err["contra_outside"] = max(err["contra_outside"], check_outside(inp))
+        err["turner_outside"] = max(
+            err["turner_outside"], check_outside(tinp, "K5", "turner_outside"))
     times = {}
     for N, B in SHAPES_MAIN:
         inp = kernel_inputs(N, B, seed=7 * N, device=dev)
-        a = (inp["mi"], inp["KW"], inp["scal"], inp["ns"])
-        tables = [inp["mi"][k] for k in sorted(inp["mi"])]
-        t = {
-            "skew": (cuda_ms(lambda: K3.skew_pq_batch(tables), 20),
-                     cuda_ms(lambda: K3.skew_pq_batch_plain(tables), 20)),
-            "contra_inside": (cuda_ms(lambda: P8.contra_inside(*a), 5),
-                              cuda_ms(lambda: P8.contra_inside_plain(*a), 2)),
-            "contra_outside": (
-                cuda_ms(lambda: P8.contra_outside(*inp["outside_args"]), 5),
-                cuda_ms(lambda: P8.contra_outside_plain(*inp["outside_args"]), 2),
-            ),
-        }
+        tinp = turner_inputs(N, B, seed=7 * N + 1, device=dev)
+        tables = [inp["mi"][k] for k in sorted(inp["mi"])]   # 9, as PR 1
+        t = {"skew": (cuda_ms(lambda: K3.skew_pq_batch(tables), 20),
+                      cuda_ms(lambda: K3.skew_pq_batch_plain(tables), 20)),
+             "skew18": (cuda_ms(lambda: K3.skew_pq_batch(tinp["pq"]), 20),
+                        cuda_ms(lambda: K3.skew_pq_batch_plain(tinp["pq"]),
+                                20))}
+        for key, args in (("contra_inside", inp["inside_args"]),
+                          ("contra_outside", inp["outside_args"]),
+                          ("turner_inside", tinp["inside_args"]),
+                          ("turner_outside", tinp["outside_args"])):
+            kern, plain = getattr(P8, key), getattr(P8, key + "_plain")
+            t[key] = (cuda_ms(lambda: kern(*args), 5),
+                      cuda_ms(lambda: plain(*args), 2))
         for k, (ms, pms) in t.items():
             print(f"time N={N} B={B} {k}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
         times[(N, B)] = t
 
-    # phase 3: the main path, counted
+    # phase 3: the main paths, each counted on its own
     trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
     batches = {
         "trna_N128_B192": trnas * 32,
         "rfam_N256_B96": random_batch(96, 150, 200, seed=2024),
     }
-    engine = FoldEngine(uses_contra_model=True, device="cuda")
-    counters = (K3.launches, P8.inside_launches, P8.outside_launches)
-    for c in counters:
-        c.reset()
-    results = {k: engine.fold_batch(v) for k, v in batches.items()}
-    torch.cuda.synchronize()
-    counts = {c.name: c.count for c in counters}
-    print(f"main path launches: {counts}")
-    if min(counts.values()) < 1:
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
-    with plain_kernels():
-        plain = {k: engine.fold_batch(v) for k, v in batches.items()}
-    for key in batches:
-        worst = max(float(np.abs(a[0] - b[0]).max())
-                    for a, b in zip(results[key], plain[key]))
-        shapes_ok = all(a[0].shape == (len(s), len(s)) and np.isfinite(a[0]).all()
-                        for a, s in zip(results[key], batches[key]))
-        print(f"{key}: kernel vs plain path max |dBPP| {worst:.3e}")
-        if worst > TOL_MAIN_VS_PLAIN or not shapes_ok:
-            raise AssertionError(f"{key}: main path disagrees with plain path")
+    engines = {
+        "contra": FoldEngine(uses_contra_model=True, device="cuda"),
+        "turner": FoldEngine(uses_contra_model=False, device="cuda"),
+    }
+    counters = (K3.launches, P8.inside_launches, P8.outside_launches,
+                P8.turner_inside_launches, P8.turner_outside_launches)
+    path_kernels = {"contra": ("skew", "contra_inside", "contra_outside"),
+                    "turner": ("skew", "turner_inside", "turner_outside")}
+    results, counts = {}, {}
+    for model, engine in engines.items():
+        for c in counters:
+            c.reset()
+        results[model] = {k: engine.fold_batch(v) for k, v in batches.items()}
+        torch.cuda.synchronize()
+        counts[model] = {c.name: c.count for c in counters}
+        print(f"main path {model} launches: {counts[model]}")
+        if min(counts[model][k] for k in path_kernels[model]) < 1:
+            raise AssertionError(
+                f"a kernel of the {model} path never launched: {counts[model]}")
     gold = np.load(ROOT / "tests" / "golden" / "trna_bpps.npz")
-    worst = max(float(np.abs(results["trna_N128_B192"][k][0]
-                             - gold[f"rec{k}_contra"]).max())
-                for k in range(len(trnas)))
-    print(f"tRNA vs trna_bpps.npz: max |dBPP| {worst:.3e}")
-    if worst > TOL_GOLDEN:
-        raise AssertionError("tRNA BPPs outside the 5e-4 golden budget")
+    for model, engine in engines.items():
+        with plain_kernels():
+            plain = {k: engine.fold_batch(v) for k, v in batches.items()}
+        for key in batches:
+            got = results[model][key]
+            worst = max(float(np.abs(a[0] - b[0]).max())
+                        for a, b in zip(got, plain[key]))
+            shapes_ok = all(
+                a[0].shape == (len(s), len(s)) and np.isfinite(a[0]).all()
+                for a, s in zip(got, batches[key]))
+            print(f"{model} {key}: kernel vs plain path max |dBPP| {worst:.3e}")
+            if worst > TOL_MAIN_VS_PLAIN or not shapes_ok:
+                raise AssertionError(
+                    f"{model} {key}: main path disagrees with plain path")
+        worst = max(float(np.abs(results[model]["trna_N128_B192"][k][0]
+                                 - gold[f"rec{k}_{model}"]).max())
+                    for k in range(len(trnas)))
+        print(f"{model} tRNA vs trna_bpps.npz: max |dBPP| {worst:.3e}")
+        if worst > TOL_GOLDEN:
+            raise AssertionError(
+                f"{model} tRNA BPPs outside the 5e-4 golden budget")
+    tie_file, tie_rec, (tp, tq) = TURNER_TIE
+    tie_bpp = float(results["turner"]["trna_N128_B192"][tie_rec][0][tp, tq])
+    print(f"turner record {tie_rec} BPP at {(tp, tq)}: {tie_bpp!r} "
+          f"(golden {float(gold[f'rec{tie_rec}_turner'][tp, tq])!r})")
 
-    # phase 4: the centroid CLI, byte for byte
-    ref_dir = ROOT / "tests" / "golden" / "c_baseline" / "centroid_contra"
+    # phase 4: the centroid CLI, both models
+    golden = ROOT / "tests" / "golden" / "c_baseline"
+    fasta = str(ROOT / "assets" / "sampled_trnas.fa")
     with tempfile.TemporaryDirectory() as tmp:
-        cf_cli.main(["-i", str(ROOT / "assets" / "sampled_trnas.fa"),
-                     "-o", tmp, "-c"])
+        cf_cli.main(["-i", fasta, "-o", tmp, "-c"])
+        ref_dir = golden / "centroid_contra"
         names = sorted(os.listdir(ref_dir))
         if names != sorted(os.listdir(tmp)):
             raise AssertionError("centroid CLI wrote other files")
         for nm in names:
             if (ref_dir / nm).read_bytes() != (pathlib.Path(tmp) / nm).read_bytes():
                 raise AssertionError(f"centroid CLI output differs: {nm}")
-    print(f"centroid CLI: {len(names)} files byte-identical")
+    print(f"centroid CLI -c: {len(names)} files byte-identical")
+    with tempfile.TemporaryDirectory() as tmp:
+        cf_cli.main(["-i", fasta, "-o", tmp])
+        verdict = turner_centroid_verdict(golden / "centroid_turner", tmp)
+    print(f"centroid CLI Turner: {len(names)} files, verdict {verdict} "
+          f"({tie_file} record {tie_rec})")
 
     # phase 5: main-path throughput, kernel path and plain path
-    for key, seqs in batches.items():
-        for label, ctx in (("kernel", contextlib.nullcontext),
-                           ("plain", plain_kernels)):
-            with ctx():
-                ms = cuda_ms(lambda: engine.fold_batch(seqs),
-                             3 if label == "kernel" else 1)
-            print(f"throughput {key} {label}: {len(seqs) / (ms / 1e3):.2f} "
-                  f"seqs/s ({ms:.2f} ms/batch) on {smi}")
+    for model, engine in engines.items():
+        for key, seqs in batches.items():
+            for label, ctx in (("kernel", contextlib.nullcontext),
+                               ("plain", plain_kernels)):
+                with ctx():
+                    ms = cuda_ms(lambda: engine.fold_batch(seqs),
+                                 3 if label == "kernel" else 1)
+                print(f"throughput {model} {key} {label}: "
+                      f"{len(seqs) / (ms / 1e3):.2f} seqs/s ({ms:.2f} ms/batch) "
+                      f"on {smi}")
 
-    replaces = {
-        "skew": ("rna_algos_tpu_torch/csrc/skew.cu",
-                 "rna_algos_tpu/ops/pallas_skew.py:36"),
-        "contra_inside": ("rna_algos_tpu_torch/csrc/contra_inside.cu",
-                          "rna_algos_tpu/ops/pallas_fold_prob8.py:562"),
-        "contra_outside": ("rna_algos_tpu_torch/csrc/contra_outside.cu",
-                           "rna_algos_tpu/ops/pallas_fold_prob8.py:1054"),
-    }
     head = SHAPES_MAIN[0]
     kernels = []
-    for k, (src, rep) in replaces.items():
-        kernels.append({
+    for k, (src, rep) in REPLACES.items():
+        paths = [m for m, ks in path_kernels.items() if k in ks]
+        entry = {
             "name": k, "route": "cuda", "source": src, "replaces": rep,
-            "launches": counts[k], "max_abs_err": err[k],
+            "launches": sum(counts[m][k] for m in paths),
+            "max_abs_err": err[k],
             "ms": times[head][k][0], "plain_ms": times[head][k][1],
             "ms_by_shape": {f"N{N}_B{B}": times[(N, B)][k][0]
                             for N, B in SHAPES_MAIN},
             "plain_ms_by_shape": {f"N{N}_B{B}": times[(N, B)][k][1]
                                   for N, B in SHAPES_MAIN},
-        })
-    kernels[1]["max_rel_err"] = rel_inside
+            "launches_by_path": {m: counts[m][k] for m in paths},
+        }
+        if k in rel:
+            entry["max_rel_err"] = rel[k]
+        if k == "skew":
+            entry["ms_by_shape_18_tables"] = {
+                f"N{N}_B{B}": times[(N, B)]["skew18"][0] for N, B in SHAPES_MAIN}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,10 +1,11 @@
 """rna_algos_tpu_torch: the PyTorch / CUDA port of rna_algos_tpu.
 
-The CONTRAfold centroid-fold main path, held against the JAX package:
+The centroid-fold main path, both models, held against the JAX package:
 
   FASTA -> parallel.runner.FoldEngine.fold_batch
         -> models.mccaskill.mccaskill_bpp_batch_auto
-        -> ops.pallas_fold_prob8.mccaskill_contra_prob   (kernels K1, K2, K3)
+        -> ops.pallas_fold_prob8.mccaskill_turner_prob   (kernels K4, K5, K3)
+           or mccaskill_contra_prob with -c              (kernels K1, K2, K3)
         -> models.mccaskill._prob_finish                 (kernel K3, inverse)
         -> models.centroid.mea_fill_gammas + traceback -> dot-bracket files
 

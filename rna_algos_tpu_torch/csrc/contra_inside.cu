@@ -17,6 +17,8 @@
 //   one  = rmmb + s1 + s2
 //
 // with c(s, l) = close*JB of span s at lane l, the window-buffer rows.
+// The window loop, the rm/rmmb update and the bifurcation sums are the
+// helpers of common.cuh that K4 (turner_inside.cu) shares.
 //
 // Bound: the latency of n dependent spans, not FLOPs or bytes.  At N = 128
 // the window is ~8 MFLOP per sequence and the O(d) bifurcation sums ~2.8
@@ -63,65 +65,30 @@ __global__ void contra_inside_kernel(
     s2r[e] = 0.0f;
     s1r[e] = 0.0f;
   }
-  const float eu1 = scal[b * RNA_SCAL + 0];
-  const float ebp = scal[b * RNA_SCAL + 1];
-  const float mbu1 = scal[b * RNA_SCAL + 2];
-  const float mbbp = scal[b * RNA_SCAL + 3];
+  const RnaScalars s = rna_scalars(scal + b * RNA_SCAL);
   const int n = ns[b];
   __syncthreads();
 
-  float rm_prev = 0.0f, rmmb_prev = 0.0f, epow = 1.0f;
+  RnaInsideLane st;
   for (int d = 0; d < n; ++d) {
     const long long row = base + (long long)d * N + i;
 
     // phase A: close from the window ring and the s2 ring (spans < d)
-    float win = 0.0f;
-    for (int a = 0; a < RNA_WIN - 1; ++a) {
-      const float* lane = ring + (i + 1 + a);
-      const float* krow = kw + a * RNA_WIN;
-      for (int r = a + 1; r < RNA_WIN; ++r)
-        win = fmaf(krow[r], lane[((d - 1 - r) & (RNA_WIN - 1)) * LW], win);
-    }
+    const float win = rna_window_inside(ring, kw, 0, d, i, LW);
     float two = JS[row] * win;
     two = two + STK[row] * ring[((d - 2) & (RNA_WIN - 1)) * LW + i + 1];
     two = two + B0R[row] * ring[((d - 3) & (RNA_WIN - 1)) * LW + i + 1];
     two = two + B0L[row] * ring[((d - 3) & (RNA_WIN - 1)) * LW + i + 2];
     two = two + I11[row] * ring[((d - 4) & (RNA_WIN - 1)) * LW + i + 2];
-    const float mb_term =
-        d >= 2 ? s2r[(d & 1) * (N + 1) + i + 1] * MBC[row] : 0.0f;
-    float c = H[row] + two + mb_term;
-    if (d + 1 < RNA_MIN_SPAN_HAIRPIN_CLOSE) c = 0.0f;
-    close[row] = c;
-    const float acc = c * ACC[row];
-    const float rm_new = rm_prev * eu1 + acc * ebp;
-    const float rmmb_new = rmmb_prev * mbu1 + acc * mbbp;
-    epow = epow * eu1;
-    rm_hist[row] = rm_new;
-    rmm_hist[row] = rmmb_new;
-    rm_prev = rm_new;
-    rmmb_prev = rmmb_new;
+    const float c = rna_inside_close(H[row] + two, MBC, ACC, s2r, s, row, d,
+                                     i, N, st, close, rm_hist, rmm_hist);
     __syncthreads();
 
     // phase B: insert this span into the ring; bifurcation sums over the
     // rm/rmmb rows of spans <= d (all lanes now visible)
     ring[(d & (RNA_WIN - 1)) * LW + i] = c * JB[row];
-    const int tmax = min(d - 1, N - 1 - i);
-    float es = 0.0f, s2 = 0.0f;
-    for (int t = 0; t <= tmax; ++t) {
-      const long long src = base + (long long)(d - t) * N + i + t;
-      const float e = t == 0 ? 1.0f : ext[base + (long long)(t - 1) * N + i];
-      es = fmaf(rm_hist[src], e, es);
-      if (t >= 1)
-        s2 = fmaf(one[base + (long long)(t - 1) * N + i], rmm_hist[src], s2);
-    }
-    const float ext_new = epow + es;
-    const float rmm_nb =
-        (d >= 1 && i + 1 < N) ? rmm_hist[row - N + 1] : 0.0f;
-    const float s1v = mbu1 * (rmm_nb + s1r[((d - 1) & 1) * (N + 1) + i + 1]);
-    s1r[(d & 1) * (N + 1) + i] = s1v;
-    s2r[(d & 1) * (N + 1) + i] = s2;
-    ext[row] = ext_new;
-    one[row] = rmmb_new + s1v + s2;
+    rna_inside_bifurcation(st, s.mbu1, base, row, d, i, N, ext, one, rm_hist,
+                           rmm_hist, s1r, s2r);
     __syncthreads();
   }
 }

@@ -20,7 +20,9 @@
 //
 // The TPU pre-rotates ONEP and EXTR by 2N - n (pallas_fold.py:691-709)
 // because Mosaic cannot slice lanes dynamically; here one(t-1, j+1) and
-// ext(j+1, n-1) are indexed directly in the inside outputs.
+// ext(j+1, n-1) are indexed directly in the inside outputs.  The window
+// loop, base, pm, pm2, qa and the multibranch context are the helpers of
+// common.cuh that K5 (turner_outside.cu) shares.
 //
 // Bound and design as K1 (contra_inside.cu): the latency of n dependent
 // spans; one block per sequence, one thread per lane, the g2 window as a
@@ -67,61 +69,18 @@ __global__ void contra_outside_kernel(
     const bool span_ok = d + 1 >= min_span;
 
     // phase A: everything but the ring insert (reads spans > d only)
-    const float c = CLOSE[row];
-    const bool pos = c > 0.0f;
-    const float inv_close = pos ? 1.0f / c : 0.0f;
-    const float rt = EXTR[(long long)b * 2 * N + i + d + 1];
-    const float basev = c * ACCB[row] * rt;
-
-    float win = 0.0f;
-    for (int a = 0; a < RNA_WIN - 1; ++a) {
-      const float* lane = ring + (32 + i - 1 - a);
-      const float* krow = kw + a * RNA_WIN;
-      for (int r = a + 1; r < RNA_WIN; ++r)
-        win = fmaf(krow[r], lane[((d + 1 + r) & (RNA_WIN - 1)) * LW], win);
-    }
+    const RnaOutsidePair p =
+        rna_outside_pair(CLOSE, ACCB, EXTR, row, b, i, d, N);
+    const float win = rna_window_outside(ring, kw, 0, d, i, LW);
     const float jrb = JRB[row];
     float two = jrb * win;
     two = two + STKO[row] * ring[((d + 2) & (RNA_WIN - 1)) * LW + 31 + i];
     two = two + B0RO[row] * ring[((d + 3) & (RNA_WIN - 1)) * LW + 31 + i];
     two = two + jrb * b0lo * ring[((d + 3) & (RNA_WIN - 1)) * LW + 30 + i];
     two = two + I11O[row] * ring[((d + 4) & (RNA_WIN - 1)) * LW + 30 + i];
-    two = two * c;
-    const float acc_mb = c * ACCMB[row];
-
-    float pm = 0.0f;
-    if (i + d + 1 < N) {
-      for (int t = 1; d + 1 + t <= n - 1; ++t)
-        pm = fmaf(g_hist[base + (long long)(d + 1 + t) * N + i],
-                  ONE[base + (long long)(t - 1) * N + i + d + 1], pm);
-    }
-    const float pm_new = span_ok ? pm : 0.0f;
-    const float g1 = d + 1 <= n - 1 ? g_hist[row + N] : 0.0f;
-    const float pm2_raw = g1 + mbu1 * p2prev;
-    p2prev = pm2_raw;
-    const float pm2_new = span_ok ? pm2_raw : 0.0f;
-
-    float qa = 0.0f;
-    if (i >= 1) {
-      const float pm_nb = d + 1 <= n - 1 ? pm_hist[row + N - 1] : 0.0f;
-      qa = pm_nb + mbu1 * qab[((d + 1) & 1) * N + i - 1];
-    }
-    float sa = 0.0f, sbc = 0.0f;
-    for (int t = 1; t <= i && d + t <= n - 1; ++t) {
-      const long long src = base + (long long)(d + t) * N + i - t;
-      const float q = QONE[base + (long long)t * N + i];
-      sa = fmaf(pm2_hist[src], q, sa);
-      sbc = fmaf(pm_hist[src], q, sbc);
-    }
-    const float mb_ctx = acc_mb * (sa + sbc + qa);
-    float bp = basev + two + mb_ctx;
-    if (!(pos && span_ok)) bp = 0.0f;
-    bppo[row] = bp;
-    const float g2 = bp * JSN[row] * inv_close;
-    g_hist[row] = bp * MBC[row] * inv_close;
-    pm_hist[row] = pm_new;
-    pm2_hist[row] = pm2_new;
-    qab[(d & 1) * N + i] = qa;
+    const float g2 = rna_outside_bppo(
+        p, two * p.c, span_ok, mbu1, p2prev, ACCMB, MBC, JSN, ONE, QONE,
+        base, row, d, i, n, N, bppo, pm_hist, pm2_hist, g_hist, qab);
     __syncthreads();
 
     // phase B: insert g2 (its slot held span d + 32, read above)

@@ -19,7 +19,7 @@
 
 #include "common.cuh"
 
-#define RNA_SKEW_MAX_TABLES 16
+#define RNA_SKEW_MAX_TABLES 32  // the Turner precompute skews 18 tables
 
 struct SkewPtrs {
   const float* in[RNA_SKEW_MAX_TABLES];

@@ -1,12 +1,12 @@
-"""McCaskill base-pair probabilities, CONTRA model
-(``rna_algos_tpu.models.mccaskill``).
+"""McCaskill base-pair probabilities (``rna_algos_tpu.models.mccaskill``).
 
-The port covers the CONTRA branch of ``mccaskill_bpp_batch_pallas`` for
-buckets N <= 256: the scaled probability-space inside and outside kernels
-with rescale retries, then ``_prob_finish``.  The dispatch follows the
-tensors' device: CUDA tensors launch the kernels, CPU tensors run their
-plain versions.  The Turner model, the chunked long-sequence tier and the
-parity tier's log-space kernels are not ported yet (ROADMAP).
+The port covers the stacked probability-space branch of
+``mccaskill_bpp_batch_pallas`` for buckets N <= 256, both models: the
+scaled inside and outside kernels with rescale retries, then
+``_prob_finish``.  The dispatch follows the tensors' device: CUDA tensors
+launch the kernels, CPU tensors run their plain versions.  The chunked
+long-sequence tier and the parity tier's log-space kernels are not ported
+yet (ROADMAP).
 """
 
 import torch
@@ -29,16 +29,17 @@ def _prob_finish(bppo, ns, N):
 def mccaskill_bpp_batch_auto(seqs, ns, tbl, N, contra=False,
                              allows_short_hairpins=False):
     """(bpp, presence), each (B, N, N), for ``seqs`` (B, N) int64 and ``ns``
-    (B,) int32: the CONTRA branch of ``mccaskill_bpp_batch_pallas`` behind
-    the JAX package's ``mccaskill_bpp_batch_auto``.
+    (B,) int32: the stacked probability-space branch of
+    ``mccaskill_bpp_batch_pallas`` behind the JAX package's
+    ``mccaskill_bpp_batch_auto``.  ``tbl`` is ``weights.contra_tables``
+    (``contra=True``) or ``weights.turner_tables``.
 
     Runs where the tensors live: on a CUDA device through the kernels, on
     the CPU through their plain versions.  Nothing moves between devices."""
-    if not contra:
-        raise NotImplementedError(
-            "the Turner model is not ported yet (ROADMAP A7: kernels K4/K5)"
+    if contra:
+        bppo, _ls = P8.mccaskill_contra_prob(
+            seqs, ns, tbl, N=N, allows_short_hairpins=allows_short_hairpins
         )
-    bppo, _ls = P8.mccaskill_contra_prob(
-        seqs, ns, tbl, N=N, allows_short_hairpins=allows_short_hairpins
-    )
+    else:
+        bppo, _ls = P8.mccaskill_turner_prob(seqs, ns, tbl, N=N)
     return _prob_finish(bppo, ns, N)

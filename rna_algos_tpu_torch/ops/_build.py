@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 One shared library with a plain C interface, compiled by ``nvcc`` for
-``sm_90a`` at first use and loaded with ``ctypes``.  The library's name
-carries a hash of the sources, so an edit rebuilds and a stale build is
-never loaded.  It lives in ``rna_algos_tpu_torch/_build/`` (git-ignored).
+``sm_90a`` at first use and loaded with ``ctypes``: one ``nvcc -c`` per
+source, all started together, then one link.  The library's name carries a
+hash of the sources, so an edit rebuilds and a stale build is never
+loaded.  It lives in ``rna_algos_tpu_torch/_build/`` (git-ignored).
 Nothing here runs at import time.
 """
 
@@ -12,6 +13,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import shutil
 import subprocess
 import tempfile
 import time
@@ -22,7 +24,7 @@ BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -34,6 +36,8 @@ SIGNATURES = {
     "rna_skew": [ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _I, _I, _P],
     "rna_contra_inside": [_P] * 17 + [_I, _I, _P],
     "rna_contra_outside": [_P] * 20 + [_I, _I, _I, _P],
+    "rna_turner_inside": [ctypes.POINTER(_P)] + [_P] * 8 + [_I, _I, _P],
+    "rna_turner_outside": [ctypes.POINTER(_P)] + [_P] * 10 + [_I, _I, _I, _P],
 }
 
 
@@ -97,18 +101,36 @@ def library():
     build_seconds, out = 0.0, ""
     if not so.exists():
         t0 = time.perf_counter()
-        cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu],
-            capture_output=True, text=True,
+        work = pathlib.Path(tempfile.mkdtemp(dir=BUILD_DIR))
+        cu = sorted(CSRC_DIR.glob("*.cu"))
+        objs = [work / (p.stem + ".o") for p in cu]
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o",
+                 str(o), str(p)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for p, o in zip(cu, objs)
+        ]
+        outs = [p.communicate()[0] for p in procs]
+        out = "".join(
+            f"== {src.name}\n{o}" for src, o in zip(cu, outs)
         )
-        out = res.stdout + res.stderr
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{out}")
+        failed = [src.name for src, p in zip(cu, procs) if p.returncode]
+        tmp = work / "lib.so"
+        if not failed:
+            res = subprocess.run(
+                [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True,
+            )
+            out += res.stdout + res.stderr
+            if res.returncode:
+                failed = ["link"]
+        if failed:
+            shutil.rmtree(work, ignore_errors=True)
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{out}")
         os.replace(tmp, so)
+        shutil.rmtree(work, ignore_errors=True)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():

@@ -1,17 +1,21 @@
 """Scaled probability-space helpers (``rna_algos_tpu.ops.pallas_fold_prob``).
 
-The CONTRA pieces of the slice: the scale constants, the 2-loop length
-matrix and its banded form, the per-sequence scalar rows and the
-rescale-retry loop.  A state covering span s stores Z * sigma^-s for a
-per-sequence ``ln_sigma``; sequences whose scaled partition function
-leaves [GLOB_LO, GLOB_HI] re-run at a corrected scale (``_retrying``).
+The scale constants, the CONTRA and Turner 2-loop length matrices and
+their banded forms, the Turner score transform, the per-sequence scalar
+rows and the rescale-retry loop.  A state covering span s stores
+Z * sigma^-s for a per-sequence ``ln_sigma``; sequences whose scaled
+partition function leaves [GLOB_LO, GLOB_HI] re-run at a corrected scale
+(``_retrying``).
 """
 
 import torch
 
+from . import pallas_fold as PF
 from .pallas_fold import W, W2, _contra_len_di
 
 LN_SIGMA0 = 0.9          # initial per-base scale (CONTRA; typical folded RNA)
+LN_SIGMA0_TURNER = 0.5   # Turner per-base log-Z is lower (~0.35 random,
+                         # ~0.5-0.7 structured)
 RETRY_STEP = 0.9         # ln_sigma bisection step on over/underflow
 MAX_RETRIES = 10
 # Scaled-Z guard band: anything outside [GLOB_LO, GLOB_HI] re-runs (a
@@ -19,6 +23,7 @@ MAX_RETRIES = 10
 # small outside intermediates).
 GLOB_LO = 1e-24
 GLOB_HI = 1e24
+FLT_MIN = float(torch.finfo(torch.float32).tiny)   # smallest normal float32
 
 
 def _contra_len_prob(ct, ln_sigma):
@@ -75,6 +80,84 @@ def _scal_rows(ct, ln_sigma):
     return torch.stack([eu1, ebp, mbu1, mbbp], dim=1).to(torch.float32)
 
 
+# Turner: the recurrences are the CONTRA ones with eu = ebp = mbu = 0 and
+# mbbp = COEFF_NUM_BRANCHES; only the 2-loop window and the score transform
+# differ.  (a + b + 2) span powers of the small-loop replacement tables,
+# which bypass the LEN' path that carries the power of generic cells:
+_TURNER_SP_POW = {
+    "STKT": 2, "B01": 3, "B10": 3, "I11T": 4, "I12T": 5, "I21T": 5,
+    "I22T": 6,
+    "STKO": 2, "B01O": 3, "B10O": 3, "I11O": 4, "I12O": 5, "I21O": 5,
+    "I22O": 6,
+}
+
+
+def turner_prob_mats(seqs, ns, tt, ln_sigma, N):
+    """(B, N, N) [d, i] probability-space Turner tables, the span powers
+    of ``ln_sigma`` (B,) folded in."""
+    m = PF.turner_precompute_di(seqs, ns, tt, N)
+    dev = seqs.device
+    spanv = (torch.arange(N, dtype=torch.float32, device=dev) + 1.0)[:, None]
+    ls = ln_sigma.view(-1, 1, 1)
+    out = {
+        "H": torch.exp(m["H"] - spanv * ls),
+        "MBC": torch.exp(m["MBC"] - 2.0 * ls),
+        "CANON": torch.where(m["CANON"] > -1.0, 1.0, 0.0),
+    }
+    for k in ("ACC", "AUGT", "TMo1", "TMo2", "TMo3", "TMi1", "TMi2", "TMi3"):
+        out[k] = torch.exp(m[k])
+    for k, p in _TURNER_SP_POW.items():
+        out[k] = torch.exp(m[k] - float(p) * ls)
+    return out
+
+
+def _turner_len_prob(tt, ln_sigma):
+    """(B, W2, W) exp(LENB - (a+b+2)*ln_s), exp(LENI - (a+b+2)*ln_s)."""
+    LENB, LENI = PF._turner_len_di(tt)
+    dev = LENB.device
+    ab = (
+        torch.arange(W2, dtype=torch.float32, device=dev)[:, None]
+        + torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+        + 2.0
+    )
+    f = ab[None] * ln_sigma[:, None, None]
+    return torch.exp(LENB[None] - f), torch.exp(LENI[None] - f)
+
+
+def _turner_banded_kernels(LENBp, LENIp):
+    """Turner window matrices (KB, K2, KI), each (B, 32, 32): bulges, the
+    1xn / 2x3-edge interior arms and the generic interior."""
+    KB = _banded_kernel(
+        LENBp,
+        lambda a, b: ((a == 0) & (b >= 2)) | ((a >= 2) & (b == 0)),
+    )
+    K2 = _banded_kernel(
+        LENIp,
+        lambda a, b: ((a == 1) & (b >= 3)) | ((a >= 3) & (b == 1)),
+    )
+    KI = _banded_kernel(
+        LENIp,
+        lambda a, b: (
+            ((a == 2) & (b >= 4)) | ((a == 3) & (b >= 3))
+            | ((a >= 4) & (b >= 2))
+        ),
+    )
+    return KB, K2, KI
+
+
+def _turner_scal_rows(tt, ln_sigma, LENIp):
+    """(B, 6) per-sequence scalars of the Turner kernels: [u, 1, u,
+    exp(coeff_num_branches), LENI'[3, 2], LENI'[2, 3]] with u =
+    exp(-ln_sigma), the last two the scaled TM3 cell constants."""
+    B = ln_sigma.shape[0]
+    u = torch.exp(-ln_sigma)
+    ones = torch.ones_like(u)
+    coeffp = torch.exp(tt["coeff_num_branches"]).expand(B)
+    return torch.stack(
+        [u, ones, u, coeffp, LENIp[:, 3, 2], LENIp[:, 2, 3]], dim=1
+    ).to(torch.float32).contiguous()
+
+
 def _flags(bppo, glob):
     """(bad_hi, bad_lo) per sequence.  Underflow evidence wins: glob == 0
     makes 1/glob (and the bppo sum) non-finite, and reading that as
@@ -88,13 +171,14 @@ def _flags(bppo, glob):
     return bad_hi, bad_lo
 
 
-def _retrying(run, ns):
+def _retrying(run, ns, ls0=None):
     """Rescale-retry loop around a (ln_sigma,) -> (bppo, glob) run for
-    sequences of lengths ``ns`` (B,).
+    sequences of lengths ``ns`` (B,), seeded at ``ls0`` (default
+    LN_SIGMA0; the Turner path passes LN_SIGMA0_TURNER).
 
     A host loop that syncs once per iteration (``any()``) with the JAX
     loop's logic: sequences whose scaled Z left the guard band re-run; a
-    finite positive glob jumps straight to ln(glob)/n, a 0/inf one walks
+    finite normal glob jumps straight to ln(glob)/n, a 0/inf one walks
     by RETRY_STEP, halving on a direction flip; at most MAX_RETRIES
     iterations.  The JAX loop's gentler step for n > 512 belongs to the
     span-chunked tier, which is not ported (ROADMAP A8).  Returns (bppo,
@@ -102,7 +186,8 @@ def _retrying(run, ns):
     f32 = torch.float32
     B, dev = ns.shape[0], ns.device
     nf = ns.to(f32).clamp(min=1.0)
-    ls = torch.full((B,), LN_SIGMA0, dtype=f32, device=dev)
+    seed = LN_SIGMA0 if ls0 is None else ls0
+    ls = torch.full((B,), seed, dtype=f32, device=dev)
     bppo, glob = run(ls)
     bh, bl = _flags(bppo, glob)
     step = torch.full((B,), RETRY_STEP, dtype=f32, device=dev)
@@ -112,7 +197,10 @@ def _retrying(run, ns):
         bad = bh | bl
         direction = bh.to(f32) - bl.to(f32)
         step = torch.where(direction * last_dir < 0, step * 0.5, step)
-        can_jump = bad & torch.isfinite(glob) & (glob > 0.0)
+        # a subnormal glob counts as 0 (walk, no jump): XLA flushes
+        # subnormals to zero on the TPU and the CPU, so the JAX loop never
+        # jumps from one
+        can_jump = bad & torch.isfinite(glob) & (glob >= FLT_MIN)
         jump = torch.log(torch.where(can_jump, glob, torch.ones_like(glob))) / nf
         ls = ls + torch.where(can_jump, jump, step * direction)
         bppo, glob = run(ls)

@@ -1,15 +1,20 @@
-"""CONTRA McCaskill in scaled probability space, N <= 256
-(``rna_algos_tpu.ops.pallas_fold_prob8``): the merged table precompute,
-kernels K1 (inside) and K2 (outside), and the fixed-scale run wrapped in
-the rescale-retry loop.
+"""McCaskill in scaled probability space, N <= 256, both models
+(``rna_algos_tpu.ops.pallas_fold_prob8``): the merged table precomputes,
+kernels K1/K2 (CONTRA inside/outside) and K4/K5 (Turner inside/outside),
+and the fixed-scale runs wrapped in the rescale-retry loop.
 
 The TPU stacked G sequences along sublanes and aged a lane-major window;
 none of that layout is carried over.  Here each kernel runs one CUDA block
-per sequence (``csrc/contra_inside.cu``, ``csrc/contra_outside.cu``).  The
-plain versions below compute the same recurrences for the whole batch with
-tensor ops per span; the wrappers use them for CPU tensors only.
+per sequence (``csrc/contra_inside.cu``, ``csrc/contra_outside.cu``,
+``csrc/turner_inside.cu``, ``csrc/turner_outside.cu``).  The plain versions
+below compute the same recurrences for the whole batch with tensor ops per
+span; the wrappers use them for CPU tensors only.  The two models share
+every recurrence but the 2-loop term, so each pass has one plain core
+(``_inside_plain``, ``_outside_plain``) that takes the model's 2-loop term
+and window inserts as functions.
 """
 
+import ctypes
 import functools
 
 import torch
@@ -26,10 +31,31 @@ INSIDE_TABLES = ("H", "MBC", "ACC", "JS", "STK", "I11", "B0R", "B0L", "JB")
 OUTSIDE_TABLES = (
     "CLOSE", "MBC", "ACCB", "ACCMB", "STKO", "I11O", "B0RO", "JRB", "JSN",
 )
+TURNER_INSIDE_TABLES = (
+    "H", "MBC", "ACC", "AUGC", "TMO1C", "TMO2C", "TMO3C",
+    "SP00", "SP01", "SP10", "SP11", "SP12", "SP21", "SP22",
+    "AUGT", "TMI1", "TMI2", "TMI3",
+)
+TURNER_OUTSIDE_TABLES = (
+    "CLOSE", "MBC", "ACCB", "ACCMB", "AUGT", "TMI1C", "TMI2C", "TMI3C",
+    "SP00", "SP01", "SP10", "SP11", "SP12", "SP21", "SP22",
+    "TMO1", "TMO2", "TMO3",
+)
+# Turner small-loop cells as (name, window age, lane offset): the inner
+# pair of span d - 1 - age at lane i + offset (the outside mirrors the
+# lane offset).  Age k of a window ring holds span d - 1 - k (inside) or
+# d + 1 + k (outside).
+TURNER_SPECIALS = (
+    ("SP00", 1, 1), ("SP01", 2, 1), ("SP10", 2, 2), ("SP11", 3, 2),
+    ("SP12", 4, 2), ("SP21", 4, 3), ("SP22", 5, 3),
+)
+TM3_AGE = 6   # the two 2x3 cells (a, b) = (2, 3), (3, 2): age a + b + 1
 MAX_N = 256  # one CUDA block of N threads per sequence
 
 inside_launches = _build.LaunchCounter("contra_inside")
 outside_launches = _build.LaunchCounter("contra_outside")
+turner_inside_launches = _build.LaunchCounter("turner_inside")
+turner_outside_launches = _build.LaunchCounter("turner_outside")
 
 
 def contra_prob_mats_merged(seqs, ns, ct, ln_sigma, N):
@@ -113,17 +139,22 @@ def contra_prob_mats_merged(seqs, ns, ct, ln_sigma, N):
 # K1: inside wavefront
 # ---------------------------------------------------------------------------
 
-def contra_inside_plain(mi, KW, scal, ns):
-    """Plain version of K1 for the whole batch: (close, ext, one), each
-    (B, N, N) [d, i], rows at or past each sequence's length zero."""
-    H, MBC, ACC, JS, STK, I11, B0R, B0L, JB = (mi[k] for k in INSIDE_TABLES)
+def _window(K, rows, gidx):
+    """sum_a (K @ rows)[a, gidx[a, i]]: one banded 2-loop window, (B, N)."""
+    return torch.bmm(K, rows).gather(2, gidx).sum(1)
+
+
+def _inside_plain(H, MBC, ACC, scal, ns, two_at, insert):
+    """The inside recurrences K1 and K4 share, for the whole batch:
+    (close, ext, one), each (B, N, N) [d, i], rows at or past each
+    sequence's length zero.  ``two_at(d)`` is the 2-loop term of span d
+    (B, N); ``insert(d, c)`` records span d's close for later windows."""
     B, N, _ = H.shape
     dev = H.device
     eu1, ebp, mbu1, mbbp = (scal[:, k:k + 1] for k in range(4))
     n_max = int(ns.max())
     zeros = functools.partial(torch.zeros, device=dev)
     close, ext, one = zeros(B, N, N), zeros(B, N, N), zeros(B, N, N)
-    INSp = zeros(B, N + 32, N + 33)   # close*JB of span s at row s + 32
     S2 = zeros(B, N, N + 1)           # s2 of span s at row s
     RMp, RMMp = zeros(B, N, 2 * N), zeros(B, N, 2 * N)
     EXTsh = zeros(B, N + 1, N)        # row t = ext(t - 1); row 0 = 1
@@ -131,18 +162,10 @@ def contra_inside_plain(mi, KW, scal, ns):
     ONEsh = zeros(B, N + 1, N)        # row t = one(t - 1)
     S1 = zeros(B, N + 1)
     lanes = torch.arange(N, device=dev)
-    r32 = torch.arange(32, device=dev)
-    gidx = (lanes[None, :] + 1 + r32[:, None]).expand(B, 32, N)
     rm_prev, rmmb_prev = zeros(B, N), zeros(B, N)
     epow = torch.ones((B, 1), device=dev)
     for d in range(n_max):
-        rows = INSp[:, d + 31 - r32]                 # row r = span d-1-r
-        win = torch.bmm(KW, rows).gather(2, gidx).sum(1)
-        two = JS[:, d] * win
-        two = two + STK[:, d] * INSp[:, d + 30, 1:N + 1]
-        two = two + B0R[:, d] * INSp[:, d + 29, 1:N + 1]
-        two = two + B0L[:, d] * INSp[:, d + 29, 2:N + 2]
-        two = two + I11[:, d] * INSp[:, d + 28, 2:N + 2]
+        two = two_at(d)
         mb_term = S2[:, d - 2, 1:N + 1] * MBC[:, d] if d >= 2 else 0.0
         c = H[:, d] + two + mb_term
         if d + 1 < MIN_SPAN_HAIRPIN_CLOSE:
@@ -154,7 +177,7 @@ def contra_inside_plain(mi, KW, scal, ns):
         epow = epow * eu1
         RMp[:, d, :N] = rm_new
         RMMp[:, d, :N] = rmmb_new
-        INSp[:, d + 32, :N] = c * JB[:, d]
+        insert(d, c)
         if d >= 1:
             t = torch.arange(d, device=dev)
             rt, ct_ = (d - t)[:, None], lanes[None, :] + t[:, None]
@@ -177,6 +200,51 @@ def contra_inside_plain(mi, KW, scal, ns):
     z = torch.zeros((), device=dev)
     return (torch.where(live, close, z), torch.where(live, ext, z),
             torch.where(live, one, z))
+
+
+class _InsideRing:
+    """A plain-version window buffer: span s at row s + 32 (rows below 32
+    are the spans < 0, zero), lanes 0..N-1 plus a 33-lane zero pad."""
+
+    def __init__(self, B, N, dev):
+        self.N = N
+        self.buf = torch.zeros((B, N + 32, N + 33), device=dev)
+        r32 = torch.arange(32, device=dev)
+        self.r32 = r32
+        lanes = torch.arange(N, device=dev)
+        self.gidx = (lanes[None, :] + 1 + r32[:, None]).expand(B, 32, N)
+
+    def window(self, K, d):
+        """sum_{a, r} K[a, r] * row(span d-1-r, lane i+1+a)."""
+        return _window(K, self.buf[:, d + 31 - self.r32], self.gidx)
+
+    def at(self, d, age, off):
+        """(B, N): span d - 1 - age at lanes i + off."""
+        return self.buf[:, d + 31 - age, off:off + self.N]
+
+    def put(self, d, row):
+        self.buf[:, d + 32, :self.N] = row
+
+
+def contra_inside_plain(mi, KW, scal, ns):
+    """Plain version of K1 for the whole batch: (close, ext, one), each
+    (B, N, N) [d, i], rows at or past each sequence's length zero."""
+    H, MBC, ACC, JS, STK, I11, B0R, B0L, JB = (mi[k] for k in INSIDE_TABLES)
+    B, N, _ = H.shape
+    ins = _InsideRing(B, N, H.device)   # close*JB
+
+    def two_at(d):
+        two = JS[:, d] * ins.window(KW, d)
+        two = two + STK[:, d] * ins.at(d, 1, 1)
+        two = two + B0R[:, d] * ins.at(d, 2, 1)
+        two = two + B0L[:, d] * ins.at(d, 2, 2)
+        two = two + I11[:, d] * ins.at(d, 3, 2)
+        return two
+
+    def insert(d, c):
+        ins.put(d, c * JB[:, d])
+
+    return _inside_plain(H, MBC, ACC, scal, ns, two_at, insert)
 
 
 def contra_inside(mi, KW, scal, ns):
@@ -211,11 +279,12 @@ def contra_inside(mi, KW, scal, ns):
 # K2: outside wavefront
 # ---------------------------------------------------------------------------
 
-def contra_outside_plain(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
-    """Plain version of K2 for the whole batch: bppo (B, N, N) [d, i]."""
-    (CLOSE, MBC, ACCB, ACCMB, STKO, I11O, B0RO, JRB, JSN) = (
-        mo[k] for k in OUTSIDE_TABLES
-    )
+def _outside_plain(CLOSE, MBC, ACCB, ACCMB, one, QONE, extR, scal, ns,
+                   min_span, two_at, insert):
+    """The outside recurrences K2 and K5 share, for the whole batch: bppo
+    (B, N, N) [d, i].  ``two_at(d)`` is the 2-loop context of span d before
+    the factor close; ``insert(d, bp, inv_close)`` records span d for later
+    windows."""
     B, N, _ = CLOSE.shape
     dev = CLOSE.device
     mbu1 = scal[:, 2:3]
@@ -223,13 +292,10 @@ def contra_outside_plain(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
     zeros = functools.partial(torch.zeros, device=dev)
     z = torch.zeros((), device=dev)
     bppo = zeros(B, N, N)
-    G2p = zeros(B, N + 32, N + 32)    # g2 of span s at row s, lane 32 + l
     Gt = zeros(B, N + 1, N)           # g of span s at row s
     ONEpad = torch.cat([one, zeros(B, N, N)], dim=2)
     PMp, PM2p = zeros(B, N + 1, 2 * N), zeros(B, N + 1, 2 * N)  # lane N + l
     lanes = torch.arange(N, device=dev)
-    r32 = torch.arange(32, device=dev)
-    gidx = (lanes[None, :] + 31 - r32[:, None]).expand(B, 32, N)
     qa = zeros(B, N)
     p2prev = zeros(B, N)
     for d in range(n_max - 1, -1, -1):
@@ -238,14 +304,7 @@ def contra_outside_plain(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
         pos = c > 0.0
         inv_close = torch.where(pos, 1.0 / torch.where(pos, c, 1.0), z)
         basev = c * ACCB[:, d] * extR[:, d + 1:d + 1 + N]
-        win = torch.bmm(KW, G2p[:, d + 1:d + 33]).gather(2, gidx).sum(1)
-        jrb = JRB[:, d]
-        two = jrb * win
-        two = two + STKO[:, d] * G2p[:, d + 2, 31:31 + N]
-        two = two + B0RO[:, d] * G2p[:, d + 3, 31:31 + N]
-        two = two + jrb * b0lo * G2p[:, d + 3, 30:30 + N]
-        two = two + I11O[:, d] * G2p[:, d + 4, 30:30 + N]
-        two = two * c
+        two = two_at(d) * c
         acc_mb = c * ACCMB[:, d]
         T = N - 2 - d
         pm = (
@@ -275,11 +334,58 @@ def contra_outside_plain(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
             bp = torch.zeros_like(bp)
         bp = torch.where(pos, bp, z)
         bppo[:, d] = bp
-        G2p[:, d, 32:] = bp * JSN[:, d] * inv_close
+        insert(d, bp, inv_close)
         Gt[:, d] = bp * MBC[:, d] * inv_close
         PMp[:, d, N:] = pm_new
         PM2p[:, d, N:] = pm2_new
     return bppo
+
+
+class _OutsideRing:
+    """A plain-version outside window buffer: span s at row s, lanes at
+    32 + l (32 zero lanes to the left); rows >= N stay zero."""
+
+    def __init__(self, B, N, dev):
+        self.N = N
+        self.buf = torch.zeros((B, N + 32, N + 32), device=dev)
+        r32 = torch.arange(32, device=dev)
+        lanes = torch.arange(N, device=dev)
+        self.gidx = (lanes[None, :] + 31 - r32[:, None]).expand(B, 32, N)
+
+    def window(self, K, d):
+        """sum_{a, r} K[a, r] * row(span d+1+r, lane i-1-a)."""
+        return _window(K, self.buf[:, d + 1:d + 33], self.gidx)
+
+    def at(self, d, age, off):
+        """(B, N): span d + 1 + age at lanes i - off."""
+        return self.buf[:, d + 1 + age, 32 - off:32 - off + self.N]
+
+    def put(self, d, row):
+        self.buf[:, d, 32:] = row
+
+
+def contra_outside_plain(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
+    """Plain version of K2 for the whole batch: bppo (B, N, N) [d, i]."""
+    (CLOSE, MBC, ACCB, ACCMB, STKO, I11O, B0RO, JRB, JSN) = (
+        mo[k] for k in OUTSIDE_TABLES
+    )
+    B, N, _ = CLOSE.shape
+    g2 = _OutsideRing(B, N, CLOSE.device)   # bppo*JSN/close
+
+    def two_at(d):
+        jrb = JRB[:, d]
+        two = jrb * g2.window(KW, d)
+        two = two + STKO[:, d] * g2.at(d, 1, 1)
+        two = two + B0RO[:, d] * g2.at(d, 2, 1)
+        two = two + jrb * b0lo * g2.at(d, 2, 2)
+        two = two + I11O[:, d] * g2.at(d, 3, 2)
+        return two
+
+    def insert(d, bp, inv_close):
+        g2.put(d, bp * JSN[:, d] * inv_close)
+
+    return _outside_plain(CLOSE, MBC, ACCB, ACCMB, one, QONE, extR, scal,
+                          ns, min_span, two_at, insert)
 
 
 def contra_outside(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
@@ -315,6 +421,196 @@ def contra_outside(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
         int(min_span), _build.stream_ptr(dev),
     )
     outside_launches.count += 1
+    return bppo
+
+
+# ---------------------------------------------------------------------------
+# Turner: merged tables, K4 (inside) and K5 (outside)
+# ---------------------------------------------------------------------------
+
+def _turner_merge_inside(pmats):
+    """Fold CANON and the outer-terminal-mismatch * aug products into the
+    [d, i] inside tables (``_turner_merge_inside``)."""
+    canon = pmats["CANON"]
+    augc = pmats["AUGT"] * canon
+    return {
+        "H": pmats["H"] * canon,
+        "MBC": pmats["MBC"] * canon,
+        "ACC": pmats["ACC"],
+        "AUGC": augc,
+        "TMO1C": pmats["TMo1"] * augc,
+        "TMO2C": pmats["TMo2"] * augc,
+        "TMO3C": pmats["TMo3"] * augc,
+        "SP00": pmats["STKT"] * canon,
+        "SP01": pmats["B01"] * canon,
+        "SP10": pmats["B10"] * canon,
+        "SP11": pmats["I11T"] * canon,
+        "SP12": pmats["I12T"] * canon,
+        "SP21": pmats["I21T"] * canon,
+        "SP22": pmats["I22T"] * canon,
+        "AUGT": pmats["AUGT"],
+        "TMI1": pmats["TMi1"],
+        "TMI2": pmats["TMi2"],
+        "TMI3": pmats["TMi3"],
+    }
+
+
+def _turner_merge_outside(close, pmats, extL, glob, mbbp):
+    """The [d, i] outside tables (``_turner_merge_outside``); ``close`` is
+    the inside close table."""
+    aug = pmats["AUGT"]
+    inv_glob = (1.0 / glob)[:, None, None]
+    return {
+        "CLOSE": close,
+        "MBC": pmats["MBC"],
+        "ACCB": pmats["ACC"] * extL[:, None, :] * inv_glob,
+        "ACCMB": pmats["ACC"] * mbbp[:, None, None],
+        "AUGT": aug,
+        "TMI1C": pmats["TMi1"] * aug,
+        "TMI2C": pmats["TMi2"] * aug,
+        "TMI3C": pmats["TMi3"] * aug,
+        "SP00": pmats["STKO"],
+        "SP01": pmats["B01O"],
+        "SP10": pmats["B10O"],
+        "SP11": pmats["I11O"],
+        "SP12": pmats["I12O"],
+        "SP21": pmats["I21O"],
+        "SP22": pmats["I22O"],
+        "TMO1": pmats["TMo1"],
+        "TMO2": pmats["TMo2"],
+        "TMO3": pmats["TMo3"],
+    }
+
+
+def turner_inside_plain(mi, KT, scal, ns):
+    """Plain version of K4 for the whole batch: (close, ext, one), each
+    (B, N, N) [d, i], rows at or past each sequence's length zero.
+
+    ``KT`` (B, 3, 32, 32) holds the window matrices (KI, KB, K2); ``scal``
+    (B, 6) is ``_turner_scal_rows``.  Window rings: g = close*AUGT (bulges
+    and the small-loop cells), g*TMI1 (generic interior), g*TMI2 (1xn and
+    2x3-edge arms), g*TMI3 (the two 2x3 cells)."""
+    B, N, _ = mi["H"].shape
+    dev = mi["H"].device
+    l32, l23 = scal[:, 4:5], scal[:, 5:6]
+    KI, KB, K2 = KT[:, 0], KT[:, 1], KT[:, 2]
+    caw, gw1, gw2, gw3 = (_InsideRing(B, N, dev) for _ in range(4))
+
+    def two_at(d):
+        two = mi["TMO1C"][:, d] * gw1.window(KI, d)
+        two = two + mi["AUGC"][:, d] * caw.window(KB, d)
+        two = two + mi["TMO2C"][:, d] * gw2.window(K2, d)
+        two = two + mi["TMO3C"][:, d] * (
+            l32 * gw3.at(d, TM3_AGE, 3) + l23 * gw3.at(d, TM3_AGE, 4)
+        )
+        for name, age, off in TURNER_SPECIALS:
+            two = two + mi[name][:, d] * caw.at(d, age, off)
+        return two
+
+    def insert(d, c):
+        g = c * mi["AUGT"][:, d]
+        caw.put(d, g)
+        gw1.put(d, g * mi["TMI1"][:, d])
+        gw2.put(d, g * mi["TMI2"][:, d])
+        gw3.put(d, g * mi["TMI3"][:, d])
+
+    return _inside_plain(mi["H"], mi["MBC"], mi["ACC"], scal, ns, two_at,
+                         insert)
+
+
+def _table_array(tables, names):
+    return (ctypes.c_void_p * len(names))(*[tables[k].data_ptr() for k in names])
+
+
+def turner_inside(mi, KT, scal, ns):
+    """Kernel K4 (``csrc/turner_inside.cu``) for CUDA tensors, its plain
+    version for CPU tensors.  ``mi``: the 18 merged (B, N, N) [d, i] inside
+    tables; ``KT`` (B, 3, 32, 32); ``scal`` (B, 6); ``ns`` (B,)."""
+    dev = mi["H"].device
+    if dev.type == "cpu":
+        return turner_inside_plain(mi, KT, scal, ns)
+    if dev.type != "cuda":
+        raise ValueError(f"turner_inside: no kernel for device {dev}")
+    B, N, _ = mi["H"].shape
+    if N > MAX_N or N % 32:
+        raise ValueError(f"turner_inside: N = {N} (need N <= 256, N % 32 == 0)")
+    ins = {k: mi[k] for k in TURNER_INSIDE_TABLES}
+    ins.update(KT=KT, scal=scal, ns=ns)
+    shapes = {k: (B, N, N) for k in TURNER_INSIDE_TABLES}
+    shapes.update(KT=(B, 3, 32, 32), scal=(B, 6), ns=(B,))
+    _build.check_cuda("turner_inside", ins, shapes, dev)
+    close, ext, one = (torch.zeros((B, N, N), device=dev) for _ in range(3))
+    rm, rmm = torch.empty((B, N, N), device=dev), torch.empty((B, N, N), device=dev)
+    args = [KT, scal, ns, close, ext, one, rm, rmm]
+    _build.library().call(
+        "rna_turner_inside", _table_array(ins, TURNER_INSIDE_TABLES),
+        *[_build.ptr(t) for t in args], B, N, _build.stream_ptr(dev),
+    )
+    turner_inside_launches.count += 1
+    return close, ext, one
+
+
+def turner_outside_plain(mo, one, QONE, extR, KT, scal, ns, min_span):
+    """Plain version of K5 for the whole batch: bppo (B, N, N) [d, i].
+
+    Window rings, lanes descending: g2 = bppo*AUGT/close, g2*TMO1, g2*TMO2,
+    g2*TMO3, read with the inner-pair factors AUGT, TMI1C, TMI2C, TMI3C."""
+    B, N, _ = mo["CLOSE"].shape
+    dev = mo["CLOSE"].device
+    l32, l23 = scal[:, 4:5], scal[:, 5:6]
+    KI, KB, K2 = KT[:, 0], KT[:, 1], KT[:, 2]
+    og, gw1, gw2, gw3 = (_OutsideRing(B, N, dev) for _ in range(4))
+
+    def two_at(d):
+        two = mo["TMI1C"][:, d] * gw1.window(KI, d)
+        two = two + mo["AUGT"][:, d] * og.window(KB, d)
+        two = two + mo["TMI2C"][:, d] * gw2.window(K2, d)
+        two = two + mo["TMI3C"][:, d] * (
+            l32 * gw3.at(d, TM3_AGE, 3) + l23 * gw3.at(d, TM3_AGE, 4)
+        )
+        for name, age, off in TURNER_SPECIALS:
+            two = two + mo[name][:, d] * og.at(d, age, off)
+        return two
+
+    def insert(d, bp, inv_close):
+        g2 = bp * mo["AUGT"][:, d] * inv_close
+        og.put(d, g2)
+        gw1.put(d, g2 * mo["TMO1"][:, d])
+        gw2.put(d, g2 * mo["TMO2"][:, d])
+        gw3.put(d, g2 * mo["TMO3"][:, d])
+
+    return _outside_plain(mo["CLOSE"], mo["MBC"], mo["ACCB"], mo["ACCMB"],
+                          one, QONE, extR, scal, ns, min_span, two_at, insert)
+
+
+def turner_outside(mo, one, QONE, extR, KT, scal, ns, min_span):
+    """Kernel K5 (``csrc/turner_outside.cu``) for CUDA tensors, its plain
+    version for CPU tensors.  ``mo``: the 18 merged (B, N, N) outside
+    tables; ``one`` the inside one-table; ``QONE`` (B, N, N); ``extR``
+    (B, 2N); ``KT`` (B, 3, 32, 32); ``scal`` (B, 6); ``ns`` (B,)."""
+    dev = one.device
+    if dev.type == "cpu":
+        return turner_outside_plain(mo, one, QONE, extR, KT, scal, ns,
+                                    min_span)
+    if dev.type != "cuda":
+        raise ValueError(f"turner_outside: no kernel for device {dev}")
+    B, N, _ = one.shape
+    if N > MAX_N or N % 32:
+        raise ValueError(f"turner_outside: N = {N} (need N <= 256, N % 32 == 0)")
+    ins = {k: mo[k] for k in TURNER_OUTSIDE_TABLES}
+    ins.update(ONE=one, QONE=QONE, EXTR=extR, KT=KT, scal=scal, ns=ns)
+    shapes = {k: (B, N, N) for k in TURNER_OUTSIDE_TABLES + ("ONE", "QONE")}
+    shapes.update(EXTR=(B, 2 * N), KT=(B, 3, 32, 32), scal=(B, 6), ns=(B,))
+    _build.check_cuda("turner_outside", ins, shapes, dev)
+    bppo = torch.zeros((B, N, N), device=dev)
+    pm, pm2, g = (torch.empty((B, N, N), device=dev) for _ in range(3))
+    args = [one, QONE, extR, KT, scal, ns, bppo, pm, pm2, g]
+    _build.library().call(
+        "rna_turner_outside", _table_array(ins, TURNER_OUTSIDE_TABLES),
+        *[_build.ptr(t) for t in args], B, N, int(min_span),
+        _build.stream_ptr(dev),
+    )
+    turner_outside_launches.count += 1
     return bppo
 
 
@@ -358,3 +654,37 @@ def mccaskill_contra_prob(seqs, ns, ct, N, allows_short_hairpins=False):
         return _prob8_run_body(seqs, ns, ct, ls, N, allows_short_hairpins)
 
     return PP._retrying(run, ns)
+
+
+def _turner_prob8_run_body(seqs, ns, tt, ln_sigma, N):
+    """Fixed-``ln_sigma`` Turner inside + outside: (bppo [d, i], glob)."""
+    pmats = PP.turner_prob_mats(seqs, ns, tt, ln_sigma, N)
+    LENBp, LENIp = PP._turner_len_prob(tt, ln_sigma)
+    KB, K2, KI = PP._turner_banded_kernels(LENBp, LENIp)
+    KT = torch.stack([KI, KB, K2], dim=1).contiguous()
+    scal = PP._turner_scal_rows(tt, ln_sigma, LENIp)
+    mi = {k: v.contiguous() for k, v in _turner_merge_inside(pmats).items()}
+    close, ext, one = turner_inside(mi, KT, scal, ns)
+    QONE, extL, extR, glob = PF.contra_outside_aux(ns, ext, one, N)
+    mo = _turner_merge_outside(close, pmats, extL, glob, scal[:, 3])
+    mo = {k: v.contiguous() for k, v in mo.items()}
+    bppo = turner_outside(mo, one, QONE, extR, KT, scal, ns,
+                          MIN_SPAN_HAIRPIN_CLOSE)
+    return bppo, glob
+
+
+def mccaskill_turner_prob(seqs, ns, tt, N):
+    """Scaled-probability Turner McCaskill with rescale retries seeded at
+    LN_SIGMA0_TURNER (``mccaskill_turner_pallas_prob8``).  ``seqs`` (B, N)
+    int64 and ``ns`` (B,) int32 on the device that runs it.  Returns
+    (bppo [d, i] basepair probabilities, ln_sigma per sequence)."""
+    if N > MAX_N:
+        raise NotImplementedError(
+            f"bucket N = {N} > 256 needs the span-chunked kernels, not "
+            "ported yet (ROADMAP A8)"
+        )
+
+    def run(ls):
+        return _turner_prob8_run_body(seqs, ns, tt, ls, N)
+
+    return PP._retrying(run, ns, ls0=PP.LN_SIGMA0_TURNER)

@@ -11,7 +11,7 @@ import torch
 from . import _build
 from . import diag
 
-MAX_TABLES = 16  # RNA_SKEW_MAX_TABLES in csrc/skew.cu
+MAX_TABLES = 32  # RNA_SKEW_MAX_TABLES in csrc/skew.cu (Turner skews 18)
 
 
 launches = _build.LaunchCounter("skew")

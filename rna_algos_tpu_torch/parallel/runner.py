@@ -1,5 +1,5 @@
 """Batch execution: length buckets and padded device batches
-(``rna_algos_tpu.parallel.runner``), CONTRA only and without a mesh."""
+(``rna_algos_tpu.parallel.runner``), both models, without a mesh."""
 
 import numpy as np
 import torch
@@ -9,7 +9,7 @@ from rna_algos_tpu.params import build_fold_score_sets
 
 from ..models import mccaskill as M
 from ..ops.pallas_fold_prob8 import MAX_N
-from ..weights import contra_tables
+from ..weights import contra_tables, turner_tables
 
 # Static length buckets (as in the JAX package).
 BUCKETS = (64, 96, 128, 192, 256, 384, 512)
@@ -60,15 +60,13 @@ class FoldEngine:
 
     def __init__(self, uses_contra_model=False, allows_short_hairpins=False,
                  device="cuda"):
-        if not uses_contra_model:
-            raise NotImplementedError(
-                "the Turner model is not ported yet (ROADMAP A7: kernels "
-                "K4/K5); pass -c for CONTRAfold"
-            )
-        self.contra = True
+        self.contra = bool(uses_contra_model)
         self.allows_short_hairpins = bool(allows_short_hairpins)
         self.device = resolve_device(device)
-        self.tbl = contra_tables(build_fold_score_sets(), self.device)
+        if self.contra:
+            self.tbl = contra_tables(build_fold_score_sets(), self.device)
+        else:
+            self.tbl = turner_tables(self.device)
 
     def fold_batch(self, seqs):
         """BPPs for a list of int sequences: a list of (bpp, presence)

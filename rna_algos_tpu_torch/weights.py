@@ -1,12 +1,14 @@
-"""CONTRAfold weights carried across: numpy FoldScoreSets -> torch tensors.
+"""Model parameters carried across: numpy tables -> torch tensors.
 
-Counterpart of ``rna_algos_tpu.ops.scores.contra_table_pytree``.  JAX
-silently downcasts float64 input to float32 (x64 off); torch keeps float64,
-so the cast is explicit here.
+Counterparts of ``rna_algos_tpu.ops.scores.contra_table_pytree`` and
+``turner_table_pytree``.  JAX silently downcasts float64 input to float32
+(x64 off); torch keeps float64, so the cast is explicit here.
 """
 
 import numpy as np
 import torch
+
+from rna_algos_tpu.params import turner as T
 
 
 def contra_tables(fss, device):
@@ -16,3 +18,47 @@ def contra_tables(fss, device):
         k: torch.as_tensor(np.asarray(v, dtype=np.float32), device=device)
         for k, v in fss.items()
     }
+
+
+# turner_table_pytree key -> params.turner table name
+TURNER_KEYS = {
+    "stack": "STACK_SCORES",
+    "hairpin_init": "HAIRPIN_SCORES_INIT",
+    "bulge_init": "BULGE_SCORES_INIT",
+    "interior_init": "INTERIOR_SCORES_INIT",
+    "int_1x1": "INTERIOR_SCORES_1X1",
+    "int_1x2": "INTERIOR_SCORES_1X2",
+    "int_2x2": "INTERIOR_SCORES_2X2",
+    "tm_hairpin": "TERMINAL_MISMATCH_SCORES_HAIRPIN",
+    "tm_interior": "TERMINAL_MISMATCH_SCORES_INTERIOR",
+    "tm_1xmany": "TERMINAL_MISMATCH_SCORES_1XMANY",
+    "tm_2x3": "TERMINAL_MISMATCH_SCORES_2X3",
+    "tm_multibranch": "TERMINAL_MISMATCH_SCORES_MULTIBRANCH",
+    "dangle5": "DANGLING_SCORES_5PRIME",
+    "dangle3": "DANGLING_SCORES_3PRIME",
+    "special_seqs": "HAIRPIN_SPECIAL_SEQS",
+    "special_lens": "HAIRPIN_SPECIAL_LENS",
+    "special_scores": "HAIRPIN_SPECIAL_SCORES",
+    "ninio_coeff": "NINIO_COEFF",
+    "ninio_max": "NINIO_MAX",
+    "augu_penalty": "HELIX_AUGU_END_PENALTY",
+    "init_multibranch_base": "INIT_MULTIBRANCH_BASE",
+    "coeff_num_branches": "COEFF_NUM_BRANCHES",
+    "coeff_hairpin_extrap": "COEFF_HAIRPIN_LEN_EXTRAPOLATION",
+}
+TURNER_INT_KEYS = ("special_seqs", "special_lens")
+
+
+def turner_tables(device, tables=None):
+    """Turner 2004 tables as tensors on ``device``: float tables float32,
+    ``special_seqs`` / ``special_lens`` int64.
+
+    ``tables`` defaults to ``params.turner.active_tables()``, so the
+    ``RNA_ALGOS_TURNER_PARAMS`` drop-in applies to both packages."""
+    tabs = T.active_tables() if tables is None else tables
+    out = {}
+    for key, name in TURNER_KEYS.items():
+        dt = np.int64 if key in TURNER_INT_KEYS else np.float32
+        out[key] = torch.as_tensor(np.asarray(tabs[name], dtype=dt),
+                                   device=device)
+    return out

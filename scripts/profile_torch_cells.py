@@ -1,0 +1,122 @@
+"""Where the time goes in the port's main path: one profiled
+``FoldEngine.fold_batch`` per model and cell on a CUDA GPU.
+
+    python scripts/profile_torch_cells.py [--trace-dir DIR]
+
+Cells as in chip_smoke.py: the six tRNAs tiled to B = 192 (bucket 128) and
+96 seeded random 150-200 nt sequences (bucket 256), for CONTRA and Turner.
+For each it prints the unprofiled batch time (the mean of REPS batches in
+one CUDA-event window after two warm-ups, as chip_smoke.cuda_ms; every
+cell is timed before the first profiler session, whose instrumentation
+slows later launch-bound batches), the profiled trace span, the device busy time (union of the
+device intervals), the device-to-host copy time, each kernel's summed
+time, the rest of the device time (torch's own kernels) and the idle
+share 1 - busy / span.  ``--trace-dir`` also writes a Chrome trace each.
+Needs a GPU; exits non-zero without one.
+"""
+
+import argparse
+import pathlib
+import sys
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+# unprofiled batches timed per cell, as chip_smoke.py's throughput phase
+REPS = 5
+KERNELS = ("skew_kernel", "contra_inside_kernel", "contra_outside_kernel",
+           "turner_inside_kernel", "turner_outside_kernel")
+
+
+def _union(intervals):
+    total, end = 0.0, -np.inf
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def batch_ms(engine, seqs, reps=REPS):
+    """Unprofiled mean ms per batch after two warm-ups."""
+    import chip_smoke
+
+    engine.fold_batch(seqs)
+    return chip_smoke.cuda_ms(lambda: engine.fold_batch(seqs), reps)
+
+
+def profile_once(engine, seqs, trace_path=None):
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.fold_batch(seqs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.fold_batch(seqs)
+        torch.cuda.synchronize()
+    if trace_path:
+        prof.export_chrome_trace(str(trace_path))
+    events = prof.events()
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise RuntimeError("the profiler recorded no device activity")
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events)) / 1e3
+    busy = _union([(e.time_range.start, e.time_range.end) for e in dev]) / 1e3
+    by = {k: 0.0 for k in KERNELS}
+    counts = {k: 0 for k in KERNELS}
+    d2h = other = 0.0
+    for e in dev:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        hit = next((k for k in KERNELS if k in e.name), None)
+        if hit:
+            by[hit] += ms
+            counts[hit] += 1
+        elif "DtoH" in e.name or "Device -> Pageable" in e.name:
+            d2h += ms
+        else:
+            other += ms
+    return dict(span_ms=span, busy_ms=busy, d2h_ms=d2h,
+                torch_ms=other, kernels=by, launches=counts,
+                idle_share=1.0 - busy / span)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace-dir", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_cells: no CUDA GPU available", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from rna_algos_tpu_torch.cli.centroid_fold import read_fasta
+    from rna_algos_tpu_torch.parallel.runner import FoldEngine
+
+    print(torch.cuda.get_device_name(0), torch.__version__)
+    trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
+    cells = {"trna_N128_B192": trnas * 32,
+             "rfam_N256_B96": chip_smoke.random_batch(96, 150, 200, seed=2024)}
+    trace_dir = pathlib.Path(args.trace_dir) if args.trace_dir else None
+    if trace_dir:
+        trace_dir.mkdir(parents=True, exist_ok=True)
+    engines = {"contra": FoldEngine(uses_contra_model=True, device="cuda"),
+               "turner": FoldEngine(uses_contra_model=False, device="cuda")}
+    runs = [(m, c) for m in engines for c in cells]
+    times = {(m, c): batch_ms(engines[m], cells[c]) for m, c in runs}
+    for model, cell in runs:
+        path = trace_dir / f"{model}_{cell}.json" if trace_dir else None
+        r = profile_once(engines[model], cells[cell], path)
+        ks = ", ".join(f"{k} {v:.3f} ms x{r['launches'][k]}"
+                       for k, v in r["kernels"].items() if r["launches"][k])
+        print(f"{model} {cell}: batch {times[(model, cell)]:.2f} ms "
+              f"unprofiled; trace span {r['span_ms']:.2f} ms, device busy "
+              f"{r['busy_ms']:.3f} ms, D2H {r['d2h_ms']:.3f} ms, torch "
+              f"ops {r['torch_ms']:.3f} ms, {ks}, idle share "
+              f"{r['idle_share']:.3f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -54,11 +54,11 @@ def test_trna_goldens(trna_records, trna_folds):
 
 
 def test_engine_rejects_off_slice_inputs():
-    with pytest.raises(NotImplementedError, match="A7"):
-        FoldEngine(uses_contra_model=False, device="cpu")
-    engine = FoldEngine(uses_contra_model=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        engine.fold_batch([[0] * 300])
+    for contra in (True, False):
+        engine = FoldEngine(uses_contra_model=contra, device="cpu")
+        assert engine.contra is contra
+        with pytest.raises(NotImplementedError, match="A8"):
+            engine.fold_batch([[0] * 300])
 
 
 def test_engine_cuda_without_gpu_raises():

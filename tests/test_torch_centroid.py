@@ -98,5 +98,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path, cli):
     with pytest.raises(NotImplementedError, match="A10"):
         cli.main(["-i", FASTA, "-o", out, "-c", "--device", "cpu",
                   "--numerics", "parity"])
-    with pytest.raises(NotImplementedError, match="A7"):
-        cli.main(["-i", FASTA, "-o", out, "--device", "cpu"])
+    # a 300-nt record needs the span-chunked tier, for either model
+    long_fa = tmp_path / "long.fa"
+    long_fa.write_text(">long\n" + "GCAU" * 75 + "\n")
+    for model in (["-c"], []):
+        with pytest.raises(NotImplementedError, match="A8"):
+            cli.main(["-i", str(long_fa), "-o", out, "--device", "cpu",
+                      *model])

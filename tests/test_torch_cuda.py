@@ -1,7 +1,8 @@
-"""Kernels K1-K3 against their plain versions on a CUDA GPU: the checks of
-chip_smoke.py, at the main path's buckets.  Skipped without a GPU; run on
+"""Kernels K1-K5 against their plain versions on a CUDA GPU: the checks of
+chip_smoke.py, at the main paths' buckets.  Skipped without a GPU; run on
 the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,8 +26,31 @@ def inputs(device, request):
     return chip_smoke.kernel_inputs(N, B, seed=N + B, device=device)
 
 
+@pytest.fixture(scope="module", params=chip_smoke.SHAPES_CHECK,
+                ids=lambda s: f"N{s[0]}_B{s[1]}")
+def turner_inputs(device, request):
+    N, B = request.param
+    return chip_smoke.turner_inputs(N, B, seed=N + B + 1, device=device)
+
+
 def test_skew_kernel_bitwise(inputs):
     assert chip_smoke.check_skew(inputs) == 0.0
+
+
+def test_skew_kernel_18_tables_bitwise(turner_inputs):
+    """The Turner precompute's 18 tables in one launch (past the former
+    16-table cap), bitwise in both directions."""
+    assert len(turner_inputs["pq"]) == 18
+    assert chip_smoke.check_skew(turner_inputs) == 0.0
+
+
+def test_turner_inside_kernel_matches_plain(turner_inputs):
+    chip_smoke.check_inside(turner_inputs, "K4", "turner_inside")
+
+
+def test_turner_outside_kernel_matches_plain(turner_inputs):
+    err = chip_smoke.check_outside(turner_inputs, "K5", "turner_outside")
+    assert err <= chip_smoke.ATOL_BPPO
 
 
 def test_inside_kernel_matches_plain(inputs):
@@ -49,3 +73,19 @@ def test_main_path_launches_every_kernel(device):
     out = engine.fold_batch(chip_smoke.random_batch(8, 60, 120, seed=3))
     assert all(c.count >= 1 for c in counters)
     assert all(bpp.shape[0] == presence.shape[0] for bpp, presence in out)
+
+
+def test_turner_main_path_launches_its_kernels(device):
+    from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
+    from rna_algos_tpu_torch.ops import pallas_skew as K3
+    from rna_algos_tpu_torch.parallel.runner import FoldEngine
+
+    counters = (K3.launches, P8.turner_inside_launches,
+                P8.turner_outside_launches)
+    engine = FoldEngine(uses_contra_model=False, device=device)
+    for c in counters + (P8.inside_launches, P8.outside_launches):
+        c.reset()
+    out = engine.fold_batch(chip_smoke.random_batch(8, 60, 120, seed=4))
+    assert all(c.count >= 1 for c in counters)
+    assert P8.inside_launches.count == P8.outside_launches.count == 0
+    assert all(np.isfinite(bpp).all() for bpp, _ in out)

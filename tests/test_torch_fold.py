@@ -109,6 +109,8 @@ def _synthetic_run(z, ns):
     return run
 
 
+@pytest.mark.parametrize("ls0", [None, PP.LN_SIGMA0_TURNER],
+                         ids=["contra_seed", "turner_seed"])
 @pytest.mark.parametrize(
     "label,z",
     [
@@ -117,7 +119,10 @@ def _synthetic_run(z, ns):
         ("jump", [1.6, 0.1, 0.9, 1.45]),          # finite, out of band
     ],
 )
-def test_retrying_matches_jax(label, z):
+def test_retrying_matches_jax(label, z, ls0):
+    """The port's loop against JAX ``_retrying``, from the CONTRA default
+    seed and from the Turner seed that ``mccaskill_turner_pallas_prob8``
+    passes (``ls0=LN_SIGMA0_TURNER``)."""
     z = np.asarray(z, np.float64)
     ns = np.array([200, 180, 150, 120], np.int32)
     run = _synthetic_run(z, ns.astype(np.float64))
@@ -126,6 +131,7 @@ def test_retrying_matches_jax(label, z):
               jax.ShapeDtypeStruct((Bz,), jnp.float32))
     bppo_j, ls_j = PP._retrying(
         lambda ls: jax.pure_callback(run, shapes, ls), Bz,
+        ls0=None if ls0 is None else jnp.asarray(ls0, jnp.float32),
         ns=jnp.asarray(ns),
     )
 
@@ -133,8 +139,8 @@ def test_retrying_matches_jax(label, z):
         bppo, glob = run(ls.numpy())
         return torch.as_tensor(bppo), torch.as_tensor(glob)
 
-    bppo_t, ls_t = TPP._retrying(trun, torch.as_tensor(ns))
+    bppo_t, ls_t = TPP._retrying(trun, torch.as_tensor(ns), ls0=ls0)
     np.testing.assert_array_equal(np.asarray(ls_j), ls_t.numpy())
     np.testing.assert_array_equal(np.asarray(bppo_j), bppo_t.numpy())
-    assert not np.array_equal(ls_t.numpy(), np.full(Bz, PP.LN_SIGMA0,
-                                                    np.float32)), label
+    seed = PP.LN_SIGMA0 if ls0 is None else ls0
+    assert not np.array_equal(ls_t.numpy(), np.full(Bz, seed, np.float32)), label

@@ -1,5 +1,6 @@
 """The port imports torch and never jax, and importing it builds nothing."""
 
+import ast
 import json
 import subprocess
 import sys
@@ -38,8 +39,12 @@ def test_port_imports_no_jax_and_builds_nothing():
     got = _probe()
     expected = {
         "rna_algos_tpu_torch.weights",
+        "rna_algos_tpu_torch.ops.scores",
+        "rna_algos_tpu_torch.ops.pallas_fold",
+        "rna_algos_tpu_torch.ops.pallas_fold_prob",
         "rna_algos_tpu_torch.ops.pallas_fold_prob8",
         "rna_algos_tpu_torch.ops.pallas_skew",
+        "rna_algos_tpu_torch.models.mccaskill",
         "rna_algos_tpu_torch.models.centroid",
         "rna_algos_tpu_torch.parallel.runner",
         "rna_algos_tpu_torch.cli.centroid_fold",
@@ -50,3 +55,18 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert got["torch"]
     assert got["built"] == 0
     assert got["build_dir_same"]
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the JAX package only through the port's own
+    modules: no import of jax or rna_algos_tpu in its source."""
+    tree = ast.parse((REPO_ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    tops = {n.split(".")[0] for n in names}
+    assert "rna_algos_tpu_torch" in tops
+    assert not tops & {"jax", "jaxlib", "rna_algos_tpu"}, sorted(names)
