@@ -9,17 +9,30 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
 2. each kernel against its plain PyTorch version on the card (K3 bitwise in
    both directions, also on the Turner precompute's 18 tables at once; K1,
    K2 (CONTRA) and K4, K5 (Turner) within stated tolerances at N = 128,
-   B = 64 and N = 256, B = 32), and each one's time beside the plain
-   version's at the main path's shapes;
+   B = 64 and N = 256, B = 32; the long tier's K8, K9 (CONTRA) and K12, K13
+   (Turner), the same four sources launched past N = 256, at N = 512, B = 8
+   and N = 1024, B = 4, and K8, K9 at N = 2048, B = 2, at a fixed ln_sigma
+   that centres each sequence's scaled Z), and each one's time beside the
+   plain version's, its bound and, for K3, the time of one torch.gather
+   computing the same skew, at the main paths' shapes;
 3. the main paths, FoldEngine(device="cuda").fold_batch for CONTRA and for
    Turner, each on the six tRNAs tiled to B = 192 (bucket 128) and on 96
-   seeded random sequences of 150-200 nt (bucket 256), each run with every
-   launch count set to 0 just before it and read just after; the BPPs
-   held against the plain path on the card and the tRNA goldens;
+   seeded random sequences of 150-200 nt (bucket 256), then each on the
+   long batches (32 sequences of 300-500 nt, bucket 512; 16 of 600-1,000,
+   bucket 1024; CONTRA 8 of 1,100-2,000, bucket 2048), each path run with
+   every launch count set to 0 just before it and read just after; the
+   BPPs held against the plain path on the card (for a long batch, on the
+   sequences where both settle on the same ln_sigma, at least half of
+   them), the tRNA goldens and the float64 long-n goldens
+   (tests/golden/longn_f64*.npz);
 4. the centroid CLI on assets/sampled_trnas.fa: with -c byte for byte
    against tests/golden/c_baseline/centroid_contra/, without -c against
    centroid_turner/ under the gamma = 1 tie rule (``turner_centroid_verdict``);
-5. seqs/s of every main-path configuration, kernel path and plain path.
+   and cli.mccaskill -c on the tRNAs mixed with a 400-nt and a 900-nt
+   record, in input order, the tRNA records byte-identical to a tRNA-only
+   run;
+5. seqs/s of every main-path configuration, kernel path and plain path,
+   and the peak device memory of each long batch.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and prints
@@ -43,6 +56,14 @@ sys.path.insert(0, str(ROOT))
 
 SHAPES_CHECK = ((128, 64), (256, 32))
 SHAPES_MAIN = ((128, 192), (256, 96))
+# The long tier: kernel checks, and the main paths' shapes, per model.
+LONG_CHECK = {"contra": ((512, 8), (1024, 4), (2048, 2)),
+              "turner": ((512, 8), (1024, 4))}
+LONG_MAIN = {"contra": ((512, 32), (1024, 16), (2048, 8)),
+             "turner": ((512, 32), (1024, 16))}
+# bucket -> (batch, shortest, longest) of the long main-path batches
+LONG_BATCHES = {512: (32, 300, 500), 1024: (16, 600, 1000),
+                2048: (8, 1100, 2000)}
 # K1/K2 kernel vs plain on the card: both FP32, sums in different orders
 # (sequential FMA in the kernel, tree sums and a matmul in the plain
 # version), all terms positive, so the error stays relative.
@@ -52,12 +73,30 @@ RTOL_INSIDE = 1e-4
 ATOL_TINY = 1e-30
 ATOL_BPPO = 1e-5
 TOL_MAIN_VS_PLAIN = 1e-4
+# Timed launches of a long kernel (after one warm-up), and the least share
+# of a long batch's sequences whose kernel and plain runs must settle on the
+# same ln_sigma for their BPPs to be compared (1-2 a batch differ by an ulp)
+LONG_REPS = 3
+MIN_SAME_LS_SHARE = 0.5
 TOL_GOLDEN = 5e-4
+TOL_GOLDEN_245 = 1e-4
 # The one Turner centroid cell where the probability path may leave the
 # cubic golden: record 0 of centroid_threshold=1.fa pairs (2, 80) in the
 # golden at BPP 1.0000076; the probability path's BPP there is ~0.999993,
 # and gamma = 1 pairs only above 1 (a tie within ~1e-5).
 TURNER_TIE = ("centroid_threshold=1.fa", 0, (2, 80))
+# Published peaks of one H100 SXM (the bound_ms of each kernel): HBM3
+# bytes/s and FP32 FLOP/s outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# Window FMAs per (span, lane) cell, from the kernels' loops: CONTRA's
+# banded 31 x 31 window (496 cells); Turner's KI (435), KB (60) and K2 (56)
+# arms, the 2 TM3 and the 7 small-loop cells.
+WINDOW_FMAS = {"contra": 496, "turner": 560}
+# FLOPs per cell outside the window and the O(d) sums: the special cells,
+# close, and the rm/rmmb/epow updates (inside); base, pm2, qa and bppo
+# (outside).
+CELL_FLOPS = 16
 
 
 def random_batch(B, lo, hi, seed):
@@ -75,21 +114,62 @@ def padded(seqs, N, device):
     return arr, ns
 
 
+def wrappers(name):
+    """(kernel wrapper, plain version) of a kernel by name."""
+    from rna_algos_tpu_torch.ops import pallas_fold_long as PL
+    from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
+
+    mod = PL if name.endswith("_long") else P8
+    return getattr(mod, name), getattr(mod, name + "_plain")
+
+
+def centred_ln_sigma(glob_at, ns, ls0):
+    """Per-sequence ln_sigma that centres the scaled Z near 1, from inside
+    passes alone: the retry loop's jumps and walks bring it into the guard
+    band, one more jump to ln(glob)/n centres it (past N = 256 the band is
+    only ~+-55/n wide, so one fixed value does not fit a batch, and at its
+    edge the outside pass's 1/Z overflows)."""
+    from rna_algos_tpu_torch.ops import pallas_fold_prob as PP
+
+    def run(ls):
+        glob = glob_at(ls)
+        return torch.zeros((glob.shape[0], 1, 1), device=glob.device), glob
+
+    ls = PP._retrying(run, ns, ls0=ls0)[1]
+    return ls + torch.log(glob_at(ls)) / ns.to(torch.float32)
+
+
 def kernel_inputs(N, B, seed, device):
-    """The inputs the main path hands K1, K2 and K3 at ln_sigma = 0.9."""
+    """The inputs the CONTRA main path hands its inside and outside kernels
+    (K1/K2 at N <= 256, K8/K9 past it) and K3: at ln_sigma = 0.9 for
+    N <= 256, at a centred per-sequence ln_sigma past it."""
     from rna_algos_tpu_torch.ops import pallas_fold as PF
     from rna_algos_tpu_torch.ops import pallas_fold_prob as PP
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
     from rna_algos_tpu_torch.parallel.runner import FoldEngine
 
+    long = N > P8.MAX_N
+    names = (("contra_inside_long", "contra_outside_long") if long
+             else ("contra_inside", "contra_outside"))
+    inside = wrappers(names[0])[0]
     lo = max(30, N // 2 + 10)
     seqs, ns = padded(random_batch(B, lo, N, seed), N, device)
     ct = FoldEngine(uses_contra_model=True, device=device).tbl
-    ls = torch.full((B,), 0.9, device=device)
-    mi, mo_pre, acc, b0lo = P8.contra_prob_mats_merged(seqs, ns, ct, ls, N)
-    KW = PP._banded_window_kernel(PP._contra_len_prob(ct, ls))
-    scal = PP._scal_rows(ct, ls)
-    close, ext, one = P8.contra_inside(mi, KW, scal, ns)
+
+    def prep(ls):
+        mi, mo_pre, acc, b0lo = P8.contra_prob_mats_merged(seqs, ns, ct, ls, N)
+        KW = PP._banded_window_kernel(PP._contra_len_prob(ct, ls))
+        scal = PP._scal_rows(ct, ls)
+        close, ext, one = inside(mi, KW, scal, ns)
+        return mi, mo_pre, acc, b0lo, KW, scal, close, ext, one
+
+    if long:
+        ls = centred_ln_sigma(
+            lambda l: PF.contra_outside_aux(ns, *prep(l)[7:], N)[3], ns,
+            PP.LN_SIGMA0)
+    else:
+        ls = torch.full((B,), 0.9, device=device)
+    mi, mo_pre, acc, b0lo, KW, scal, close, ext, one = prep(ls)
     QONE, extL, extR, glob = PF.contra_outside_aux(ns, ext, one, N)
     mo = dict(mo_pre)
     mo["ACCB"] = (acc * extL[:, None, :] * (1.0 / glob)[:, None, None]
@@ -97,8 +177,8 @@ def kernel_inputs(N, B, seed, device):
     mo["CLOSE"] = close
     pq, _, _ = PF.contra_pq_tables(seqs, ns, ct, N)
     return dict(
-        seqs=seqs, ns=ns, mi=mi, KW=KW, scal=scal, mo=mo,
-        one=one, QONE=QONE, extR=extR, b0lo=b0lo,
+        seqs=seqs, ns=ns, mi=mi, KW=KW, scal=scal, mo=mo, ls=ls,
+        one=one, QONE=QONE, extR=extR, b0lo=b0lo, kernels=names,
         pq=[pq[k].contiguous() for k in sorted(pq)],
         inside_args=(mi, KW, scal, ns),
         outside_args=(mo, one, QONE, extR, b0lo, KW, scal, ns, 5),
@@ -106,29 +186,45 @@ def kernel_inputs(N, B, seed, device):
 
 
 def turner_inputs(N, B, seed, device):
-    """The inputs the Turner main path hands K4, K5 and K3 at ln_sigma =
-    0.5 (the Turner seed)."""
+    """The inputs the Turner main path hands its inside and outside kernels
+    (K4/K5 at N <= 256, K12/K13 past it) and K3: at ln_sigma = 0.5 (the
+    Turner seed) for N <= 256, at a centred ln_sigma past it."""
     from rna_algos_tpu_torch.ops import pallas_fold as PF
     from rna_algos_tpu_torch.ops import pallas_fold_prob as PP
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
     from rna_algos_tpu_torch.weights import turner_tables
 
+    long = N > P8.MAX_N
+    names = (("turner_inside_long", "turner_outside_long") if long
+             else ("turner_inside", "turner_outside"))
+    inside = wrappers(names[0])[0]
     lo = max(30, N // 2 + 10)
     seqs, ns = padded(random_batch(B, lo, N, seed), N, device)
     tt = turner_tables(device)
-    ls = torch.full((B,), PP.LN_SIGMA0_TURNER, device=device)
-    pmats = PP.turner_prob_mats(seqs, ns, tt, ls, N)
-    LENBp, LENIp = PP._turner_len_prob(tt, ls)
-    KB, K2, KI = PP._turner_banded_kernels(LENBp, LENIp)
-    KT = torch.stack([KI, KB, K2], dim=1).contiguous()
-    scal = PP._turner_scal_rows(tt, ls, LENIp)
-    mi = {k: v.contiguous() for k, v in P8._turner_merge_inside(pmats).items()}
-    close, ext, one = P8.turner_inside(mi, KT, scal, ns)
+
+    def prep(ls):
+        pmats = PP.turner_prob_mats(seqs, ns, tt, ls, N)
+        LENBp, LENIp = PP._turner_len_prob(tt, ls)
+        KB, K2, KI = PP._turner_banded_kernels(LENBp, LENIp)
+        KT = torch.stack([KI, KB, K2], dim=1).contiguous()
+        scal = PP._turner_scal_rows(tt, ls, LENIp)
+        mi = {k: v.contiguous()
+              for k, v in P8._turner_merge_inside(pmats).items()}
+        close, ext, one = inside(mi, KT, scal, ns)
+        return pmats, KT, scal, mi, close, ext, one
+
+    if long:
+        ls = centred_ln_sigma(
+            lambda l: PF.contra_outside_aux(ns, *prep(l)[5:], N)[3], ns,
+            PP.LN_SIGMA0_TURNER)
+    else:
+        ls = torch.full((B,), PP.LN_SIGMA0_TURNER, device=device)
+    pmats, KT, scal, mi, close, ext, one = prep(ls)
     QONE, extL, extR, glob = PF.contra_outside_aux(ns, ext, one, N)
     mo = {k: v.contiguous() for k, v in P8._turner_merge_outside(
         close, pmats, extL, glob, scal[:, 3]).items()}
     return dict(
-        seqs=seqs, ns=ns, mi=mi, KT=KT, scal=scal,
+        seqs=seqs, ns=ns, mi=mi, KT=KT, scal=scal, ls=ls, kernels=names,
         pq=[mi[k] for k in P8.TURNER_INSIDE_TABLES],   # 18 tables, one K3 call
         inside_args=(mi, KT, scal, ns),
         outside_args=(mo, one, QONE, extR, KT, scal, ns, 5),
@@ -153,14 +249,13 @@ def check_skew(inp):
 
 
 def check_inside(inp, label="K1", kernel="contra_inside"):
-    """An inside kernel (K1 or K4) vs its plain version on close, ext, one:
-    |k - p| <= RTOL_INSIDE * |p|.  Returns (max abs error, max relative
-    error); the scaled partition functions run up to ~1e8, so the relative
-    error is the telling one."""
-    from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
-
-    got = getattr(P8, kernel)(*inp["inside_args"])
-    want = getattr(P8, kernel + "_plain")(*inp["inside_args"])
+    """An inside kernel (K1, K4, K8 or K12) vs its plain version on close,
+    ext, one: |k - p| <= RTOL_INSIDE * |p|.  Returns (max abs error, max
+    relative error); the scaled partition functions run up to ~1e8, so the
+    relative error is the telling one."""
+    kern, plain = wrappers(kernel)
+    got = kern(*inp["inside_args"])
+    want = plain(*inp["inside_args"])
     torch.cuda.synchronize()
     worst_abs = worst_rel = 0.0
     for name, g, w in zip(("close", "ext", "one"), got, want):
@@ -181,12 +276,11 @@ def check_inside(inp, label="K1", kernel="contra_inside"):
 
 
 def check_outside(inp, label="K2", kernel="contra_outside"):
-    """An outside kernel (K2 or K5) vs its plain version on bppo:
+    """An outside kernel (K2, K5, K9 or K13) vs its plain version on bppo:
     max |k - p| <= ATOL_BPPO."""
-    from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
-
-    got = getattr(P8, kernel)(*inp["outside_args"])
-    want = getattr(P8, kernel + "_plain")(*inp["outside_args"])
+    kern, plain = wrappers(kernel)
+    got = kern(*inp["outside_args"])
+    want = plain(*inp["outside_args"])
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     print(f"  {label} bppo: max abs err {err:.3e}, max bppo "
@@ -194,6 +288,67 @@ def check_outside(inp, label="K2", kernel="contra_outside"):
     if not bool(torch.isfinite(got).all()) or err > ATOL_BPPO:
         raise AssertionError(f"{label} bppo differs from plain: {err}")
     return err
+
+
+def _live_cells(ns):
+    """Per sequence, the span d of each diagonal and its live lanes n - d."""
+    for n in (int(x) for x in ns):
+        d = np.arange(n, dtype=np.float64)
+        yield n, d, n - d
+
+
+def work(kernel, inp):
+    """(bytes, FLOPs) one call of ``kernel`` must do on ``inp``: each
+    input table read once and each output written once; the FLOPs of the
+    recurrences on the live cells (j < n) of this run's lengths."""
+    key = kernel.replace("_long", "")
+    B, N = inp["seqs"].shape
+    nn = 4.0 * B * N * N
+    if key == "skew":
+        return 2 * len(inp["pq"]) * nn, 0.0
+    model = key.split("_")[0]
+    win = 2 * WINDOW_FMAS[model] + CELL_FLOPS
+    flops = 0.0
+    for n, d, lanes in _live_cells(inp["ns"].tolist()):
+        if key.endswith("inside"):
+            # ext: d + 1 FMAs, s2: d - 1, per cell
+            flops += float((lanes * (win + 4.0 * d)).sum())
+        else:
+            # pm: n - 2 - d FMAs per cell; sa, sbc: i terms at lane i
+            flops += float((lanes * (win + 2.0 * np.maximum(n - 2 - d, 0))
+                            + 2.0 * lanes * (lanes - 1)).sum())
+    tables = {"contra_inside": 9 + 3, "contra_outside": 11 + 1,
+              "turner_inside": 18 + 3, "turner_outside": 20 + 1}[key]
+    return tables * nn, flops
+
+
+def bound(kernel, inp):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    FLOPs over the FP32 rate."""
+    nbytes, flops = work(kernel, inp)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def skew_library_call(tables):
+    """One PyTorch call computing K3's forward skew of ``tables``: a
+    torch.gather over the tables stacked and zero-padded to width 2N (the
+    padding and the index are built once, outside the timed call)."""
+    from rna_algos_tpu_torch.ops import pallas_skew as K3
+
+    x = torch.stack(tables)
+    T, B, N, _ = x.shape
+    pad = torch.cat([x, torch.zeros_like(x)], dim=-1)
+    p = torch.arange(N, device=x.device)
+    idx = (p[:, None] + p[None, :]).expand(T, B, N, N).contiguous()
+
+    def call():
+        return torch.gather(pad, 3, idx)
+
+    if not torch.equal(call(), torch.stack(K3.skew_pq_batch_plain(tables))):
+        raise AssertionError("torch.gather skew differs from K3's plain version")
+    return call
 
 
 def dot_bracket_pairs(db):
@@ -252,10 +407,12 @@ def plain_kernels():
     """Route the main paths through the plain versions on the card."""
     from rna_algos_tpu_torch.models import mccaskill as M
     from rna_algos_tpu_torch.ops import pallas_fold as PF
+    from rna_algos_tpu_torch.ops import pallas_fold_long as PL
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
     from rna_algos_tpu_torch.ops import pallas_skew as K3
 
     swaps = [(P8, k, getattr(P8, k + "_plain")) for k in KERNELS_P8]
+    swaps += [(PL, k, getattr(PL, k + "_plain")) for k in KERNELS_LONG]
     swaps += [(mod, "skew_pq_batch", K3.skew_pq_batch_plain)
               for mod in (P8, PF, M)]
     saved = [(mod, k, getattr(mod, k)) for mod, k, _ in swaps]
@@ -268,8 +425,30 @@ def plain_kernels():
             setattr(mod, k, fn)
 
 
+@contextlib.contextmanager
+def recorded_ln_sigma():
+    """Record the ln_sigma each retry loop settles on (one (B,) tensor per
+    fold, in the engine's sorted order)."""
+    from rna_algos_tpu_torch.ops import pallas_fold_prob as PP
+
+    seen, orig = [], PP._retrying
+
+    def retrying(run, ns, ls0=None):
+        bppo, ls = orig(run, ns, ls0=ls0)
+        seen.append(ls.cpu())
+        return bppo, ls
+
+    PP._retrying = retrying
+    try:
+        yield seen
+    finally:
+        PP._retrying = orig
+
+
 KERNELS_P8 = ("contra_inside", "contra_outside", "turner_inside",
               "turner_outside")
+KERNELS_LONG = ("contra_inside_long", "contra_outside_long",
+                "turner_inside_long", "turner_outside_long")
 # kernel -> (its source, the TPU kernel it replaces)
 REPLACES = {
     "skew": ("rna_algos_tpu_torch/csrc/skew.cu",
@@ -282,7 +461,20 @@ REPLACES = {
                       "rna_algos_tpu/ops/pallas_fold_prob8.py:2016"),
     "turner_outside": ("rna_algos_tpu_torch/csrc/turner_outside.cu",
                        "rna_algos_tpu/ops/pallas_fold_prob8.py:2537"),
+    # the long tier: the same sources, launched at N = 512-2048
+    "contra_inside_long": ("rna_algos_tpu_torch/csrc/contra_inside.cu",
+                           "rna_algos_tpu/ops/pallas_fold_prob.py:706"),
+    "contra_outside_long": ("rna_algos_tpu_torch/csrc/contra_outside.cu",
+                            "rna_algos_tpu/ops/pallas_fold_prob.py:841"),
+    "turner_inside_long": ("rna_algos_tpu_torch/csrc/turner_inside.cu",
+                           "rna_algos_tpu/ops/pallas_fold_prob.py:1832"),
+    "turner_outside_long": ("rna_algos_tpu_torch/csrc/turner_outside.cu",
+                            "rna_algos_tpu/ops/pallas_fold_prob.py:1985"),
 }
+LABELS = {"contra_inside": "K1", "contra_outside": "K2",
+          "turner_inside": "K4", "turner_outside": "K5",
+          "contra_inside_long": "K8", "contra_outside_long": "K9",
+          "turner_inside_long": "K12", "turner_outside_long": "K13"}
 
 
 def main():
@@ -292,10 +484,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from rna_algos_tpu_torch.ops import _build
+    from rna_algos_tpu_torch.ops import pallas_fold_long as PL
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
     from rna_algos_tpu_torch.ops import pallas_skew as K3
     from rna_algos_tpu_torch.parallel.runner import FoldEngine
     from rna_algos_tpu_torch.cli import centroid_fold as cf_cli
+    from rna_algos_tpu_torch.cli import mccaskill as mc_cli
     from rna_algos_tpu_torch.cli.centroid_fold import read_fasta
 
     dev = torch.device("cuda")
@@ -320,40 +514,62 @@ def main():
 
     # phase 2: kernels vs plain
     err = {k: 0.0 for k in REPLACES}
-    rel = {"contra_inside": 0.0, "turner_inside": 0.0}
+    rel = {k: 0.0 for k in REPLACES if k.endswith(("inside", "inside_long"))}
+
+    def check_model(x):
+        ik, ok = x["kernels"]
+        err["skew"] = max(err["skew"], check_skew(x))
+        a, r = check_inside(x, LABELS[ik], ik)
+        err[ik] = max(err[ik], a)
+        rel[ik] = max(rel[ik], r)
+        err[ok] = max(err[ok], check_outside(x, LABELS[ok], ok))
+
     for N, B in SHAPES_CHECK:
         print(f"check N={N} B={B}")
-        inp = kernel_inputs(N, B, seed=N + B, device=dev)
-        tinp = turner_inputs(N, B, seed=N + B + 1, device=dev)
-        err["skew"] = max(err["skew"], check_skew(inp), check_skew(tinp))
-        for key, label, x in (("contra_inside", "K1", inp),
-                              ("turner_inside", "K4", tinp)):
-            a, r = check_inside(x, label, key)
-            err[key] = max(err[key], a)
-            rel[key] = max(rel[key], r)
-        err["contra_outside"] = max(err["contra_outside"], check_outside(inp))
-        err["turner_outside"] = max(
-            err["turner_outside"], check_outside(tinp, "K5", "turner_outside"))
-    times = {}
+        check_model(kernel_inputs(N, B, seed=N + B, device=dev))
+        check_model(turner_inputs(N, B, seed=N + B + 1, device=dev))
+    builders = {"contra": kernel_inputs, "turner": turner_inputs}
+    for model, shapes in LONG_CHECK.items():
+        for N, B in shapes:
+            print(f"check {model} N={N} B={B}")
+            check_model(builders[model](N, B, seed=N + B, device=dev))
+
+    # kernel -> shape -> (ms, plain ms, bound ms, bound by, library ms)
+    times = {k: {} for k in REPLACES}
+    times["skew18"] = {}
+
+    def timed(kernel, x, args, reps, preps, key=None):
+        kern, plain = wrappers(kernel)
+        B, N = x["seqs"].shape
+        ms = cuda_ms(lambda: kern(*args), reps)
+        pms = cuda_ms(lambda: plain(*args), preps)
+        bms, by = bound(kernel, x)
+        times[key or kernel][f"N{N}_B{B}"] = (ms, pms, bms, by, None)
+        print(f"time N={N} B={B} {kernel}: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, bound {bms:.4f} ms ({by})")
+
     for N, B in SHAPES_MAIN:
         inp = kernel_inputs(N, B, seed=7 * N, device=dev)
         tinp = turner_inputs(N, B, seed=7 * N + 1, device=dev)
-        tables = [inp["mi"][k] for k in sorted(inp["mi"])]   # 9, as PR 1
-        t = {"skew": (cuda_ms(lambda: K3.skew_pq_batch(tables), 20),
-                      cuda_ms(lambda: K3.skew_pq_batch_plain(tables), 20)),
-             "skew18": (cuda_ms(lambda: K3.skew_pq_batch(tinp["pq"]), 20),
-                        cuda_ms(lambda: K3.skew_pq_batch_plain(tinp["pq"]),
-                                20))}
-        for key, args in (("contra_inside", inp["inside_args"]),
-                          ("contra_outside", inp["outside_args"]),
-                          ("turner_inside", tinp["inside_args"]),
-                          ("turner_outside", tinp["outside_args"])):
-            kern, plain = getattr(P8, key), getattr(P8, key + "_plain")
-            t[key] = (cuda_ms(lambda: kern(*args), 5),
-                      cuda_ms(lambda: plain(*args), 2))
-        for k, (ms, pms) in t.items():
-            print(f"time N={N} B={B} {k}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        times[(N, B)] = t
+        for key, x in (("skew", inp), ("skew18", tinp)):
+            tables = ([x["mi"][k] for k in sorted(x["mi"])] if key == "skew"
+                      else x["pq"])    # the 9 CONTRA tables; the Turner 18
+            ms = cuda_ms(lambda: K3.skew_pq_batch(tables), 20)
+            pms = cuda_ms(lambda: K3.skew_pq_batch_plain(tables), 20)
+            lms = cuda_ms(skew_library_call(tables), 20)
+            bms, by = bound("skew", dict(x, pq=tables))
+            times[key][f"N{N}_B{B}"] = (ms, pms, bms, by, lms)
+            print(f"time N={N} B={B} {key}: kernel {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms, torch.gather {lms:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by})")
+        for x in (inp, tinp):
+            timed(x["kernels"][0], x, x["inside_args"], 5, 2)
+            timed(x["kernels"][1], x, x["outside_args"], 5, 2)
+    for model, shapes in LONG_MAIN.items():
+        for N, B in shapes:
+            x = builders[model](N, B, seed=7 * N, device=dev)
+            timed(x["kernels"][0], x, x["inside_args"], LONG_REPS, 1)
+            timed(x["kernels"][1], x, x["outside_args"], LONG_REPS, 1)
 
     # phase 3: the main paths, each counted on its own
     trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
@@ -366,20 +582,38 @@ def main():
         "turner": FoldEngine(uses_contra_model=False, device="cuda"),
     }
     counters = (K3.launches, P8.inside_launches, P8.outside_launches,
-                P8.turner_inside_launches, P8.turner_outside_launches)
-    path_kernels = {"contra": ("skew", "contra_inside", "contra_outside"),
-                    "turner": ("skew", "turner_inside", "turner_outside")}
+                P8.turner_inside_launches, P8.turner_outside_launches,
+                PL.contra_inside_long_launches,
+                PL.contra_outside_long_launches,
+                PL.turner_inside_long_launches,
+                PL.turner_outside_long_launches)
+    path_kernels = {
+        "contra": ("skew", "contra_inside", "contra_outside"),
+        "turner": ("skew", "turner_inside", "turner_outside"),
+        "contra_long": ("skew", "contra_inside_long", "contra_outside_long"),
+        "turner_long": ("skew", "turner_inside_long", "turner_outside_long"),
+    }
     results, counts = {}, {}
-    for model, engine in engines.items():
+
+    def counted(label, path, fn):
+        """Run fn with every launch count set to 0 just before it; the
+        counts are read just after, and each kernel of ``path`` must have
+        launched."""
         for c in counters:
             c.reset()
-        results[model] = {k: engine.fold_batch(v) for k, v in batches.items()}
+        out = fn()
         torch.cuda.synchronize()
-        counts[model] = {c.name: c.count for c in counters}
-        print(f"main path {model} launches: {counts[model]}")
-        if min(counts[model][k] for k in path_kernels[model]) < 1:
+        counts[label] = {c.name: c.count for c in counters}
+        print(f"main path {label} launches: {counts[label]}")
+        if min(counts[label][k] for k in path_kernels[path]) < 1:
             raise AssertionError(
-                f"a kernel of the {model} path never launched: {counts[model]}")
+                f"a kernel of the {path} path never launched: {counts[label]}")
+        return out
+
+    for model, engine in engines.items():
+        results[model] = counted(
+            model, model,
+            lambda: {k: engine.fold_batch(v) for k, v in batches.items()})
     gold = np.load(ROOT / "tests" / "golden" / "trna_bpps.npz")
     for model, engine in engines.items():
         with plain_kernels():
@@ -392,20 +626,101 @@ def main():
                 a[0].shape == (len(s), len(s)) and np.isfinite(a[0]).all()
                 for a, s in zip(got, batches[key]))
             print(f"{model} {key}: kernel vs plain path max |dBPP| {worst:.3e}")
-            if worst > TOL_MAIN_VS_PLAIN or not shapes_ok:
+            if not worst <= TOL_MAIN_VS_PLAIN or not shapes_ok:
                 raise AssertionError(
                     f"{model} {key}: main path disagrees with plain path")
         worst = max(float(np.abs(results[model]["trna_N128_B192"][k][0]
                                  - gold[f"rec{k}_{model}"]).max())
                     for k in range(len(trnas)))
         print(f"{model} tRNA vs trna_bpps.npz: max |dBPP| {worst:.3e}")
-        if worst > TOL_GOLDEN:
+        if not worst <= TOL_GOLDEN:
             raise AssertionError(
                 f"{model} tRNA BPPs outside the 5e-4 golden budget")
     tie_file, tie_rec, (tp, tq) = TURNER_TIE
     tie_bpp = float(results["turner"]["trna_N128_B192"][tie_rec][0][tp, tq])
     print(f"turner record {tie_rec} BPP at {(tp, tq)}: {tie_bpp!r} "
           f"(golden {float(gold[f'rec{tie_rec}_turner'][tp, tq])!r})")
+
+    # the long main paths: each bucket's batch counted, timed (host clock
+    # around a call that ends in a device sync) and held against the plain
+    # path on the card
+    long_batches = {N: random_batch(*LONG_BATCHES[N], seed=N)
+                    for N in LONG_BATCHES}
+    long_stats = {}
+    for model, engine in engines.items():
+        path = f"{model}_long"
+        ik = path_kernels[path][1]
+        for N, _ in LONG_MAIN[model]:
+            seqs = long_batches[N]
+            key = f"{path}_N{N}_B{len(seqs)}"
+            torch.cuda.reset_peak_memory_stats()
+            with recorded_ln_sigma() as ls_k:
+                t0 = time.perf_counter()
+                got = counted(key, path, lambda: engine.fold_batch(seqs))
+                wall = time.perf_counter() - t0
+            counts.setdefault(path, {k: 0 for k in counts[key]})
+            for k, v in counts[key].items():
+                counts[path][k] += v
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            runs = counts[key][ik]
+            retries = runs - 1 - (N > 512)
+            t0 = time.perf_counter()
+            with plain_kernels(), recorded_ln_sigma() as ls_p:
+                plain = engine.fold_batch(seqs)
+            pwall = time.perf_counter() - t0
+            order = sorted(range(len(seqs)), key=lambda k: len(seqs[k]))
+            worst_same, n_diff = 0.0, 0
+            for row, k in enumerate(order):
+                if not (got[k][0].shape == (len(seqs[k]),) * 2
+                        and np.isfinite(got[k][0]).all()):
+                    raise AssertionError(f"{key}: bad BPP for sequence {k}")
+                d = float(np.abs(got[k][0] - plain[k][0]).max())
+                lk, lp = float(ls_k[-1][row]), float(ls_p[-1][row])
+                if lk == lp:
+                    worst_same = max(worst_same, d)
+                else:
+                    n_diff += 1
+                    print(f"  {key} sequence {k} (n={len(seqs[k])}): "
+                          f"ln_sigma kernel {lk!r} plain {lp!r}, "
+                          f"max |dBPP| {d:.3e}")
+            n_same = len(seqs) - n_diff
+            print(f"{key}: kernel vs plain path max |dBPP| {worst_same:.3e} "
+                  f"on {n_same} of {len(seqs)} sequences at equal ln_sigma; "
+                  f"{len(seqs) / wall:.4f} seqs/s ({wall:.3f} s/batch), "
+                  f"plain path {len(seqs) / pwall:.4f} seqs/s; {runs} runs "
+                  f"of {ik} ({retries} retries); peak memory {peak:.3f} GiB "
+                  f"on {smi}")
+            if not worst_same <= TOL_MAIN_VS_PLAIN:
+                raise AssertionError(f"{key}: main path disagrees with plain")
+            if n_same < MIN_SAME_LS_SHARE * len(seqs):
+                raise AssertionError(
+                    f"{key}: only {n_same} of {len(seqs)} sequences settled "
+                    "on the plain path's ln_sigma")
+            long_stats[key] = (len(seqs) / wall, retries, peak)
+
+    # the float64 goldens of the long-n anchors
+    gdir = ROOT / "tests" / "golden"
+    g = dict(np.load(gdir / "longn_f64.npz"))
+    g.update(np.load(gdir / "longn_f64_1536.npz"))
+    for model, engine in engines.items():
+        for n, tol in ((245, TOL_GOLDEN_245), (768, TOL_GOLDEN),
+                       (1536, TOL_GOLDEN)):
+            seq = [int(b) for b in g[f"seq_{n}"]]
+            if model == "turner" and n == 1536:
+                try:
+                    engine.fold_batch([seq])
+                except NotImplementedError as e:
+                    if "A10" not in str(e):
+                        raise
+                    print(f"turner n=1536: NotImplementedError ({e})")
+                    continue
+                raise AssertionError("turner n=1536 folded; expected A10")
+            bpp = engine.fold_batch([seq])[0][0]
+            worst = float(np.abs(bpp - g[f"bpp_{n}_{model}"]).max())
+            print(f"{model} n={n} vs float64 golden: max |dBPP| {worst:.3e} "
+                  f"(budget {tol:g})")
+            if not worst <= tol:  # NaN fails too
+                raise AssertionError(f"{model} n={n} outside the golden budget")
 
     # phase 4: the centroid CLI, both models
     golden = ROOT / "tests" / "golden" / "c_baseline"
@@ -426,6 +741,36 @@ def main():
     print(f"centroid CLI Turner: {len(names)} files, verdict {verdict} "
           f"({tie_file} record {tie_rec})")
 
+    # cli.mccaskill -c on the tRNAs mixed with a 400-nt and a 900-nt record
+    longs = (random_batch(1, 400, 400, seed=400)
+             + random_batch(1, 900, 900, seed=900))
+    mixed = [trnas[0], longs[0], *trnas[1:4], longs[1], *trnas[4:]]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        text = "".join(f">r{k}\n" + "".join("ACGU"[b] for b in s) + "\n"
+                       for k, s in enumerate(mixed))
+        (tmp / "mixed.fa").write_text(text)
+        mc_cli.main(["-i", str(tmp / "mixed.fa"), "-o", str(tmp / "m.txt"),
+                     "-c"])
+        mc_cli.main(["-i", fasta, "-o", str(tmp / "t.txt"), "-c"])
+        blocks = (tmp / "m.txt").read_text().split("\n\n>")[1:]
+        ref = (tmp / "t.txt").read_text().split("\n\n>")[1:]
+    if [b.split("\n", 1)[0] for b in blocks] != [str(k) for k in range(8)]:
+        raise AssertionError("mixed FASTA: records out of order")
+    bodies = [b.split("\n", 1)[1] for b in blocks]
+    short = [bodies[k] for k in (0, 2, 3, 4, 6, 7)]
+    if short != [b.split("\n", 1)[1] for b in ref]:
+        raise AssertionError("mixed FASTA: tRNA records differ from a "
+                             "tRNA-only run")
+    for k, lo, s in ((1, max(map(len, trnas)), longs[0]),
+                     (5, len(longs[0]), longs[1])):
+        top = max(int(t.split(",")[1]) for t in bodies[k].split())
+        if not lo < top < len(s):
+            raise AssertionError(f"mixed FASTA: record {k} is not the "
+                                 f"{len(s)}-nt one")
+    print("cli.mccaskill -c, mixed FASTA: 8 records in order, the 6 tRNA "
+          "records byte-identical to the tRNA-only run")
+
     # phase 5: main-path throughput, kernel path and plain path
     for model, engine in engines.items():
         for key, seqs in batches.items():
@@ -438,27 +783,37 @@ def main():
                       f"{len(seqs) / (ms / 1e3):.2f} seqs/s ({ms:.2f} ms/batch) "
                       f"on {smi}")
 
-    head = SHAPES_MAIN[0]
     kernels = []
     for k, (src, rep) in REPLACES.items():
+        by_shape = times[k]
+        head = "N1024_B16" if k.endswith("_long") else "N128_B192"
         paths = [m for m, ks in path_kernels.items() if k in ks]
+        ms, pms, bms, by, lms = by_shape[head]
         entry = {
             "name": k, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(counts[m][k] for m in paths),
             "max_abs_err": err[k],
-            "ms": times[head][k][0], "plain_ms": times[head][k][1],
-            "ms_by_shape": {f"N{N}_B{B}": times[(N, B)][k][0]
-                            for N, B in SHAPES_MAIN},
-            "plain_ms_by_shape": {f"N{N}_B{B}": times[(N, B)][k][1]
-                                  for N, B in SHAPES_MAIN},
+            "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lms,
+            "shape": head,
+            "ms_by_shape": {s: v[0] for s, v in by_shape.items()},
+            "plain_ms_by_shape": {s: v[1] for s, v in by_shape.items()},
+            "bound_ms_by_shape": {s: v[2] for s, v in by_shape.items()},
             "launches_by_path": {m: counts[m][k] for m in paths},
         }
         if k in rel:
             entry["max_rel_err"] = rel[k]
         if k == "skew":
+            entry["library_ms_by_shape"] = {s: v[4]
+                                            for s, v in by_shape.items()}
             entry["ms_by_shape_18_tables"] = {
-                f"N{N}_B{B}": times[(N, B)]["skew18"][0] for N, B in SHAPES_MAIN}
+                s: v[0] for s, v in times["skew18"].items()}
+            entry["library_ms_by_shape_18_tables"] = {
+                s: v[4] for s, v in times["skew18"].items()}
         kernels.append(entry)
+    print(json.dumps({"long_paths": {
+        k: {"seqs_per_s": v[0], "retries": v[1], "peak_gib": v[2]}
+        for k, v in long_stats.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

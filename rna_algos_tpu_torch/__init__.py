@@ -2,10 +2,15 @@
 
 The centroid-fold main path, both models, held against the JAX package:
 
-  FASTA -> parallel.runner.FoldEngine.fold_batch
+  FASTA -> parallel.runner.FoldEngine.fold_batch         (length buckets)
         -> models.mccaskill.mccaskill_bpp_batch_auto
-        -> ops.pallas_fold_prob8.mccaskill_turner_prob   (kernels K4, K5, K3)
-           or mccaskill_contra_prob with -c              (kernels K1, K2, K3)
+        -> N <= 256: ops.pallas_fold_prob8.mccaskill_turner_prob
+                     (kernels K4, K5, K3), or mccaskill_contra_prob with -c
+                     (kernels K1, K2, K3)
+           N = 512, 1024 (and 2048 for CONTRA):
+                     ops.pallas_fold_long.mccaskill_turner_pallas_prob
+                     (kernels K12, K13, K3), or mccaskill_contra_pallas_prob
+                     with -c (kernels K8, K9, K3)
         -> models.mccaskill._prob_finish                 (kernel K3, inverse)
         -> models.centroid.mea_fill_gammas + traceback -> dot-bracket files
 
@@ -15,9 +20,10 @@ version beside its wrapper; the wrapper takes the plain version only for
 tensors on the CPU and launches the kernel for CUDA tensors.  Kernels are
 built with ``nvcc`` at first use (``ops/_build.py``), never on import.
 
-This package imports ``torch`` and never ``jax``.  It reuses the JAX
-package's framework-free modules: ``constants``, ``params``, ``utils.io``,
-``utils.output``, ``utils.checkpoint`` and ``_native``.
+This package imports ``torch`` and never ``jax`` nor anything of the JAX
+package: it keeps its own copies of the framework-free modules it needs
+(``constants``, ``params``, ``utils.io``, ``utils.output``,
+``utils.checkpoint``).
 """
 
 __version__ = "0.1.0"

@@ -14,8 +14,8 @@ import sys
 import numpy as np
 import torch
 
-from rna_algos_tpu.utils.io import read_fasta
-from rna_algos_tpu.utils.output import _fmt, fold_str
+from ..utils.io import read_fasta
+from ..utils.output import _fmt, fold_str
 
 from ..models.centroid import DEFAULT_GAMMAS, mea_fill_gammas, traceback
 from ..parallel.runner import FoldEngine, pick_bucket
@@ -63,7 +63,7 @@ def main(argv=None):
     records = read_fasta(args.i)
     engine = FoldEngine(uses_contra_model=args.c, device=args.device)
     if args.bpp_cache:
-        from rna_algos_tpu.utils.checkpoint import BppStore, cached_fold_batch
+        from ..utils.checkpoint import BppStore, cached_fold_batch
 
         folded = cached_fold_batch(
             engine, [r.seq for r in records], BppStore(args.bpp_cache)

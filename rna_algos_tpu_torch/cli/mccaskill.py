@@ -10,8 +10,8 @@ import sys
 
 import numpy as np
 
-from rna_algos_tpu.utils.io import read_fasta
-from rna_algos_tpu.utils.output import probs2str_arrays
+from ..utils.io import read_fasta
+from ..utils.output import probs2str_arrays
 
 from ..parallel.runner import FoldEngine
 from .common import add_port_flags, check_numerics

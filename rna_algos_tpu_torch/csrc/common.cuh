@@ -125,8 +125,13 @@ __device__ __forceinline__ void rna_inside_bifurcation(
   one[row] = st.rmmb + s1v + s2;
 }
 
+// The smallest normal float: a subnormal CLOSE counts as no pair (XLA
+// flushes subnormals to zero, and 1/CLOSE would overflow).
+#define RNA_FLT_MIN 1.17549435e-38f
+
 // The outside pass's pair (i, j = i + d): CLOSE, 1/CLOSE (0 unless CLOSE
-// > 0) and the exterior context CLOSE * ACCB * ext(j+1, n-1).
+// is a positive normal float) and the exterior context
+// CLOSE * ACCB * ext(j+1, n-1).
 struct RnaOutsidePair {
   float c, inv_close, base;
   bool pos;
@@ -138,7 +143,7 @@ __device__ __forceinline__ RnaOutsidePair rna_outside_pair(
     int N) {
   RnaOutsidePair p;
   p.c = CLOSE[row];
-  p.pos = p.c > 0.0f;
+  p.pos = p.c >= RNA_FLT_MIN;
   p.inv_close = p.pos ? 1.0f / p.c : 0.0f;
   const float rt = EXTR[(long long)b * 2 * N + i + d + 1];
   p.base = p.c * ACCB[row] * rt;

@@ -1,11 +1,17 @@
-// K4: Turner inside wavefront in scaled probability space.
+// K4 and K12: Turner inside wavefront in scaled probability space, at
+// N = 32-1024 in steps of 32.
 //
 // Replaces rna_algos_tpu/ops/pallas_fold_prob8.py _turner_inside8m_kernel
-// (:2016) and _turner_inside8_kernel (:1821); the per-sequence maths is
-// pallas_fold_prob.py:1431-1538 (_turner_inside_prob_kernel).  The
-// recurrences are K1's (contra_inside.cu), through the same helpers of
-// common.cuh, with eu1 = mbu1 = 1/sigma, ebp = 1 and mbbp =
-// exp(COEFF_NUM_BRANCHES); only the 2-loop term and ring inserts differ.  Inputs are the merged [d, i] tables of
+// (:2016) and _turner_inside8_kernel (:1821) at N <= 256 (K4), and
+// pallas_fold_prob.py _turner_inside_prob_kernel_chunked (:1832, called
+// through _turner_prob_run_body_chunked, :2158) at N = 512 and 1024 (K12);
+// the per-sequence maths is pallas_fold_prob.py:1431-1538
+// (_turner_inside_prob_kernel).  The TPU's R-row chunks and resident
+// scratches do not carry over: the tables and histories are read in global
+// memory at every N.  The recurrences are K1's (contra_inside.cu), through
+// the same helpers of common.cuh, with eu1 = mbu1 = 1/sigma, ebp = 1 and
+// mbbp = exp(COEFF_NUM_BRANCHES); only the 2-loop term and ring inserts
+// differ.  Inputs are the merged [d, i] tables of
 // pallas_fold_prob8._turner_merge_inside (CANON and the outer terminal
 // mismatch * AU/GU products folded in), so for pair (i, j = i + d):
 //
@@ -25,21 +31,23 @@
 // arms: a = 1 or b = 1), KI only for a >= 2, so the loops visit those
 // cells alone; the plain version contracts the full matrices.
 //
-// Bound and design as K1: the latency of n dependent spans with a
-// __syncthreads each, not FLOPs or bytes.  One block per sequence, one
-// thread per lane i, the whole span loop in the block.  Three 32-slot
-// rings (g, g*TMI1, g*TMI2; slot = span & 31) and an 8-slot ring of
-// g*TMI3 (read only at age 6) live in dynamic shared memory with the three
-// 32 x 32 matrices: ~137 KB at N = 256, above the 48 KB default, so the
-// launch raises the kernel's dynamic shared-memory limit.  The rm/rmmb
-// histories and the ext/one tables stay in global memory.  The S1
-// recurrence is telescoped (flush-safe: Turner's mbu = 0 makes a
-// standalone mbu1^t column underflow).  Rows at or past n are never
-// written: the wrapper passes zeroed outputs.
+// Bound and design as K1/K8: the latency of n dependent spans with a
+// __syncthreads each and the lanes' serial O(d) bifurcation sums, not
+// FLOPs or bytes.  One block per sequence, one thread per lane i
+// (launch.cuh), the whole span loop in the block.  Three 32-slot rings (g,
+// g*TMI1, g*TMI2; slot = span & 31) and an 8-slot ring of g*TMI3 (read
+// only at age 6) take 104 x (N + 33) floats: in dynamic shared memory with
+// the three 32 x 32 matrices where they fit (~137 KB at N = 256, so the
+// launch raises the kernel's dynamic shared-memory limit), in the global
+// scratch at N = 512 and 1024 (227 KB of rings alone at 512).  The rm/rmmb histories and
+// the ext/one tables stay in global memory.  The S1 recurrence is
+// telescoped (flush-safe: Turner's mbu = 0 makes a standalone mbu1^t
+// column underflow).  Rows at or past n are never written: the wrapper
+// passes zeroed outputs.
 
-#include "common.cuh"
+#include "launch.cuh"
 
-// _TI_NAMES order (pallas_fold_prob8.TURNER_INSIDE_TABLES)
+// pallas_fold_prob8.TURNER_INSIDE_TABLES order
 enum {
   TI_H, TI_MBC, TI_ACC, TI_AUGC, TI_TMO1C, TI_TMO2C, TI_TMO3C,
   TI_SP00, TI_SP01, TI_SP10, TI_SP11, TI_SP12, TI_SP21, TI_SP22,
@@ -50,39 +58,42 @@ struct TurnerInsideTables {
   const float* t[TI_COUNT];
 };
 
-static size_t turner_inside_smem(int N) {
-  const int LW = N + 33;
-  return sizeof(float) *
-         ((3 * RNA_WIN + RNA_TM3_SLOTS) * LW + 3 * RNA_WIN * RNA_WIN +
-          4 * (N + 1));
-}
+#define TURNER_RING_ROWS (3 * RNA_WIN + RNA_TM3_SLOTS)
 
-__global__ void turner_inside_kernel(TurnerInsideTables tabs,
-                                     const float* __restrict__ KT,
-                                     const float* __restrict__ scal,
-                                     const int* __restrict__ ns, float* close,
-                                     float* ext, float* one, float* rm_hist,
-                                     float* rmm_hist, int N) {
+#define TURNER_INSIDE_PARAMS                                                \
+  TurnerInsideTables tabs, const float *__restrict__ KT,                    \
+      const float *__restrict__ scal, const int *__restrict__ ns,           \
+      float *close, float *ext, float *one, float *rm_hist,                 \
+      float *rmm_hist, float *ring_g, int N, int smem_ring
+#define TURNER_INSIDE_ARGS                                                  \
+  tabs, KT, scal, ns, close, ext, one, rm_hist, rmm_hist, ring_g, N,        \
+      smem_ring
+
+template <bool WIDE>
+__device__ __forceinline__ void turner_inside_body(TURNER_INSIDE_PARAMS) {
   extern __shared__ float smem[];
   const int LW = N + 33;                       // ring row: N lanes + pad
-  float* ringB = smem;                         // g          (KB, specials)
+  const int b = blockIdx.x;
+  // narrow: rings | kt | s2r | s1r; wide: kt | s2r | s1r [| rings]
+  float* kt = WIDE ? smem                      // KI | KB | K2, 32 x 32 each
+                   : smem + TURNER_RING_ROWS * LW;
+  float* s2r = kt + 3 * RNA_WIN * RNA_WIN;     // 2 * (N + 1), span parity
+  float* s1r = s2r + 2 * (N + 1);              // 2 * (N + 1), span parity
+  float* ringB = WIDE ? rna_rings(s1r + 2 * (N + 1), ring_g, b,
+                                  (long long)TURNER_RING_ROWS * LW, smem_ring)
+                      : smem;                  // g          (KB, specials)
   float* ringI = ringB + RNA_WIN * LW;         // g * TMI1   (KI)
   float* ring2 = ringI + RNA_WIN * LW;         // g * TMI2   (K2)
   float* ring3 = ring2 + RNA_WIN * LW;         // g * TMI3   (TM3 cells)
-  float* kt = ring3 + RNA_TM3_SLOTS * LW;      // KI | KB | K2, 32 x 32 each
-  float* s2r = kt + 3 * RNA_WIN * RNA_WIN;     // 2 * (N + 1), span parity
-  float* s1r = s2r + 2 * (N + 1);              // 2 * (N + 1), span parity
   const float* kI = kt;
   const float* kB = kt + RNA_WIN * RNA_WIN;
   const float* k2 = kt + 2 * RNA_WIN * RNA_WIN;
 
-  const int b = blockIdx.x;
   const int i = threadIdx.x;
   const long long base = (long long)b * N * N;
   const float* const* T = tabs.t;
 
-  for (int e = i; e < (3 * RNA_WIN + RNA_TM3_SLOTS) * LW; e += N)
-    smem[e] = 0.0f;
+  for (int e = i; e < TURNER_RING_ROWS * LW; e += N) ringB[e] = 0.0f;
   for (int e = i; e < 3 * RNA_WIN * RNA_WIN; e += N)
     kt[e] = KT[(long long)b * 3 * RNA_WIN * RNA_WIN + e];
   for (int e = i; e < 2 * (N + 1); e += N) {
@@ -153,20 +164,33 @@ __global__ void turner_inside_kernel(TurnerInsideTables tabs,
 #undef RING
 }
 
+__global__ void turner_inside_kernel(TURNER_INSIDE_PARAMS) {
+  turner_inside_body<false>(TURNER_INSIDE_ARGS);
+}
+
+__global__ void __launch_bounds__(RNA_MAX_THREADS)
+    turner_inside_wide_kernel(TURNER_INSIDE_PARAMS) {
+  turner_inside_body<true>(TURNER_INSIDE_ARGS);
+}
+
 extern "C" int rna_turner_inside(void** tables, const float* KT,
                                  const float* scal, const int* ns,
                                  float* close, float* ext, float* one,
-                                 float* rm_hist, float* rmm_hist, int B,
-                                 int N, void* stream) {
-  if (N < 32 || N > 256 || N % 32) return (int)cudaErrorInvalidValue;
+                                 float* rm_hist, float* rmm_hist,
+                                 float* ring_g, int B, int N, void* stream) {
+  // one lane per thread: Turner's tiers end at N = 1024
+  if (!rna_shape_ok(N) || N > RNA_MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
   TurnerInsideTables tabs;
   for (int k = 0; k < TI_COUNT; ++k) tabs.t[k] = (const float*)tables[k];
-  const size_t shmem = turner_inside_smem(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      turner_inside_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shmem);
-  if (err != cudaSuccess) return (int)err;
-  turner_inside_kernel<<<B, N, shmem, (cudaStream_t)stream>>>(
-      tabs, KT, scal, ns, close, ext, one, rm_hist, rmm_hist, N);
-  return (int)cudaGetLastError();
+  const size_t fixed =
+      sizeof(float) * (3 * RNA_WIN * RNA_WIN + 4 * (N + 1));
+  const size_t ring = sizeof(float) * TURNER_RING_ROWS * (N + 33);
+  int smem_ring = 1;
+  if (N <= RNA_NARROW)
+    return rna_launch(turner_inside_kernel, B, N, fixed + ring, stream,
+                      TURNER_INSIDE_ARGS);
+  const size_t shmem = rna_smem(fixed, ring, &smem_ring);
+  return rna_launch(turner_inside_wide_kernel, B, N, shmem, stream,
+                    TURNER_INSIDE_ARGS);
 }

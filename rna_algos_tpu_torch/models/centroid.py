@@ -4,14 +4,13 @@ The fill is a max-plus wavefront over spans with the gamma grid as a batch
 dimension; it keeps the JAX fill's float32 expressions and their order
 (``(m_in + gamma * p) - 1.0`` and ``P + R``, no fused or reassociated
 form), because the host traceback re-derives every choice by float32
-equality.  The traceback is the C kernel of ``rna_algos_tpu._native`` when
-it is built, else the NumPy loop below.
+equality.  The traceback is a NumPy loop on the host.
 """
 
 import numpy as np
 import torch
 
-from rna_algos_tpu.constants import NEG_INF
+from ..constants import NEG_INF
 
 # Reference CLI gamma grid: 2^-7 .. 2^10.
 MIN_POW_2 = -7
@@ -73,19 +72,8 @@ def traceback(M, bpp, gamma, n):
     """Stack traceback by float-equality re-derivation on the host.
 
     Returns (pairs, expected accuracy), as ``rna_algos_tpu`` does."""
-    from rna_algos_tpu._native import native
-
     M = np.asarray(M, dtype=np.float32)
     bpp = np.asarray(bpp, dtype=np.float32)
-    if (
-        native is not None
-        and M.ndim == 2
-        and M.shape[0] == M.shape[1]
-        and M.flags.c_contiguous
-    ):
-        bppc = np.ascontiguousarray(bpp, dtype=np.float32)
-        pairs = native.traceback(M, bppc, M.shape[1], int(n), float(gamma))
-        return pairs, float(M[0, n - 1])
     gamma = np.float32(gamma)
     one = np.float32(1.0)
     pairs = []

@@ -1,18 +1,33 @@
 """McCaskill base-pair probabilities (``rna_algos_tpu.models.mccaskill``).
 
-The port covers the stacked probability-space branch of
-``mccaskill_bpp_batch_pallas`` for buckets N <= 256, both models: the
-scaled inside and outside kernels with rescale retries, then
-``_prob_finish``.  The dispatch follows the tensors' device: CUDA tensors
-launch the kernels, CPU tensors run their plain versions.  The chunked
-long-sequence tier and the parity tier's log-space kernels are not ported
-yet (ROADMAP).
+The port covers the probability-space branches of
+``mccaskill_bpp_batch_pallas``, both models: the stacked tier for buckets
+N <= 256 (kernels K1/K2, K4/K5) and the long tier for N = 512, 1024 (both
+models) and 2048 (CONTRA) (kernels K8/K9, K12/K13), each with rescale
+retries, then ``_prob_finish``.  The dispatch follows the tensors' device:
+CUDA tensors launch the kernels, CPU tensors run their plain versions.  The
+XLA scan past those tiers and the parity tier's log-space kernels are not
+ported yet (ROADMAP A10).
 """
 
 import torch
 
+from ..ops import pallas_fold_long as PL
 from ..ops import pallas_fold_prob8 as P8
 from ..ops.pallas_skew import skew_pq_batch
+
+GENERIC_N_ITEM = (
+    "needs the generic-N XLA-scan path, not ported yet (ROADMAP A10)"
+)
+
+
+def pallas_available(contra, N):
+    """Whether the port has kernels for bucket N (the JAX package's
+    ``pallas_available`` tiers): power-of-two N <= 256, N = 512 and 1024,
+    and N = 2048 for CONTRA only."""
+    if N > P8.MAX_N:
+        return N in PL.long_tiers(contra)
+    return N >= 32 and (N & (N - 1)) == 0
 
 
 def _prob_finish(bppo, ns, N):
@@ -29,17 +44,25 @@ def _prob_finish(bppo, ns, N):
 def mccaskill_bpp_batch_auto(seqs, ns, tbl, N, contra=False,
                              allows_short_hairpins=False):
     """(bpp, presence), each (B, N, N), for ``seqs`` (B, N) int64 and ``ns``
-    (B,) int32: the stacked probability-space branch of
+    (B,) int32: the probability-space branches of
     ``mccaskill_bpp_batch_pallas`` behind the JAX package's
     ``mccaskill_bpp_batch_auto``.  ``tbl`` is ``weights.contra_tables``
-    (``contra=True``) or ``weights.turner_tables``.
+    (``contra=True``) or ``weights.turner_tables``.  N <= 256 runs the
+    stacked tier, N = 512, 1024 (and 2048 for CONTRA) the long tier; any
+    other N > 256 raises NotImplementedError.
 
     Runs where the tensors live: on a CUDA device through the kernels, on
     the CPU through their plain versions.  Nothing moves between devices."""
+    if N > P8.MAX_N and not pallas_available(contra, N):
+        model = "CONTRA" if contra else "Turner"
+        raise NotImplementedError(f"{model} bucket N = {N} {GENERIC_N_ITEM}")
     if contra:
-        bppo, _ls = P8.mccaskill_contra_prob(
-            seqs, ns, tbl, N=N, allows_short_hairpins=allows_short_hairpins
-        )
+        fold = (P8.mccaskill_contra_prob if N <= P8.MAX_N
+                else PL.mccaskill_contra_pallas_prob)
+        bppo, _ls = fold(seqs, ns, tbl, N=N,
+                         allows_short_hairpins=allows_short_hairpins)
     else:
-        bppo, _ls = P8.mccaskill_turner_prob(seqs, ns, tbl, N=N)
+        fold = (P8.mccaskill_turner_prob if N <= P8.MAX_N
+                else PL.mccaskill_turner_pallas_prob)
+        bppo, _ls = fold(seqs, ns, tbl, N=N)
     return _prob_finish(bppo, ns, N)

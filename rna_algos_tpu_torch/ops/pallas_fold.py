@@ -10,7 +10,7 @@ ported yet (ROADMAP).  Everything takes a leading batch dimension.
 import numpy as np
 import torch
 
-from rna_algos_tpu.constants import (
+from ..constants import (
     MAX_HAIRPIN_LEN_EXTRAPOLATION,
     MAX_LOOP_LEN,
     MIN_HAIRPIN_LEN,

@@ -171,32 +171,69 @@ def _flags(bppo, glob):
     return bad_hi, bad_lo
 
 
+# Per-base log-Z grows slightly with length (longer-range pairs engage);
+# the float64 oracle puts the drift from a 512-nt prefix to ~1000 nt at
+# +0.013 (CONTRA) / +0.035 (Turner) on random sequences, so the prefix seed
+# is centred on the expected full-length value.
+LS_PREFIX_DRIFT = 0.013
+LS_PREFIX_DRIFT_TURNER = 0.035
+# Lanes longer than this start the blind walk at the band half-width.
+LONG_N = 512
+LONG_STEP_WIDTH = 55.0   # first step min(RETRY_STEP, 55/n)
+LONG_STEP_GROWTH = 1.5   # per same-direction step
+
+
+def _estimate_ls0(run_small, ns_small, base, drift=0.0):
+    """Per-sequence ln_sigma seed from one run over a truncated prefix
+    (``_estimate_ls0``): at N > 256 the representable band is only ~+-55/n
+    wide in ln_sigma, and every retry re-runs the whole batch.  The prefix
+    pass at ``base`` measures each sequence's per-base log-Z, ``drift``
+    centres it on the full length.  A prefix whose scaled Z is 0 or not
+    finite keeps ``base`` (a subnormal counts as 0, as in ``_retrying``)."""
+    f32 = torch.float32
+    B, dev = ns_small.shape[0], ns_small.device
+    ls0 = torch.full((B,), base, dtype=f32, device=dev)
+    _bppo, glob = run_small(ls0)
+    ok = torch.isfinite(glob) & (glob >= FLT_MIN)
+    nf = ns_small.to(f32).clamp(min=1.0)
+    z = drift + ls0 + torch.log(torch.where(ok, glob, torch.ones_like(glob))) / nf
+    return torch.where(ok, z, ls0)
+
+
 def _retrying(run, ns, ls0=None):
     """Rescale-retry loop around a (ln_sigma,) -> (bppo, glob) run for
-    sequences of lengths ``ns`` (B,), seeded at ``ls0`` (default
-    LN_SIGMA0; the Turner path passes LN_SIGMA0_TURNER).
+    sequences of lengths ``ns`` (B,), seeded at ``ls0``: a scalar, a (B,)
+    tensor (the prefix seed of ``_estimate_ls0``) or None for LN_SIGMA0
+    (the Turner paths pass LN_SIGMA0_TURNER).
 
     A host loop that syncs once per iteration (``any()``) with the JAX
     loop's logic: sequences whose scaled Z left the guard band re-run; a
-    finite normal glob jumps straight to ln(glob)/n, a 0/inf one walks
-    by RETRY_STEP, halving on a direction flip; at most MAX_RETRIES
-    iterations.  The JAX loop's gentler step for n > 512 belongs to the
-    span-chunked tier, which is not ported (ROADMAP A8).  Returns (bppo,
-    ln_sigma)."""
+    finite normal glob jumps straight to ln(glob)/n, a 0/inf one walks,
+    halving its step on a direction flip; at most MAX_RETRIES iterations.
+    The walk starts at RETRY_STEP, or for lanes of n > 512 at
+    min(RETRY_STEP, 55/n), growing 1.5x per same-direction step (their
+    band is too narrow for the fixed step).  Returns (bppo, ln_sigma)."""
     f32 = torch.float32
     B, dev = ns.shape[0], ns.device
     nf = ns.to(f32).clamp(min=1.0)
-    seed = LN_SIGMA0 if ls0 is None else ls0
-    ls = torch.full((B,), seed, dtype=f32, device=dev)
+    if torch.is_tensor(ls0):
+        ls = ls0.to(device=dev, dtype=f32).expand(B).clone()
+    else:
+        seed = LN_SIGMA0 if ls0 is None else ls0
+        ls = torch.full((B,), seed, dtype=f32, device=dev)
     bppo, glob = run(ls)
     bh, bl = _flags(bppo, glob)
-    step = torch.full((B,), RETRY_STEP, dtype=f32, device=dev)
+    longn = nf > LONG_N
+    step = torch.where(longn, (LONG_STEP_WIDTH / nf).clamp(max=RETRY_STEP),
+                       torch.full((B,), RETRY_STEP, dtype=f32, device=dev))
+    grow = torch.where(longn, LONG_STEP_GROWTH, 1.0).to(f32)
     last_dir = torch.zeros((B,), dtype=f32, device=dev)
     k = 0
     while k < MAX_RETRIES and bool((bh | bl).any()):
         bad = bh | bl
         direction = bh.to(f32) - bl.to(f32)
-        step = torch.where(direction * last_dir < 0, step * 0.5, step)
+        step = torch.where(direction * last_dir < 0, step * 0.5,
+                           torch.where(last_dir != 0, step * grow, step))
         # a subnormal glob counts as 0 (walk, no jump): XLA flushes
         # subnormals to zero on the TPU and the CPU, so the JAX loop never
         # jumps from one

@@ -6,7 +6,9 @@ and the fixed-scale runs wrapped in the rescale-retry loop.
 The TPU stacked G sequences along sublanes and aged a lane-major window;
 none of that layout is carried over.  Here each kernel runs one CUDA block
 per sequence (``csrc/contra_inside.cu``, ``csrc/contra_outside.cu``,
-``csrc/turner_inside.cu``, ``csrc/turner_outside.cu``).  The plain versions
+``csrc/turner_inside.cu``, ``csrc/turner_outside.cu``; the long tier's K8,
+K9, K12 and K13 are the same kernels at N > 256, launched through the
+helpers below by ``pallas_fold_long``).  The plain versions
 below compute the same recurrences for the whole batch with tensor ops per
 span; the wrappers use them for CPU tensors only.  The two models share
 every recurrence but the 2-loop term, so each pass has one plain core
@@ -19,7 +21,7 @@ import functools
 
 import torch
 
-from rna_algos_tpu.constants import MIN_SPAN_HAIRPIN_CLOSE
+from ..constants import MIN_SPAN_HAIRPIN_CLOSE
 
 from . import _build
 from . import pallas_fold as PF
@@ -50,7 +52,12 @@ TURNER_SPECIALS = (
     ("SP12", 4, 2), ("SP21", 4, 3), ("SP22", 5, 3),
 )
 TM3_AGE = 6   # the two 2x3 cells (a, b) = (2, 3), (3, 2): age a + b + 1
-MAX_N = 256  # one CUDA block of N threads per sequence
+MAX_N = 256  # the stacked tier; pallas_fold_long serves 512, 1024, 2048
+# Rows of the window-ring scratch per sequence, used where the rings do not
+# fit in shared memory: CONTRA one 32-slot ring, Turner three 32-slot rings
+# and one 8-slot ring.
+RING_SLOTS_CONTRA = 32
+RING_SLOTS_TURNER = 3 * 32 + 8
 
 inside_launches = _build.LaunchCounter("contra_inside")
 outside_launches = _build.LaunchCounter("contra_outside")
@@ -256,22 +263,42 @@ def contra_inside(mi, KW, scal, ns):
         return contra_inside_plain(mi, KW, scal, ns)
     if dev.type != "cuda":
         raise ValueError(f"contra_inside: no kernel for device {dev}")
-    B, N, _ = mi["H"].shape
+    N = mi["H"].shape[1]
     if N > MAX_N or N % 32:
         raise ValueError(f"contra_inside: N = {N} (need N <= 256, N % 32 == 0)")
+    out = _contra_inside_cuda(mi, KW, scal, ns)
+    inside_launches.count += 1
+    return out
+
+
+def _ring(B, N, slots, dev):
+    """Window-ring scratch of a launch past MAX_N, used where the rings do
+    not fit in shared memory (the kernel zeroes what it uses); up to MAX_N
+    they always do, and the scratch is empty."""
+    shape = (B, slots, N + 33) if N > MAX_N else (0,)
+    return torch.empty(shape, device=dev)
+
+
+def _contra_inside_cuda(mi, KW, scal, ns):
+    """Check the inputs of the CONTRA inside kernel (K1 at N <= 256, K8
+    past it) and launch it: (close, ext, one)."""
+    entry = "rna_contra_inside"
+    dev = mi["H"].device
+    B, N, _ = mi["H"].shape
     ins = {k: mi[k] for k in INSIDE_TABLES}
     ins.update(KW=KW, scal=scal, ns=ns)
     shapes = {k: (B, N, N) for k in INSIDE_TABLES}
     shapes.update(KW=(B, 32, 32), scal=(B, 4), ns=(B,))
-    _build.check_cuda("contra_inside", ins, shapes, dev)
+    _build.check_cuda(entry, ins, shapes, dev)
     close, ext, one = (torch.zeros((B, N, N), device=dev) for _ in range(3))
     rm, rmm = torch.empty((B, N, N), device=dev), torch.empty((B, N, N), device=dev)
-    args = [ins[k] for k in INSIDE_TABLES] + [KW, scal, ns, close, ext, one, rm, rmm]
+    args = [ins[k] for k in INSIDE_TABLES] + [
+        KW, scal, ns, close, ext, one, rm, rmm,
+        _ring(B, N, RING_SLOTS_CONTRA, dev),
+    ]
     _build.library().call(
-        "rna_contra_inside", *[_build.ptr(t) for t in args], B, N,
-        _build.stream_ptr(dev),
+        entry, *[_build.ptr(t) for t in args], B, N, _build.stream_ptr(dev),
     )
-    inside_launches.count += 1
     return close, ext, one
 
 
@@ -301,7 +328,9 @@ def _outside_plain(CLOSE, MBC, ACCB, ACCMB, one, QONE, extR, scal, ns,
     for d in range(n_max - 1, -1, -1):
         span_ok = d + 1 >= min_span
         c = CLOSE[:, d]
-        pos = c > 0.0
+        # a subnormal close counts as 0, as where XLA flushes subnormals:
+        # its reciprocal would overflow
+        pos = c >= PP.FLT_MIN
         inv_close = torch.where(pos, 1.0 / torch.where(pos, c, 1.0), z)
         basev = c * ACCB[:, d] * extR[:, d + 1:d + 1 + N]
         two = two_at(d) * c
@@ -401,26 +430,38 @@ def contra_outside(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
         )
     if dev.type != "cuda":
         raise ValueError(f"contra_outside: no kernel for device {dev}")
-    B, N, _ = one.shape
+    N = one.shape[1]
     if N > MAX_N or N % 32:
         raise ValueError(f"contra_outside: N = {N} (need N <= 256, N % 32 == 0)")
+    bppo = _contra_outside_cuda(mo, one, QONE, extR, b0lo, KW, scal, ns,
+                                min_span)
+    outside_launches.count += 1
+    return bppo
+
+
+def _contra_outside_cuda(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
+    """Check the inputs of the CONTRA outside kernel (K2 at N <= 256, K9
+    past it) and launch it: bppo."""
+    entry = "rna_contra_outside"
+    dev = one.device
+    B, N, _ = one.shape
     ins = {k: mo[k] for k in OUTSIDE_TABLES}
     ins.update(ONE=one, QONE=QONE, EXTR=extR, B0LO=b0lo, KW=KW, scal=scal,
                ns=ns)
     shapes = {k: (B, N, N) for k in OUTSIDE_TABLES + ("ONE", "QONE")}
     shapes.update(EXTR=(B, 2 * N), B0LO=(B, N), KW=(B, 32, 32), scal=(B, 4),
                   ns=(B,))
-    _build.check_cuda("contra_outside", ins, shapes, dev)
+    _build.check_cuda(entry, ins, shapes, dev)
     bppo = torch.zeros((B, N, N), device=dev)
     pm, pm2, g = (torch.empty((B, N, N), device=dev) for _ in range(3))
     args = [ins[k] for k in OUTSIDE_TABLES] + [
         one, QONE, extR, b0lo, KW, scal, ns, bppo, pm, pm2, g,
+        _ring(B, N, RING_SLOTS_CONTRA, dev),
     ]
     _build.library().call(
-        "rna_contra_outside", *[_build.ptr(t) for t in args], B, N,
-        int(min_span), _build.stream_ptr(dev),
+        entry, *[_build.ptr(t) for t in args], B, N, int(min_span),
+        _build.stream_ptr(dev),
     )
-    outside_launches.count += 1
     return bppo
 
 
@@ -531,22 +572,33 @@ def turner_inside(mi, KT, scal, ns):
         return turner_inside_plain(mi, KT, scal, ns)
     if dev.type != "cuda":
         raise ValueError(f"turner_inside: no kernel for device {dev}")
-    B, N, _ = mi["H"].shape
+    N = mi["H"].shape[1]
     if N > MAX_N or N % 32:
         raise ValueError(f"turner_inside: N = {N} (need N <= 256, N % 32 == 0)")
+    out = _turner_inside_cuda(mi, KT, scal, ns)
+    turner_inside_launches.count += 1
+    return out
+
+
+def _turner_inside_cuda(mi, KT, scal, ns):
+    """Check the inputs of the Turner inside kernel (K4 at N <= 256, K12
+    past it) and launch it: (close, ext, one)."""
+    entry = "rna_turner_inside"
+    dev = mi["H"].device
+    B, N, _ = mi["H"].shape
     ins = {k: mi[k] for k in TURNER_INSIDE_TABLES}
     ins.update(KT=KT, scal=scal, ns=ns)
     shapes = {k: (B, N, N) for k in TURNER_INSIDE_TABLES}
     shapes.update(KT=(B, 3, 32, 32), scal=(B, 6), ns=(B,))
-    _build.check_cuda("turner_inside", ins, shapes, dev)
+    _build.check_cuda(entry, ins, shapes, dev)
     close, ext, one = (torch.zeros((B, N, N), device=dev) for _ in range(3))
     rm, rmm = torch.empty((B, N, N), device=dev), torch.empty((B, N, N), device=dev)
-    args = [KT, scal, ns, close, ext, one, rm, rmm]
+    args = [KT, scal, ns, close, ext, one, rm, rmm,
+            _ring(B, N, RING_SLOTS_TURNER, dev)]
     _build.library().call(
-        "rna_turner_inside", _table_array(ins, TURNER_INSIDE_TABLES),
+        entry, _table_array(ins, TURNER_INSIDE_TABLES),
         *[_build.ptr(t) for t in args], B, N, _build.stream_ptr(dev),
     )
-    turner_inside_launches.count += 1
     return close, ext, one
 
 
@@ -594,23 +646,34 @@ def turner_outside(mo, one, QONE, extR, KT, scal, ns, min_span):
                                     min_span)
     if dev.type != "cuda":
         raise ValueError(f"turner_outside: no kernel for device {dev}")
-    B, N, _ = one.shape
+    N = one.shape[1]
     if N > MAX_N or N % 32:
         raise ValueError(f"turner_outside: N = {N} (need N <= 256, N % 32 == 0)")
+    bppo = _turner_outside_cuda(mo, one, QONE, extR, KT, scal, ns, min_span)
+    turner_outside_launches.count += 1
+    return bppo
+
+
+def _turner_outside_cuda(mo, one, QONE, extR, KT, scal, ns, min_span):
+    """Check the inputs of the Turner outside kernel (K5 at N <= 256, K13
+    past it) and launch it: bppo."""
+    entry = "rna_turner_outside"
+    dev = one.device
+    B, N, _ = one.shape
     ins = {k: mo[k] for k in TURNER_OUTSIDE_TABLES}
     ins.update(ONE=one, QONE=QONE, EXTR=extR, KT=KT, scal=scal, ns=ns)
     shapes = {k: (B, N, N) for k in TURNER_OUTSIDE_TABLES + ("ONE", "QONE")}
     shapes.update(EXTR=(B, 2 * N), KT=(B, 3, 32, 32), scal=(B, 6), ns=(B,))
-    _build.check_cuda("turner_outside", ins, shapes, dev)
+    _build.check_cuda(entry, ins, shapes, dev)
     bppo = torch.zeros((B, N, N), device=dev)
     pm, pm2, g = (torch.empty((B, N, N), device=dev) for _ in range(3))
-    args = [one, QONE, extR, KT, scal, ns, bppo, pm, pm2, g]
+    args = [one, QONE, extR, KT, scal, ns, bppo, pm, pm2, g,
+            _ring(B, N, RING_SLOTS_TURNER, dev)]
     _build.library().call(
-        "rna_turner_outside", _table_array(ins, TURNER_OUTSIDE_TABLES),
+        entry, _table_array(ins, TURNER_OUTSIDE_TABLES),
         *[_build.ptr(t) for t in args], B, N, int(min_span),
         _build.stream_ptr(dev),
     )
-    turner_outside_launches.count += 1
     return bppo
 
 
@@ -618,14 +681,19 @@ def turner_outside(mo, one, QONE, extR, KT, scal, ns, min_span):
 # One fixed-scale run and the rescale-retry loop
 # ---------------------------------------------------------------------------
 
-def _prob8_run_body(seqs, ns, ct, ln_sigma, N, allows_short_hairpins):
-    """Fixed-``ln_sigma`` inside + outside: (bppo [d, i], glob)."""
+def _prob8_run_body(seqs, ns, ct, ln_sigma, N, allows_short_hairpins,
+                    inside=None, outside=None):
+    """Fixed-``ln_sigma`` inside + outside: (bppo [d, i], glob).  ``inside``
+    and ``outside`` are the kernel wrappers, K1 and K2 unless given (the
+    long tier passes K8 and K9)."""
+    inside = inside or contra_inside
+    outside = outside or contra_outside
     mi, mo_pre, ACC_di, b0lo = contra_prob_mats_merged(
         seqs, ns, ct, ln_sigma, N
     )
     KW = PP._banded_window_kernel(PP._contra_len_prob(ct, ln_sigma))
     scal = PP._scal_rows(ct, ln_sigma)
-    close, ext, one = contra_inside(mi, KW, scal, ns)
+    close, ext, one = inside(mi, KW, scal, ns)
     QONE, extL, extR, glob = PF.contra_outside_aux(ns, ext, one, N)
     ebp = scal[:, 1]
     mo = dict(mo_pre)
@@ -635,7 +703,7 @@ def _prob8_run_body(seqs, ns, ct, ln_sigma, N, allows_short_hairpins):
     )
     mo["CLOSE"] = close
     min_span = 2 if allows_short_hairpins else MIN_SPAN_HAIRPIN_CLOSE
-    bppo = contra_outside(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span)
+    bppo = outside(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span)
     return bppo, glob
 
 
@@ -645,10 +713,8 @@ def mccaskill_contra_prob(seqs, ns, ct, N, allows_short_hairpins=False):
     (B,) int32 on the device that runs it.  Returns (bppo [d, i] basepair
     probabilities, ln_sigma per sequence)."""
     if N > MAX_N:
-        raise NotImplementedError(
-            f"bucket N = {N} > 256 needs the span-chunked kernels, not "
-            "ported yet (ROADMAP A8)"
-        )
+        raise ValueError(f"stacked tier: N = {N} > {MAX_N} (the long tiers "
+                         "are ops.pallas_fold_long)")
 
     def run(ls):
         return _prob8_run_body(seqs, ns, ct, ls, N, allows_short_hairpins)
@@ -656,20 +722,24 @@ def mccaskill_contra_prob(seqs, ns, ct, N, allows_short_hairpins=False):
     return PP._retrying(run, ns)
 
 
-def _turner_prob8_run_body(seqs, ns, tt, ln_sigma, N):
-    """Fixed-``ln_sigma`` Turner inside + outside: (bppo [d, i], glob)."""
+def _turner_prob8_run_body(seqs, ns, tt, ln_sigma, N, inside=None,
+                           outside=None):
+    """Fixed-``ln_sigma`` Turner inside + outside: (bppo [d, i], glob);
+    the kernel wrappers K4 and K5 unless given (the long tier passes K12
+    and K13)."""
+    inside = inside or turner_inside
+    outside = outside or turner_outside
     pmats = PP.turner_prob_mats(seqs, ns, tt, ln_sigma, N)
     LENBp, LENIp = PP._turner_len_prob(tt, ln_sigma)
     KB, K2, KI = PP._turner_banded_kernels(LENBp, LENIp)
     KT = torch.stack([KI, KB, K2], dim=1).contiguous()
     scal = PP._turner_scal_rows(tt, ln_sigma, LENIp)
     mi = {k: v.contiguous() for k, v in _turner_merge_inside(pmats).items()}
-    close, ext, one = turner_inside(mi, KT, scal, ns)
+    close, ext, one = inside(mi, KT, scal, ns)
     QONE, extL, extR, glob = PF.contra_outside_aux(ns, ext, one, N)
     mo = _turner_merge_outside(close, pmats, extL, glob, scal[:, 3])
     mo = {k: v.contiguous() for k, v in mo.items()}
-    bppo = turner_outside(mo, one, QONE, extR, KT, scal, ns,
-                          MIN_SPAN_HAIRPIN_CLOSE)
+    bppo = outside(mo, one, QONE, extR, KT, scal, ns, MIN_SPAN_HAIRPIN_CLOSE)
     return bppo, glob
 
 
@@ -679,10 +749,8 @@ def mccaskill_turner_prob(seqs, ns, tt, N):
     int64 and ``ns`` (B,) int32 on the device that runs it.  Returns
     (bppo [d, i] basepair probabilities, ln_sigma per sequence)."""
     if N > MAX_N:
-        raise NotImplementedError(
-            f"bucket N = {N} > 256 needs the span-chunked kernels, not "
-            "ported yet (ROADMAP A8)"
-        )
+        raise ValueError(f"stacked tier: N = {N} > {MAX_N} (the long tiers "
+                         "are ops.pallas_fold_long)")
 
     def run(ls):
         return _turner_prob8_run_body(seqs, ns, tt, ls, N)

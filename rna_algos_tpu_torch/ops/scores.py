@@ -8,7 +8,7 @@
 
 import torch
 
-from rna_algos_tpu.constants import (
+from ..constants import (
     A,
     G,
     U,

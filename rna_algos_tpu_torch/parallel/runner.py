@@ -4,18 +4,14 @@
 import numpy as np
 import torch
 
-from rna_algos_tpu.constants import PSEUDO_BASE
-from rna_algos_tpu.params import build_fold_score_sets
+from ..constants import PSEUDO_BASE
+from ..params import build_fold_score_sets
 
 from ..models import mccaskill as M
-from ..ops.pallas_fold_prob8 import MAX_N
 from ..weights import contra_tables, turner_tables
 
 # Static length buckets (as in the JAX package).
 BUCKETS = (64, 96, 128, 192, 256, 384, 512)
-# The JAX kernel path folds in power-of-two buckets; the port folds the
-# same padded shapes so the two are held against each other like for like.
-POW2_BUCKET = {96: 128, 192: 256}
 
 
 def pick_bucket(n):
@@ -25,14 +21,32 @@ def pick_bucket(n):
     return ((n + 127) // 128) * 128
 
 
-def kernel_bucket(n):
-    """The bucket the port folds a length-n sequence in."""
-    N = pick_bucket(n)
-    N = POW2_BUCKET.get(N, N)
-    if N > MAX_N:
+# The JAX runner's promotions to the power-of-two kernel tiers.
+POW2_BUCKET = {96: 128, 192: 256, 384: 512}
+
+
+def _promote(N):
+    """96 -> 128, 192 -> 256, 384 -> 512, (512, 1024] -> 1024 and
+    (1024, 2048] -> 2048."""
+    if N in POW2_BUCKET:
+        return POW2_BUCKET[N]
+    for tier in (1024, 2048):
+        if tier // 2 < N <= tier:
+            return tier
+    return N
+
+
+def kernel_bucket(n, contra):
+    """The bucket the port folds a length-n sequence in: ``pick_bucket``
+    and the JAX runner's promotions to the kernel tiers.  Lengths past the
+    tiers (Turner n > 1024, any n > 2048) raise: the JAX package folds them
+    with the XLA scan, which is not ported."""
+    N = _promote(pick_bucket(n))
+    if not M.pallas_available(contra, N):
+        model = "CONTRA" if contra else "Turner"
         raise NotImplementedError(
-            f"sequence length {n} > 256 needs the span-chunked kernels, not "
-            "ported yet (ROADMAP A8)"
+            f"{model} sequence of length {n} (bucket {pick_bucket(n)}) "
+            f"{M.GENERIC_N_ITEM}"
         )
     return N
 
@@ -75,7 +89,8 @@ class FoldEngine:
         results = [None] * len(seqs)
         by_bucket = {}
         for k in order:
-            by_bucket.setdefault(kernel_bucket(len(seqs[k])), []).append(k)
+            by_bucket.setdefault(kernel_bucket(len(seqs[k]), self.contra),
+                                 []).append(k)
         for N, idxs in by_bucket.items():
             arr = torch.as_tensor(pad_seqs([seqs[k] for k in idxs], N),
                                   dtype=torch.int64, device=self.device)

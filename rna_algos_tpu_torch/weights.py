@@ -8,7 +8,7 @@ Counterparts of ``rna_algos_tpu.ops.scores.contra_table_pytree`` and
 import numpy as np
 import torch
 
-from rna_algos_tpu.params import turner as T
+from .params import turner as T
 
 
 def contra_tables(fss, device):

@@ -3,8 +3,9 @@
 
     python scripts/profile_torch_cells.py [--trace-dir DIR]
 
-Cells as in chip_smoke.py: the six tRNAs tiled to B = 192 (bucket 128) and
-96 seeded random 150-200 nt sequences (bucket 256), for CONTRA and Turner.
+Cells as in chip_smoke.py: the six tRNAs tiled to B = 192 (bucket 128), 96
+seeded random 150-200 nt sequences (bucket 256) and 16 seeded random
+600-1,000 nt sequences (bucket 1024, the long tier), for CONTRA and Turner.
 For each it prints the unprofiled batch time (the mean of REPS batches in
 one CUDA-event window after two warm-ups, as chip_smoke.cuda_ms; every
 cell is timed before the first profiler session, whose instrumentation
@@ -27,8 +28,12 @@ sys.path.insert(0, str(ROOT))
 
 # unprofiled batches timed per cell, as chip_smoke.py's throughput phase
 REPS = 5
+# device kernel names: the narrow (N <= 256) and wide (N > 256) entry
+# kernels of each wavefront source
 KERNELS = ("skew_kernel", "contra_inside_kernel", "contra_outside_kernel",
-           "turner_inside_kernel", "turner_outside_kernel")
+           "turner_inside_kernel", "turner_outside_kernel",
+           "contra_inside_wide_kernel", "contra_outside_wide_kernel",
+           "turner_inside_wide_kernel", "turner_outside_wide_kernel")
 
 
 def _union(intervals):
@@ -97,7 +102,9 @@ def main(argv=None):
     print(torch.cuda.get_device_name(0), torch.__version__)
     trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
     cells = {"trna_N128_B192": trnas * 32,
-             "rfam_N256_B96": chip_smoke.random_batch(96, 150, 200, seed=2024)}
+             "rfam_N256_B96": chip_smoke.random_batch(96, 150, 200, seed=2024),
+             "long_N1024_B16": chip_smoke.random_batch(
+                 *chip_smoke.LONG_BATCHES[1024], seed=1024)}
     trace_dir = pathlib.Path(args.trace_dir) if args.trace_dir else None
     if trace_dir:
         trace_dir.mkdir(parents=True, exist_ok=True)

@@ -98,10 +98,11 @@ def test_cli_refuses_what_is_not_ported(tmp_path, cli):
     with pytest.raises(NotImplementedError, match="A10"):
         cli.main(["-i", FASTA, "-o", out, "-c", "--device", "cpu",
                   "--numerics", "parity"])
-    # a 300-nt record needs the span-chunked tier, for either model
-    long_fa = tmp_path / "long.fa"
-    long_fa.write_text(">long\n" + "GCAU" * 75 + "\n")
-    for model in (["-c"], []):
-        with pytest.raises(NotImplementedError, match="A8"):
+    # past the kernel tiers (CONTRA n > 2048, Turner n > 1024) the JAX
+    # package runs the XLA scan, which is not ported
+    for model, n in ((["-c"], 2052), ([], 1028)):
+        long_fa = tmp_path / "long.fa"
+        long_fa.write_text(">long\n" + "GCAU" * (n // 4) + "\n")
+        with pytest.raises(NotImplementedError, match="A10"):
             cli.main(["-i", str(long_fa), "-o", out, "--device", "cpu",
                       *model])

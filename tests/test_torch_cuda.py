@@ -1,5 +1,6 @@
-"""Kernels K1-K5 against their plain versions on a CUDA GPU: the checks of
-chip_smoke.py, at the main paths' buckets.  Skipped without a GPU; run on
+"""Kernels K1-K5, K8, K9, K12 and K13 against their plain versions on a
+CUDA GPU: the checks of chip_smoke.py, at the main paths' buckets (the long
+tier's at a centred per-sequence ln_sigma).  Skipped without a GPU; run on
 the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
 import numpy as np
@@ -31,6 +32,37 @@ def inputs(device, request):
 def turner_inputs(device, request):
     N, B = request.param
     return chip_smoke.turner_inputs(N, B, seed=N + B + 1, device=device)
+
+
+LONG_SHAPES = [(m, N, B) for m, shapes in chip_smoke.LONG_CHECK.items()
+               for N, B in shapes]
+
+
+@pytest.fixture(scope="module", params=LONG_SHAPES,
+                ids=lambda s: f"{s[0]}_N{s[1]}_B{s[2]}")
+def long_inputs(device, request):
+    model, N, B = request.param
+    build = (chip_smoke.kernel_inputs if model == "contra"
+             else chip_smoke.turner_inputs)
+    return build(N, B, seed=N + B, device=device)
+
+
+def test_long_inside_kernel_matches_plain(long_inputs):
+    """K8 (CONTRA, N = 512, 1024, 2048) and K12 (Turner, N = 512, 1024)."""
+    kernel = long_inputs["kernels"][0]
+    chip_smoke.check_inside(long_inputs, chip_smoke.LABELS[kernel], kernel)
+
+
+def test_long_outside_kernel_matches_plain(long_inputs):
+    """K9 (CONTRA) and K13 (Turner) on bppo."""
+    kernel = long_inputs["kernels"][1]
+    err = chip_smoke.check_outside(long_inputs, chip_smoke.LABELS[kernel],
+                                   kernel)
+    assert err <= chip_smoke.ATOL_BPPO
+
+
+def test_long_skew_kernel_bitwise(long_inputs):
+    assert chip_smoke.check_skew(long_inputs) == 0.0
 
 
 def test_skew_kernel_bitwise(inputs):
@@ -89,3 +121,22 @@ def test_turner_main_path_launches_its_kernels(device):
     assert all(c.count >= 1 for c in counters)
     assert P8.inside_launches.count == P8.outside_launches.count == 0
     assert all(np.isfinite(bpp).all() for bpp, _ in out)
+
+
+@pytest.mark.parametrize("contra", [True, False], ids=["contra", "turner"])
+def test_long_main_path_launches_its_kernels(device, contra):
+    from rna_algos_tpu_torch.ops import pallas_fold_long as PL
+    from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
+    from rna_algos_tpu_torch.parallel.runner import FoldEngine
+
+    model = "contra" if contra else "turner"
+    mine = (getattr(PL, f"{model}_inside_long_launches"),
+            getattr(PL, f"{model}_outside_long_launches"))
+    engine = FoldEngine(uses_contra_model=contra, device=device)
+    seqs = chip_smoke.random_batch(4, 300, 700, seed=5)
+    for c in mine:
+        c.reset()
+    out = engine.fold_batch(seqs)
+    assert all(c.count >= 1 for c in mine)
+    assert all(bpp.shape == (len(s), len(s)) and np.isfinite(bpp).all()
+               for (bpp, _), s in zip(out, seqs))

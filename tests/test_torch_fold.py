@@ -109,6 +109,11 @@ def _synthetic_run(z, ns):
     return run
 
 
+@pytest.mark.parametrize(
+    "lengths",
+    [(200, 180, 150, 120), (1800, 600, 1020, 513)],
+    ids=["short", "long"],
+)
 @pytest.mark.parametrize("ls0", [None, PP.LN_SIGMA0_TURNER],
                          ids=["contra_seed", "turner_seed"])
 @pytest.mark.parametrize(
@@ -119,12 +124,15 @@ def _synthetic_run(z, ns):
         ("jump", [1.6, 0.1, 0.9, 1.45]),          # finite, out of band
     ],
 )
-def test_retrying_matches_jax(label, z, ls0):
+def test_retrying_matches_jax(label, z, ls0, lengths):
     """The port's loop against JAX ``_retrying``, from the CONTRA default
     seed and from the Turner seed that ``mccaskill_turner_pallas_prob8``
-    passes (``ls0=LN_SIGMA0_TURNER``)."""
+    passes (``ls0=LN_SIGMA0_TURNER``), for lanes of the stacked tier and
+    lanes past 512 nt (whose walk starts at min(0.9, 55/n) and grows 1.5x
+    per same-direction step; there most lanes overflow or underflow and
+    walk)."""
     z = np.asarray(z, np.float64)
-    ns = np.array([200, 180, 150, 120], np.int32)
+    ns = np.array(lengths, np.int32)
     run = _synthetic_run(z, ns.astype(np.float64))
     Bz = len(z)
     shapes = (jax.ShapeDtypeStruct((Bz, 2, 2), jnp.float32),

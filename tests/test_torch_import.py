@@ -1,4 +1,5 @@
-"""The port imports torch and never jax, and importing it builds nothing."""
+"""The port imports torch and never jax nor anything of the JAX package
+(``rna_algos_tpu``), and importing it builds nothing."""
 
 import ast
 import json
@@ -20,6 +21,8 @@ after = sorted(os.listdir(_build.BUILD_DIR)) if _build.BUILD_DIR.exists() else N
 print(json.dumps({
     "mods": mods,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "jax_package": sorted(m for m in sys.modules
+                          if m == "rna_algos_tpu" or m.startswith("rna_algos_tpu.")),
     "torch": "torch" in sys.modules,
     "built": _build.library.cache_info().currsize,
     "build_dir_same": before == after,
@@ -38,11 +41,19 @@ def _probe():
 def test_port_imports_no_jax_and_builds_nothing():
     got = _probe()
     expected = {
+        "rna_algos_tpu_torch.constants",
+        "rna_algos_tpu_torch.params.contrafold",
+        "rna_algos_tpu_torch.params.turner",
+        "rna_algos_tpu_torch.params.vienna",
+        "rna_algos_tpu_torch.utils.io",
+        "rna_algos_tpu_torch.utils.output",
+        "rna_algos_tpu_torch.utils.checkpoint",
         "rna_algos_tpu_torch.weights",
         "rna_algos_tpu_torch.ops.scores",
         "rna_algos_tpu_torch.ops.pallas_fold",
         "rna_algos_tpu_torch.ops.pallas_fold_prob",
         "rna_algos_tpu_torch.ops.pallas_fold_prob8",
+        "rna_algos_tpu_torch.ops.pallas_fold_long",
         "rna_algos_tpu_torch.ops.pallas_skew",
         "rna_algos_tpu_torch.models.mccaskill",
         "rna_algos_tpu_torch.models.centroid",
@@ -52,6 +63,7 @@ def test_port_imports_no_jax_and_builds_nothing():
     }
     assert expected <= set(got["mods"]), got["mods"]
     assert got["jax"] == []
+    assert got["jax_package"] == []
     assert got["torch"]
     assert got["built"] == 0
     assert got["build_dir_same"]

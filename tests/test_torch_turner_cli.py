@@ -42,7 +42,7 @@ def _jax_prob_structure(seq, gamma):
     """Dot-bracket of ``seq`` at ``gamma`` through the JAX package's
     probability-space Turner path and its MEA fill and traceback."""
     n = len(seq)
-    N = kernel_bucket(n)
+    N = kernel_bucket(n, contra=False)
     arr = np.full((1, N), PSEUDO_BASE, np.int32)
     arr[0, :n] = seq
     ns = jnp.asarray([n], jnp.int32)

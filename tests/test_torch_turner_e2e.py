@@ -69,7 +69,7 @@ def test_turner_trna_goldens(trna_records):
     for k, rec in enumerate(trna_records):
         bpp, presence = folds[k]
         n = len(rec.seq)
-        assert kernel_bucket(n) == 128
+        assert kernel_bucket(n, contra=False) == 128
         assert bpp.shape == (n, n) and bpp.dtype == np.float32
         assert np.abs(bpp - gold[f"rec{k}_turner"]).max() < BUDGET
         np.testing.assert_array_equal(presence, bpp > 0)
