@@ -12,9 +12,12 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    B = 64 and N = 256, B = 32; the long tier's K8, K9 (CONTRA) and K12, K13
    (Turner), the same four sources launched past N = 256, at N = 512, B = 8
    and N = 1024, B = 4, and K8, K9 at N = 2048, B = 2, at a fixed ln_sigma
-   that centres each sequence's scaled Z), and each one's time beside the
-   plain version's, its bound and, for K3, the time of one torch.gather
-   computing the same skew, at the main paths' shapes;
+   that centres each sequence's scaled Z; the Durbin pair-HMM's K14
+   (probability space) and K15 (log space), forward and backward, on the
+   630 tRNA pairs at N = 128 and 2,016 random pairs at N = 256, at each
+   pair's settled ln_sigma), and each one's time beside the plain
+   version's, its bound and, for K3, the time of one torch.gather computing
+   the same skew, at the main paths' shapes;
 3. the main paths, FoldEngine(device="cuda").fold_batch for CONTRA and for
    Turner, each on the six tRNAs tiled to B = 192 (bucket 128) and on 96
    seeded random sequences of 150-200 nt (bucket 256), then each on the
@@ -24,15 +27,22 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    BPPs held against the plain path on the card (for a long batch, on the
    sequences where both settle on the same ln_sigma, at least half of
    them), the tRNA goldens and the float64 long-n goldens
-   (tests/golden/longn_f64*.npz);
+   (tests/golden/longn_f64*.npz); AlignEngine(device="cuda") on all pairs
+   of the six tRNAs tiled to 36 (630 pairs, bucket 128) and of 64 seeded
+   random 150-200 nt sequences (2,016 pairs, bucket 256) through K14, and
+   on the 630 pairs in parity through K15, each counted on its own with
+   the plain wavefront never called, held against the plain path on the
+   card (exact: every pair's ln_sigma equal), with its peak memory;
 4. the centroid CLI on assets/sampled_trnas.fa: with -c byte for byte
    against tests/golden/c_baseline/centroid_contra/, without -c against
    centroid_turner/ under the gamma = 1 tie rule (``turner_centroid_verdict``);
    and cli.mccaskill -c on the tRNAs mixed with a 400-nt and a 900-nt
    record, in input order, the tRNA records byte-identical to a tRNA-only
-   run;
-5. seqs/s of every main-path configuration, kernel path and plain path,
-   and the peak device memory of each long batch.
+   run; cli.durbin --numerics parity against
+   tests/golden/c_baseline/durbin.txt (same keys, <= 5e-4) and cli.durbin
+   on the card against --device cpu (<= 1e-5);
+5. seqs/s (pairs/s for Durbin) of every main-path configuration, kernel
+   path and plain path, and the peak device memory of each long batch.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and prints
@@ -97,6 +107,20 @@ WINDOW_FMAS = {"contra": 496, "turner": 560}
 # close, and the rm/rmmb/epow updates (inside); base, pm2, qa and bppo
 # (outside).
 CELL_FLOPS = 16
+# Durbin pair-HMM (K14, K15).  Kernel vs plain on the card: both round
+# every add and multiply on its own (the kernel through _rn intrinsics),
+# so bitwise is expected; the tolerances are the stated budgets.
+RTOL_PAIRHMM = 1e-5          # K14 planes and corners, relative
+ATOL_PAIRHMM_LOG = 1e-4      # K15 log values, absolute
+TOL_DURBIN = {"exact": 1e-5, "parity": 1e-4}   # path vs plain path
+TOL_DURBIN_CLI = 1e-5        # exact CLI on the card vs on the CPU
+# Durbin sets: the tRNA fixture x 6 (as scripts/bench_suite.py's
+# durbin_all_pairs) and 64 seeded random 150-200 nt sequences, all pairs.
+DURBIN_RFAM = (64, 150, 200, 2016)   # count, shortest, longest, seed
+# Float operations per live cell and pass (forward, backward): K14's
+# multiply-adds of M, I, D (and the context ssum backward); K15's adds and
+# cubic log-adds (8 operations each: sub, 3 mul, 3 add, add).
+PAIRHMM_CELL_OPS = {"pairhmm_prob": (13, 17), "pairhmm_log": (42, 61)}
 
 
 def random_batch(B, lo, hi, seed):
@@ -388,9 +412,296 @@ def turner_centroid_verdict(ref_dir, out_dir):
     return verdict
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds per call from CUDA events, after one warm-up."""
-    fn()
+def durbin_sets(trnas):
+    """name -> (sentinel-wrapped sequences, all (i < j) pairs)."""
+    from rna_algos_tpu_torch.constants import PSEUDO_BASE
+
+    def wrap(seqs):
+        return [np.concatenate([[PSEUDO_BASE], s, [PSEUDO_BASE]]).astype(
+            np.int32) for s in seqs]
+
+    count, lo, hi, seed = DURBIN_RFAM
+    out = {}
+    for name, seqs in (("trna_N128_P630", trnas * 6),
+                       ("rfam_N256_P2016", random_batch(count, lo, hi, seed))):
+        w = wrap(seqs)
+        out[name] = (w, [(a, b) for a in range(len(w))
+                         for b in range(a + 1, len(w))])
+    return out
+
+
+def durbin_inputs(seqs, pairs, device):
+    """A Durbin set as its main path hands it to K14 and K15: padded pairs
+    at their bucket, the tables at each pair's settled ln_sigma (K14) and
+    the log-space tables (K15)."""
+    from rna_algos_tpu_torch.ops import pallas_align as PA
+    from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
+    from rna_algos_tpu_torch.params import build_align_scores
+    from rna_algos_tpu_torch.parallel.runner import align_bucket, pad_seqs
+    from rna_algos_tpu_torch.weights import align_tables
+
+    N = max(align_bucket(len(seqs[a]), len(seqs[b])) for a, b in pairs)
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)
+
+    x1 = dev(pad_seqs([seqs[a] for a, _ in pairs], N))
+    x2 = dev(pad_seqs([seqs[b] for _, b in pairs], N))
+    n1 = dev([len(seqs[a]) for a, _ in pairs])
+    n2 = dev([len(seqs[b]) for _, b in pairs])
+    at = align_tables(build_align_scores(), device)
+    with recorded_ln_sigma() as seen:
+        PAP.durbin_match_probs_batch_pallas_prob(x1, n1, x2, n2, at, N)
+    ls = seen[-1].to(device)
+    P = len(pairs)
+    zero = torch.zeros((), device=device)
+    init = (at["init_match_score"], at["init_insert_score"])
+    log_scal = (PA._scalars(at, *init), PA._scalars(at, zero, zero))
+    return dict(
+        N=N, P=P, n1=n1, n2=n2, seq_args=(x1, x2, n1, n2),
+        pairhmm_prob=(
+            torch.exp(at["match_scores"][None] - 2.0 * ls[:, None, None]),
+            torch.exp(at["insert_scores"][None] - ls[:, None]),
+            *(torch.exp(s) for s in log_scal)),
+        pairhmm_log=(at["match_scores"].expand(P, 5, 5).contiguous(),
+                     at["insert_scores"].expand(P, 5).contiguous(),
+                     *log_scal),
+    )
+
+
+def pairhmm_wrappers(kernel):
+    from rna_algos_tpu_torch.ops import pallas_align as PA
+    from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
+
+    mod = PAP if kernel == "pairhmm_prob" else PA
+    return getattr(mod, kernel), getattr(mod, kernel + "_plain")
+
+
+def pairhmm_calls(kernel, x, fn):
+    """The forward and the backward launch of ``kernel`` on ``x``."""
+    ms, ins, scal_f, scal_b = x[kernel]
+    return [lambda: fn(*x["seq_args"], ms, ins, scal_f, False),
+            lambda: fn(*x["seq_args"], ms, ins, scal_b, True)]
+
+
+def check_pairhmm(x, kernel):
+    """K14 (relative, planes and corners) or K15 (absolute on log values,
+    -inf exactly where the plain version has it) against the plain version
+    on both passes; returns the max abs error."""
+    kern, plain = pairhmm_wrappers(kernel)
+    label = LABELS[kernel]
+    worst = 0.0
+    for direction, k_call, p_call in zip(
+            ("forward", "backward"), pairhmm_calls(kernel, x, kern),
+            pairhmm_calls(kernel, x, plain)):
+        for part, g, w in zip(("plane", "corner"), k_call(), p_call()):
+            torch.cuda.synchronize()
+            if kernel == "pairhmm_log":
+                if not torch.equal(torch.isinf(g), torch.isinf(w)) or bool(
+                        torch.isnan(g).any()):
+                    raise AssertionError(f"{label} {direction} {part}: "
+                                         "-inf pattern differs from plain")
+                fin = torch.isfinite(w)
+                err = float((g[fin] - w[fin]).abs().max())
+                ok = err <= ATOL_PAIRHMM_LOG
+            else:
+                d = (g - w).abs()
+                err = float(d.max())
+                ok = bool((d <= RTOL_PAIRHMM * w.abs() + ATOL_TINY).all())
+            exact = torch.equal(g, w)
+            print(f"  {label} {direction} {part}: max abs err {err:.3e}"
+                  f"{' (bitwise)' if exact else ''}")
+            if not ok:
+                raise AssertionError(f"{label} {direction} {part} differs "
+                                     f"from plain: {err}")
+            worst = max(worst, err)
+    return worst
+
+
+def pairhmm_bound(kernel, x):
+    """(bound_ms, bound_by) of one launch (the mean of the forward and the
+    backward pass): per pair the two sequences, lengths and tables read
+    once, the (N, N) plane and the 3 corner sums written once; the float
+    operations of the live cells (n1 - 1)(n2 - 1) of this run's pairs."""
+    P, N = x["P"], x["N"]
+    nbytes = P * (2 * 4 * N + 2 * 4 + 4 * 30 + 4 * N * N + 4 * 3) + 4 * 5
+    cells = float(((x["n1"] - 1).double() * (x["n2"] - 1).double()).sum())
+    ops = cells * sum(PAIRHMM_CELL_OPS[kernel]) / 2.0
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+DURBIN_RUNS = (("durbin_exact", "exact", "trna_N128_P630"),
+               ("durbin_exact", "exact", "rfam_N256_P2016"),
+               ("durbin_parity", "parity", "trna_N128_P630"))
+
+
+def durbin_checks(dsets, device, err):
+    """K14 and K15 against their plain versions on each Durbin set (phase
+    2); records the worst error in ``err``, returns the inputs by set."""
+    dinputs = {}
+    for key, (seqs, pairs) in dsets.items():
+        x = dinputs[key] = durbin_inputs(seqs, pairs, device)
+        print(f"check Durbin {key}: N={x['N']} P={x['P']} at each pair's "
+              "settled ln_sigma")
+        for k in ("pairhmm_prob", "pairhmm_log"):
+            err[k] = max(err[k], check_pairhmm(x, k))
+    return dinputs
+
+
+def durbin_times(dinputs, times):
+    """K14's and K15's ms per launch (a forward and a backward launch per
+    timed call), the plain versions' (one call, just after the check ran
+    them), and the bound, into ``times[kernel][shape]``."""
+    for x in dinputs.values():
+        shape = f"N{x['N']}_P{x['P']}"
+        for k in ("pairhmm_prob", "pairhmm_log"):
+            kern, plain = pairhmm_wrappers(k)
+            kc, pc = pairhmm_calls(k, x, kern), pairhmm_calls(k, x, plain)
+            ms = cuda_ms(lambda: [c() for c in kc], 10) / 2
+            pms = cuda_ms(lambda: [c() for c in pc], 1, warmup=False) / 2
+            bms, by = pairhmm_bound(k, x)
+            times[k][shape] = (ms, pms, bms, by, None)
+            print(f"time {shape} {k}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by}), share {bms / ms:.4f}")
+
+
+def durbin_paths(dsets, aligners, counted, counts, path_kernels, smi):
+    """The Durbin main paths (phase 3): each set through
+    ``AlignEngine.match_probs_pairs``, counted on its own (its kernel
+    launched, the plain wavefront never called), timed on the host clock
+    (the call ends in the copy to the host), its peak memory read (above
+    what the script held before it), and held against the plain path on
+    the card (exact: every pair's ln_sigma equal).  Returns the stats by
+    run."""
+    stats = {}
+    for path, mode, key in DURBIN_RUNS:
+        seqs, pairs = dsets[key]
+        label = f"{path}_{key}"
+        kernel = path_kernels[path][0]
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with recorded_ln_sigma() as ls_k, counted_plain_pairhmm() as n_plain:
+            t0 = time.perf_counter()
+            got = counted(label, path,
+                          lambda: aligners[mode].match_probs_pairs(seqs, pairs))
+            wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        counts.setdefault(path, {k: 0 for k in counts[label]})
+        for k, v in counts[label].items():
+            counts[path][k] += v
+        if n_plain[0]:
+            raise AssertionError(f"{label}: the plain wavefront ran "
+                                 f"{n_plain[0]} times on the kernel path")
+        runs = counts[label][kernel] // 2
+        t0 = time.perf_counter()
+        with plain_kernels(), recorded_ln_sigma() as ls_p:
+            plain = aligners[mode].match_probs_pairs(seqs, pairs)
+        pwall = time.perf_counter() - t0
+        worst = 0.0
+        for (a, b), g, w in zip(pairs, got, plain):
+            if not (g.shape == (len(seqs[a]), len(seqs[b]))
+                    and np.isfinite(g).all() and (g >= -1e-3).all()
+                    and (g < 1.001).all()):
+                raise AssertionError(f"{label}: bad probabilities for {a},{b}")
+            worst = max(worst, float(np.abs(g - w).max()))
+        same_ls = len(ls_k) == len(ls_p) and all(
+            torch.equal(a, b) for a, b in zip(ls_k, ls_p))
+        print(f"{label}: kernel vs plain path max |dp| {worst:.3e} "
+              f"(ln_sigma of every pair equal: {same_ls}); "
+              f"{len(pairs) / wall:.2f} pairs/s ({wall:.3f} s), plain path "
+              f"{len(pairs) / pwall:.2f} pairs/s; {runs} runs of {kernel} "
+              f"({runs - 1} retries), plain wavefront calls 0; peak memory "
+              f"{peak:.3f} GiB above the {held / 2**30:.3f} GiB held before, "
+              f"on {smi}")
+        if not worst <= TOL_DURBIN[mode] or (mode == "exact" and not same_ls):
+            raise AssertionError(f"{label}: main path disagrees with plain")
+        stats[label] = dict(pairs_per_s_first_call=len(pairs) / wall,
+                            retries=runs - 1, peak_gib=peak,
+                            plain_pairs_per_s=len(pairs) / pwall)
+    return stats
+
+
+def durbin_clis(du_cli, fasta, golden):
+    """cli.durbin (phase 4): parity (K15) against the C-baseline golden,
+    exact (K14) on the card against the same CLI on the CPU."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        du_cli.main(["-i", fasta, "-o", str(tmp / "parity.txt"),
+                     "--numerics", "parity"])
+        du_cli.main(["-i", fasta, "-o", str(tmp / "exact.txt")])
+        du_cli.main(["-i", fasta, "-o", str(tmp / "exact_cpu.txt"),
+                     "--device", "cpu"])
+        parity_text = (tmp / "parity.txt").read_text()
+        exact, exact_cpu = (parse_triples((tmp / f).read_text())
+                            for f in ("exact.txt", "exact_cpu.txt"))
+    golden_text = (pathlib.Path(golden) / "durbin.txt").read_text()
+    worst, _ = compare_triples(parse_triples(golden_text),
+                               parse_triples(parity_text), TOL_GOLDEN,
+                               "cli.durbin --numerics parity vs c_baseline")
+    print(f"cli.durbin --numerics parity vs c_baseline/durbin.txt: same keys, "
+          f"worst {worst:.3e}, byte-identical {parity_text == golden_text}")
+    worst, n_edge = compare_triples(
+        exact_cpu, exact, TOL_DURBIN_CLI, "cli.durbin on the card vs the CPU",
+        floor=float(torch.finfo(torch.float32).tiny))
+    print(f"cli.durbin exact on the card vs --device cpu: worst {worst:.3e}, "
+          f"{n_edge} keys on one side only (all subnormal)")
+
+
+def durbin_throughput(dsets, aligners, stats, smi):
+    """pairs/s of each Durbin run (phase 5): CUDA events around 3 calls
+    after a warm-up."""
+    for path, mode, key in DURBIN_RUNS:
+        seqs, pairs = dsets[key]
+        ms = cuda_ms(lambda: aligners[mode].match_probs_pairs(seqs, pairs), 3)
+        stats[f"{path}_{key}"]["pairs_per_s"] = len(pairs) / (ms / 1e3)
+        print(f"throughput {path} {key} kernel: {len(pairs) / (ms / 1e3):.2f} "
+              f"pairs/s ({ms:.2f} ms/call) on {smi}")
+
+
+def parse_triples(text):
+    """{record id: {(i, j): p}} of a triples file (mccaskill / durbin)."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        if line.startswith(">"):
+            cur = out.setdefault(line[1:], {})
+            continue
+        for tok in line.split():
+            i, j, p = tok.split(",")
+            cur[(int(i), int(j))] = float(p)
+    return out
+
+
+def compare_triples(ref, got, tol, label, floor=0.0):
+    """Worst |difference| of two triples files on their keys; raises unless
+    the records and keys are equal (keys whose value is below ``floor`` on
+    the one side that has them excepted) and the worst is within ``tol``."""
+    if list(ref) != list(got):
+        raise AssertionError(f"{label}: records differ")
+    worst, n_edge = 0.0, 0
+    for rid in ref:
+        r, g = ref[rid], got[rid]
+        for key in set(r) ^ set(g):
+            if max(r.get(key, 0.0), g.get(key, 0.0)) >= floor:
+                raise AssertionError(f"{label}: record {rid} key {key} "
+                                     "on one side only")
+            n_edge += 1
+        for key in set(r) & set(g):
+            worst = max(worst, abs(r[key] - g[key]))
+    if not worst <= tol:
+        raise AssertionError(f"{label}: worst difference {worst} > {tol}")
+    return worst, n_edge
+
+
+def cuda_ms(fn, reps, warmup=True):
+    """Mean milliseconds per call from CUDA events, after one warm-up
+    (``warmup=False``: the caller has just run ``fn``'s work)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -406,6 +717,8 @@ def cuda_ms(fn, reps):
 def plain_kernels():
     """Route the main paths through the plain versions on the card."""
     from rna_algos_tpu_torch.models import mccaskill as M
+    from rna_algos_tpu_torch.ops import pallas_align as PA
+    from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
     from rna_algos_tpu_torch.ops import pallas_fold as PF
     from rna_algos_tpu_torch.ops import pallas_fold_long as PL
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
@@ -415,6 +728,8 @@ def plain_kernels():
     swaps += [(PL, k, getattr(PL, k + "_plain")) for k in KERNELS_LONG]
     swaps += [(mod, "skew_pq_batch", K3.skew_pq_batch_plain)
               for mod in (P8, PF, M)]
+    swaps += [(PAP, "pairhmm_prob", PAP.pairhmm_prob_plain),
+              (PA, "pairhmm_log", PA.pairhmm_log_plain)]
     saved = [(mod, k, getattr(mod, k)) for mod, k, _ in swaps]
     for mod, k, fn in swaps:
         setattr(mod, k, fn)
@@ -426,15 +741,34 @@ def plain_kernels():
 
 
 @contextlib.contextmanager
+def counted_plain_pairhmm():
+    """Count the calls of the pair-HMM plain wavefront (K14's and K15's
+    plain versions) while the block runs: a one-item list."""
+    from rna_algos_tpu_torch.ops import pallas_align as PA
+
+    calls, orig = [0], PA._pairhmm_plain
+
+    def plain(*args):
+        calls[0] += 1
+        return orig(*args)
+
+    PA._pairhmm_plain = plain
+    try:
+        yield calls
+    finally:
+        PA._pairhmm_plain = orig
+
+
+@contextlib.contextmanager
 def recorded_ln_sigma():
     """Record the ln_sigma each retry loop settles on (one (B,) tensor per
-    fold, in the engine's sorted order)."""
+    fold, in the engine's sorted order, or per Durbin bucket)."""
     from rna_algos_tpu_torch.ops import pallas_fold_prob as PP
 
     seen, orig = [], PP._retrying
 
-    def retrying(run, ns, ls0=None):
-        bppo, ls = orig(run, ns, ls0=ls0)
+    def retrying(run, ns, **kw):
+        bppo, ls = orig(run, ns, **kw)
         seen.append(ls.cpu())
         return bppo, ls
 
@@ -470,11 +804,17 @@ REPLACES = {
                            "rna_algos_tpu/ops/pallas_fold_prob.py:1832"),
     "turner_outside_long": ("rna_algos_tpu_torch/csrc/turner_outside.cu",
                             "rna_algos_tpu/ops/pallas_fold_prob.py:1985"),
+    # the Durbin pair-HMM: one source, two semirings
+    "pairhmm_prob": ("rna_algos_tpu_torch/csrc/pairhmm.cu",
+                     "rna_algos_tpu/ops/pallas_align_prob.py:52"),
+    "pairhmm_log": ("rna_algos_tpu_torch/csrc/pairhmm.cu",
+                    "rna_algos_tpu/ops/pallas_align.py:66"),
 }
 LABELS = {"contra_inside": "K1", "contra_outside": "K2",
           "turner_inside": "K4", "turner_outside": "K5",
           "contra_inside_long": "K8", "contra_outside_long": "K9",
-          "turner_inside_long": "K12", "turner_outside_long": "K13"}
+          "turner_inside_long": "K12", "turner_outside_long": "K13",
+          "pairhmm_prob": "K14", "pairhmm_log": "K15"}
 
 
 def main():
@@ -484,11 +824,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from rna_algos_tpu_torch.ops import _build
+    from rna_algos_tpu_torch.ops import pallas_align as PA
+    from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
     from rna_algos_tpu_torch.ops import pallas_fold_long as PL
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
     from rna_algos_tpu_torch.ops import pallas_skew as K3
-    from rna_algos_tpu_torch.parallel.runner import FoldEngine
+    from rna_algos_tpu_torch.parallel.runner import AlignEngine, FoldEngine
     from rna_algos_tpu_torch.cli import centroid_fold as cf_cli
+    from rna_algos_tpu_torch.cli import durbin as du_cli
     from rna_algos_tpu_torch.cli import mccaskill as mc_cli
     from rna_algos_tpu_torch.cli.centroid_fold import read_fasta
 
@@ -533,6 +876,9 @@ def main():
         for N, B in shapes:
             print(f"check {model} N={N} B={B}")
             check_model(builders[model](N, B, seed=N + B, device=dev))
+    trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
+    dsets = durbin_sets(trnas)
+    dinputs = durbin_checks(dsets, dev, err)
 
     # kernel -> shape -> (ms, plain ms, bound ms, bound by, library ms)
     times = {k: {} for k in REPLACES}
@@ -570,9 +916,10 @@ def main():
             x = builders[model](N, B, seed=7 * N, device=dev)
             timed(x["kernels"][0], x, x["inside_args"], LONG_REPS, 1)
             timed(x["kernels"][1], x, x["outside_args"], LONG_REPS, 1)
+    durbin_times(dinputs, times)
+    del dinputs
 
     # phase 3: the main paths, each counted on its own
-    trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
     batches = {
         "trna_N128_B192": trnas * 32,
         "rfam_N256_B96": random_batch(96, 150, 200, seed=2024),
@@ -586,12 +933,15 @@ def main():
                 PL.contra_inside_long_launches,
                 PL.contra_outside_long_launches,
                 PL.turner_inside_long_launches,
-                PL.turner_outside_long_launches)
+                PL.turner_outside_long_launches,
+                PAP.prob_launches, PA.log_launches)
     path_kernels = {
         "contra": ("skew", "contra_inside", "contra_outside"),
         "turner": ("skew", "turner_inside", "turner_outside"),
         "contra_long": ("skew", "contra_inside_long", "contra_outside_long"),
         "turner_long": ("skew", "turner_inside_long", "turner_outside_long"),
+        "durbin_exact": ("pairhmm_prob",),
+        "durbin_parity": ("pairhmm_log",),
     }
     results, counts = {}, {}
 
@@ -698,6 +1048,11 @@ def main():
                     "on the plain path's ln_sigma")
             long_stats[key] = (len(seqs) / wall, retries, peak)
 
+    aligners = {m: AlignEngine(device="cuda", numerics=m)
+                for m in ("exact", "parity")}
+    durbin_stats = durbin_paths(dsets, aligners, counted, counts,
+                                path_kernels, smi)
+
     # the float64 goldens of the long-n anchors
     gdir = ROOT / "tests" / "golden"
     g = dict(np.load(gdir / "longn_f64.npz"))
@@ -771,6 +1126,8 @@ def main():
     print("cli.mccaskill -c, mixed FASTA: 8 records in order, the 6 tRNA "
           "records byte-identical to the tRNA-only run")
 
+    durbin_clis(du_cli, fasta, golden)
+
     # phase 5: main-path throughput, kernel path and plain path
     for model, engine in engines.items():
         for key, seqs in batches.items():
@@ -783,10 +1140,13 @@ def main():
                       f"{len(seqs) / (ms / 1e3):.2f} seqs/s ({ms:.2f} ms/batch) "
                       f"on {smi}")
 
+    durbin_throughput(dsets, aligners, durbin_stats, smi)
+
     kernels = []
     for k, (src, rep) in REPLACES.items():
         by_shape = times[k]
-        head = "N1024_B16" if k.endswith("_long") else "N128_B192"
+        head = ("N1024_B16" if k.endswith("_long") else
+                "N128_P630" if k.startswith("pairhmm") else "N128_B192")
         paths = [m for m, ks in path_kernels.items() if k in ks]
         ms, pms, bms, by, lms = by_shape[head]
         entry = {
@@ -814,6 +1174,7 @@ def main():
     print(json.dumps({"long_paths": {
         k: {"seqs_per_s": v[0], "retries": v[1], "peak_gib": v[2]}
         for k, v in long_stats.items()}}))
+    print(json.dumps({"durbin_paths": durbin_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -14,6 +14,13 @@ The centroid-fold main path, both models, held against the JAX package:
         -> models.mccaskill._prob_finish                 (kernel K3, inverse)
         -> models.centroid.mea_fill_gammas + traceback -> dot-bracket files
 
+and the Durbin pair-HMM:
+
+  FASTA -> cli.durbin -> parallel.runner.AlignEngine.match_probs_pairs
+        -> models.durbin.durbin_match_probs_batch_auto   (square buckets
+           64-256) -> ops.pallas_align_prob (kernel K14, exact and fast)
+           or ops.pallas_align (kernel K15, parity) -> triples file
+
 Module names mirror the JAX package so each counterpart is easy to find.
 Every hand-written kernel (CUDA C++ under ``csrc/``) has a plain PyTorch
 version beside its wrapper; the wrapper takes the plain version only for
@@ -22,7 +29,7 @@ built with ``nvcc`` at first use (``ops/_build.py``), never on import.
 
 This package imports ``torch`` and never ``jax`` nor anything of the JAX
 package: it keeps its own copies of the framework-free modules it needs
-(``constants``, ``params``, ``utils.io``, ``utils.output``,
+(``constants``, ``params``, ``numerics``, ``utils.io``, ``utils.output``,
 ``utils.checkpoint``).
 """
 

@@ -38,6 +38,8 @@ SIGNATURES = {
     "rna_contra_outside": [_P] * 21 + [_I, _I, _I, _P],
     "rna_turner_inside": [ctypes.POINTER(_P)] + [_P] * 9 + [_I, _I, _P],
     "rna_turner_outside": [ctypes.POINTER(_P)] + [_P] * 11 + [_I, _I, _I, _P],
+    "rna_pairhmm_prob": [_P] * 9 + [_I, _I, _I, _P],
+    "rna_pairhmm_log": [_P] * 9 + [_I, _I, _I, _P],
 }
 
 
@@ -152,15 +154,16 @@ def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def check_cuda(name, tensors, shapes, device):
-    """Validate what a kernel takes: device, float32/int32, shape, layout."""
+def check_cuda(name, tensors, shapes, device, ints=("ns",)):
+    """Validate what a kernel takes: device, float32 (int32 for the keys in
+    ``ints``), shape, layout."""
     import torch
 
     for key, t in tensors.items():
         want = shapes[key]
         if t.device != device:
             raise ValueError(f"{name}: {key} on {t.device}, expected {device}")
-        dt = torch.int32 if key == "ns" else torch.float32
+        dt = torch.int32 if key in ints else torch.float32
         if t.dtype != dt:
             raise ValueError(f"{name}: {key} is {t.dtype}, expected {dt}")
         if tuple(t.shape) != tuple(want):

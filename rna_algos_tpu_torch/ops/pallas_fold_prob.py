@@ -200,7 +200,7 @@ def _estimate_ls0(run_small, ns_small, base, drift=0.0):
     return torch.where(ok, z, ls0)
 
 
-def _retrying(run, ns, ls0=None):
+def _retrying(run, ns, ls0=None, jump=True):
     """Rescale-retry loop around a (ln_sigma,) -> (bppo, glob) run for
     sequences of lengths ``ns`` (B,), seeded at ``ls0``: a scalar, a (B,)
     tensor (the prefix seed of ``_estimate_ls0``) or None for LN_SIGMA0
@@ -212,7 +212,10 @@ def _retrying(run, ns, ls0=None):
     halving its step on a direction flip; at most MAX_RETRIES iterations.
     The walk starts at RETRY_STEP, or for lanes of n > 512 at
     min(RETRY_STEP, 55/n), growing 1.5x per same-direction step (their
-    band is too narrow for the fixed step).  Returns (bppo, ln_sigma)."""
+    band is too narrow for the fixed step).  ``jump=False`` is the JAX
+    loop called without ``ns`` (the Durbin pair-HMM): every bad lane walks
+    from RETRY_STEP, no jump and no long-n growth; ``ns`` then only sizes
+    the batch.  Returns (bppo, ln_sigma)."""
     f32 = torch.float32
     B, dev = ns.shape[0], ns.device
     nf = ns.to(f32).clamp(min=1.0)
@@ -223,7 +226,7 @@ def _retrying(run, ns, ls0=None):
         ls = torch.full((B,), seed, dtype=f32, device=dev)
     bppo, glob = run(ls)
     bh, bl = _flags(bppo, glob)
-    longn = nf > LONG_N
+    longn = (nf > LONG_N) & jump
     step = torch.where(longn, (LONG_STEP_WIDTH / nf).clamp(max=RETRY_STEP),
                        torch.full((B,), RETRY_STEP, dtype=f32, device=dev))
     grow = torch.where(longn, LONG_STEP_GROWTH, 1.0).to(f32)
@@ -237,9 +240,10 @@ def _retrying(run, ns, ls0=None):
         # a subnormal glob counts as 0 (walk, no jump): XLA flushes
         # subnormals to zero on the TPU and the CPU, so the JAX loop never
         # jumps from one
-        can_jump = bad & torch.isfinite(glob) & (glob >= FLT_MIN)
-        jump = torch.log(torch.where(can_jump, glob, torch.ones_like(glob))) / nf
-        ls = ls + torch.where(can_jump, jump, step * direction)
+        can_jump = bad & torch.isfinite(glob) & (glob >= FLT_MIN) & jump
+        to_band = torch.log(torch.where(can_jump, glob,
+                                        torch.ones_like(glob))) / nf
+        ls = ls + torch.where(can_jump, to_band, step * direction)
         bppo, glob = run(ls)
         bh, bl = _flags(bppo, glob)
         last_dir = direction

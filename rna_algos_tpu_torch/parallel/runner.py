@@ -1,14 +1,18 @@
 """Batch execution: length buckets and padded device batches
-(``rna_algos_tpu.parallel.runner``), both models, without a mesh."""
+(``rna_algos_tpu.parallel.runner``), both folding models and the Durbin
+pair-HMM, without a mesh."""
 
 import numpy as np
 import torch
 
 from ..constants import PSEUDO_BASE
-from ..params import build_fold_score_sets
+from ..numerics import check_mode
+from ..params import build_align_scores, build_fold_score_sets
 
+from ..models import durbin as D
 from ..models import mccaskill as M
-from ..weights import contra_tables, turner_tables
+from ..ops import pallas_align as PA
+from ..weights import align_tables, contra_tables, turner_tables
 
 # Static length buckets (as in the JAX package).
 BUCKETS = (64, 96, 128, 192, 256, 384, 512)
@@ -67,6 +71,59 @@ def resolve_device(device):
             f"device {device} requested but no CUDA GPU is available"
         )
     return device
+
+
+def align_bucket(n1, n2):
+    """The square bucket the port aligns a pair of wrapped lengths (n1, n2)
+    in: the JAX runner's TPU rule, the least power of two >= 64 covering
+    the larger ``pick_bucket``.  Past 256 it raises: the JAX package runs
+    such pairs (and every non-square bucket) through its row scan, which
+    is not ported."""
+    n = max(pick_bucket(n1), pick_bucket(n2))
+    N = 64
+    while N < n:
+        N *= 2
+    if not PA.pallas_available(N, N):
+        raise NotImplementedError(
+            f"pair of lengths ({n1}, {n2}) in bucket {N} {D.GENERIC_ITEM}")
+    return N
+
+
+class AlignEngine:
+    """Bucketed Durbin pair-HMM batch runner on one device."""
+
+    def __init__(self, align_scores=None, device="cuda", numerics="exact"):
+        self.device = resolve_device(device)
+        self.numerics = check_mode(numerics)
+        sc = build_align_scores() if align_scores is None else align_scores
+        self.at = align_tables(sc, self.device)
+
+    def match_probs_pairs(self, seqs, pairs):
+        """Posterior match probabilities for (a, b) index pairs of
+        sentinel-wrapped sequences (bin/durbin_algo.rs:49-50): a list of
+        numpy arrays cropped to (len(seqs[a]), len(seqs[b])), in the order
+        of ``pairs`` (pairs are batched by bucket)."""
+        results = [None] * len(pairs)
+        by_bucket = {}
+        for k, (a, b) in enumerate(pairs):
+            N = align_bucket(len(seqs[a]), len(seqs[b]))
+            by_bucket.setdefault(N, []).append(k)
+
+        def dev(x):
+            return torch.as_tensor(x, dtype=torch.int32, device=self.device)
+
+        for N, ks in by_bucket.items():
+            firsts = [seqs[pairs[k][0]] for k in ks]
+            seconds = [seqs[pairs[k][1]] for k in ks]
+            probs = D.durbin_match_probs_batch_auto(
+                dev(pad_seqs(firsts, N)), dev([len(s) for s in firsts]),
+                dev(pad_seqs(seconds, N)), dev([len(s) for s in seconds]),
+                self.at, N1=N, N2=N, numerics=self.numerics,
+            ).cpu().numpy()
+            for slot, k in enumerate(ks):
+                results[k] = probs[slot, :len(firsts[slot]),
+                                   :len(seconds[slot])]
+        return results
 
 
 class FoldEngine:

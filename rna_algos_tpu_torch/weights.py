@@ -1,8 +1,9 @@
 """Model parameters carried across: numpy tables -> torch tensors.
 
 Counterparts of ``rna_algos_tpu.ops.scores.contra_table_pytree`` and
-``turner_table_pytree``.  JAX silently downcasts float64 input to float32
-(x64 off); torch keeps float64, so the cast is explicit here.
+``turner_table_pytree``, and of the align-score dict the JAX
+``AlignEngine`` puts on the device.  JAX silently downcasts float64 input
+to float32 (x64 off); torch keeps float64, so the cast is explicit here.
 """
 
 import numpy as np
@@ -18,6 +19,27 @@ def contra_tables(fss, device):
         k: torch.as_tensor(np.asarray(v, dtype=np.float32), device=device)
         for k, v in fss.items()
     }
+
+
+ALIGN_SCALARS = ("match2match_score", "match2insert_score",
+                 "insert_extend_score", "insert_switch_score",
+                 "init_match_score", "init_insert_score")
+
+
+def align_tables(scores, device):
+    """CONTRAlign align-score dict (``params.build_align_scores()`` or any
+    parsed parameter file: numpy arrays and scalars) -> float32 tensors on
+    ``device``: the (5, 5) ``match_scores`` and (5,) ``insert_scores``
+    tables, each with its zero PSEUDO row, and the six 0-d scalars."""
+    out = {
+        k: torch.as_tensor(np.asarray(scores[k], dtype=np.float32),
+                           device=device)
+        for k in ("match_scores", "insert_scores") + ALIGN_SCALARS
+    }
+    if out["match_scores"].shape != (5, 5) or out["insert_scores"].shape != (5,):
+        raise ValueError("align scores: expected (5, 5) match and (5,) "
+                         "insert tables")
+    return out
 
 
 # turner_table_pytree key -> params.turner table name

@@ -1,11 +1,15 @@
-"""Where the time goes in the port's main path: one profiled
-``FoldEngine.fold_batch`` per model and cell on a CUDA GPU.
+"""Where the time goes in the port's main paths: one profiled
+``FoldEngine.fold_batch`` or ``AlignEngine.match_probs_pairs`` per cell,
+on a CUDA GPU.
 
     python scripts/profile_torch_cells.py [--trace-dir DIR]
 
 Cells as in chip_smoke.py: the six tRNAs tiled to B = 192 (bucket 128), 96
 seeded random 150-200 nt sequences (bucket 256) and 16 seeded random
-600-1,000 nt sequences (bucket 1024, the long tier), for CONTRA and Turner.
+600-1,000 nt sequences (bucket 1024, the long tier), for CONTRA and Turner;
+and the Durbin pair-HMM on chip_smoke.py's three runs: the 630 pairs of
+the tRNAs tiled to 36 sequences (bucket 128) exact and parity, and the
+2,016 pairs of 64 random 150-200 nt sequences (bucket 256) exact.
 For each it prints the unprofiled batch time (the mean of REPS batches in
 one CUDA-event window after two warm-ups, as chip_smoke.cuda_ms; every
 cell is timed before the first profiler session, whose instrumentation
@@ -33,7 +37,8 @@ REPS = 5
 KERNELS = ("skew_kernel", "contra_inside_kernel", "contra_outside_kernel",
            "turner_inside_kernel", "turner_outside_kernel",
            "contra_inside_wide_kernel", "contra_outside_wide_kernel",
-           "turner_inside_wide_kernel", "turner_outside_wide_kernel")
+           "turner_inside_wide_kernel", "turner_outside_wide_kernel",
+           "pairhmm_prob_kernel", "pairhmm_log_kernel")
 
 
 def _union(intervals):
@@ -45,21 +50,21 @@ def _union(intervals):
     return total
 
 
-def batch_ms(engine, seqs, reps=REPS):
+def batch_ms(call, reps=REPS):
     """Unprofiled mean ms per batch after two warm-ups."""
     import chip_smoke
 
-    engine.fold_batch(seqs)
-    return chip_smoke.cuda_ms(lambda: engine.fold_batch(seqs), reps)
+    call()
+    return chip_smoke.cuda_ms(call, reps)
 
 
-def profile_once(engine, seqs, trace_path=None):
+def profile_once(call, trace_path=None):
     from torch.profiler import ProfilerActivity, profile
 
-    engine.fold_batch(seqs)
+    call()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        engine.fold_batch(seqs)
+        call()
         torch.cuda.synchronize()
     if trace_path:
         prof.export_chrome_trace(str(trace_path))
@@ -97,7 +102,7 @@ def main(argv=None):
         return 2
     import chip_smoke
     from rna_algos_tpu_torch.cli.centroid_fold import read_fasta
-    from rna_algos_tpu_torch.parallel.runner import FoldEngine
+    from rna_algos_tpu_torch.parallel.runner import AlignEngine, FoldEngine
 
     print(torch.cuda.get_device_name(0), torch.__version__)
     trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
@@ -110,11 +115,17 @@ def main(argv=None):
         trace_dir.mkdir(parents=True, exist_ok=True)
     engines = {"contra": FoldEngine(uses_contra_model=True, device="cuda"),
                "turner": FoldEngine(uses_contra_model=False, device="cuda")}
-    runs = [(m, c) for m in engines for c in cells]
-    times = {(m, c): batch_ms(engines[m], cells[c]) for m, c in runs}
-    for model, cell in runs:
+    calls = {(m, c): (lambda e=engines[m], s=cells[c]: e.fold_batch(s))
+             for m in engines for c in cells}
+    dsets = chip_smoke.durbin_sets(trnas)
+    for path, mode, key in chip_smoke.DURBIN_RUNS:
+        aligner = AlignEngine(device="cuda", numerics=mode)
+        calls[(path, key)] = (lambda a=aligner, d=dsets[key]:
+                              a.match_probs_pairs(*d))
+    times = {k: batch_ms(call) for k, call in calls.items()}
+    for (model, cell), call in calls.items():
         path = trace_dir / f"{model}_{cell}.json" if trace_dir else None
-        r = profile_once(engines[model], cells[cell], path)
+        r = profile_once(call, path)
         ks = ", ".join(f"{k} {v:.3f} ms x{r['launches'][k]}"
                        for k, v in r["kernels"].items() if r["launches"][k])
         print(f"{model} {cell}: batch {times[(model, cell)]:.2f} ms "

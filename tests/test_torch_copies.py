@@ -1,5 +1,5 @@
 """The port's own copies of the JAX package's framework-free modules
-(``constants``, ``params``, ``utils.io``, ``utils.output``,
+(``constants``, ``params`` with ``contralign``, ``utils.io``, ``utils.output``,
 ``utils.checkpoint``) against the originals: tables bitwise, parsed
 records and formatted text identical."""
 
@@ -7,14 +7,18 @@ import numpy as np
 import pytest
 
 from rna_algos_tpu import constants as JCONST
+from rna_algos_tpu.params import build_align_scores as j_align
 from rna_algos_tpu.params import build_fold_score_sets as j_fss
+from rna_algos_tpu.params import contralign as JCA
 from rna_algos_tpu.params import turner as JT
 from rna_algos_tpu.utils import checkpoint as JCK
 from rna_algos_tpu.utils import io as JIO
 from rna_algos_tpu.utils import output as JOUT
 
 from rna_algos_tpu_torch import constants as TCONST
+from rna_algos_tpu_torch.params import build_align_scores as t_align
 from rna_algos_tpu_torch.params import build_fold_score_sets as t_fss
+from rna_algos_tpu_torch.params import contralign as TCA
 from rna_algos_tpu_torch.params import turner as TT
 from rna_algos_tpu_torch.utils import checkpoint as TCK
 from rna_algos_tpu_torch.utils import io as TIO
@@ -38,11 +42,19 @@ def test_constants_identical():
         assert getattr(TCONST, k) == getattr(JCONST, k), k
 
 
-@pytest.mark.parametrize("which", ["contrafold", "turner"])
+TABLES = {
+    "contrafold": (j_fss, t_fss),
+    "turner": (JT.active_tables, TT.active_tables),
+    "contralign": (j_align, t_align),
+}
+
+
+@pytest.mark.parametrize("which", sorted(TABLES))
 def test_tables_bitwise(which):
-    want = j_fss() if which == "contrafold" else JT.active_tables()
-    got = t_fss() if which == "contrafold" else TT.active_tables()
+    want, got = (build() for build in TABLES[which])
     assert sorted(want) == sorted(got)
+    if which == "contralign":
+        assert TCA.CONTRALIGN_PARAMS_RNA == JCA.CONTRALIGN_PARAMS_RNA
     for k in want:
         _assert_bitwise(want[k], got[k])
 

@@ -1,6 +1,7 @@
-"""Kernels K1-K5, K8, K9, K12 and K13 against their plain versions on a
+"""Kernels K1-K5, K8, K9, K12-K15 against their plain versions on a
 CUDA GPU: the checks of chip_smoke.py, at the main paths' buckets (the long
-tier's at a centred per-sequence ln_sigma).  Skipped without a GPU; run on
+tier's at a centred per-sequence ln_sigma, the pair-HMM's at each pair's
+settled ln_sigma).  Skipped without a GPU; run on
 the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
 import numpy as np
@@ -140,3 +141,53 @@ def test_long_main_path_launches_its_kernels(device, contra):
     assert all(c.count >= 1 for c in mine)
     assert all(bpp.shape == (len(s), len(s)) and np.isfinite(bpp).all()
                for (bpp, _), s in zip(out, seqs))
+
+
+@pytest.fixture(scope="module", params=[(6, 128), (12, 256)],
+                ids=["trna_N128", "rfam_N256"])
+def durbin_inputs(device, request):
+    """A few pairs of each Durbin set (the tRNAs tiled, or random
+    150-200 nt sequences) at its bucket."""
+    from rna_algos_tpu_torch.utils.io import read_fasta
+
+    count, N = request.param
+    trnas = [r.seq for r in read_fasta(chip_smoke.ROOT / "assets"
+                                       / "sampled_trnas.fa")]
+    key = "trna_N128_P630" if N == 128 else "rfam_N256_P2016"
+    seqs, _ = chip_smoke.durbin_sets(trnas)[key]
+    seqs = seqs[:count]
+    pairs = [(a, b) for a in range(count) for b in range(a + 1, count)]
+    x = chip_smoke.durbin_inputs(seqs, pairs, device)
+    assert x["N"] == N
+    return x
+
+
+@pytest.mark.parametrize("kernel", ["pairhmm_prob", "pairhmm_log"],
+                         ids=["K14", "K15"])
+def test_pairhmm_kernel_matches_plain(durbin_inputs, kernel):
+    """K14 within 1e-5 relative, K15 within 1e-4 on log values (both
+    forward and backward, planes and corners)."""
+    err = chip_smoke.check_pairhmm(durbin_inputs, kernel)
+    limit = (chip_smoke.ATOL_PAIRHMM_LOG if kernel == "pairhmm_log"
+             else float("inf"))
+    assert err <= limit
+
+
+@pytest.mark.parametrize("numerics", ["exact", "parity"])
+def test_durbin_path_launches_its_kernel(device, numerics):
+    from rna_algos_tpu_torch.ops import pallas_align as PA
+    from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
+    from rna_algos_tpu_torch.parallel.runner import AlignEngine
+
+    mine, other = ((PAP.prob_launches, PA.log_launches) if numerics == "exact"
+                   else (PA.log_launches, PAP.prob_launches))
+    engine = AlignEngine(device=device, numerics=numerics)
+    seqs = [np.array([4] + s + [4], np.int32)
+            for s in chip_smoke.random_batch(5, 40, 120, seed=6)]
+    pairs = [(0, 1), (3, 2), (4, 0), (1, 4)]
+    for c in (mine, other):
+        c.reset()
+    out = engine.match_probs_pairs(seqs, pairs)
+    assert mine.count >= 2 and other.count == 0
+    assert all(p.shape == (len(seqs[a]), len(seqs[b])) and np.isfinite(p).all()
+               for (a, b), p in zip(pairs, out))

@@ -60,6 +60,13 @@ def test_port_imports_no_jax_and_builds_nothing():
         "rna_algos_tpu_torch.parallel.runner",
         "rna_algos_tpu_torch.cli.centroid_fold",
         "rna_algos_tpu_torch.cli.mccaskill",
+        "rna_algos_tpu_torch.params.contralign",
+        "rna_algos_tpu_torch.numerics.logsumexp",
+        "rna_algos_tpu_torch.ops.pallas_align",
+        "rna_algos_tpu_torch.ops.pallas_align_prob",
+        "rna_algos_tpu_torch.models.durbin",
+        "rna_algos_tpu_torch.cli.durbin",
+        "rna_algos_tpu_torch.cli.generate_align_scores",
     }
     assert expected <= set(got["mods"]), got["mods"]
     assert got["jax"] == []
