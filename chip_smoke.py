@@ -15,9 +15,12 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    that centres each sequence's scaled Z; the Durbin pair-HMM's K14
    (probability space) and K15 (log space), forward and backward, on the
    630 tRNA pairs at N = 128 and 2,016 random pairs at N = 256, at each
-   pair's settled ln_sigma), and each one's time beside the plain
-   version's, its bound and, for K3, the time of one torch.gather computing
-   the same skew, at the main paths' shapes;
+   pair's settled ln_sigma; the parity tier's log-space K16, K17 (CONTRA)
+   and K18, K19 (Turner) at N = 128, B = 192 and N = 256, B = 96 on random
+   sequences, the -inf pattern identical and bitwise equality stated), and
+   each one's time beside the plain version's, its bound and, for K3, the
+   time of one torch.gather computing the same skew, at the main paths'
+   shapes;
 3. the main paths, FoldEngine(device="cuda").fold_batch for CONTRA and for
    Turner, each on the six tRNAs tiled to B = 192 (bucket 128) and on 96
    seeded random sequences of 150-200 nt (bucket 256), then each on the
@@ -33,6 +36,11 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    on the 630 pairs in parity through K15, each counted on its own with
    the plain wavefront never called, held against the plain path on the
    card (exact: every pair's ln_sigma equal), with its peak memory;
+   FoldEngine(numerics="parity") for both models on the tRNA and the
+   150-200 nt batches, each counted on its own (one K16/K17 or K18/K19
+   launch a bucket, the plain log wavefronts never called), against the
+   plain path on the card (the same presence, BPP within 1e-5), with its
+   seqs/s and peak memory;
 4. the centroid CLI on assets/sampled_trnas.fa: with -c byte for byte
    against tests/golden/c_baseline/centroid_contra/, without -c against
    centroid_turner/ under the gamma = 1 tie rule (``turner_centroid_verdict``);
@@ -40,7 +48,10 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    record, in input order, the tRNA records byte-identical to a tRNA-only
    run; cli.durbin --numerics parity against
    tests/golden/c_baseline/durbin.txt (same keys, <= 5e-4) and cli.durbin
-   on the card against --device cpu (<= 1e-5);
+   on the card against --device cpu (<= 1e-5); cli.mccaskill --numerics
+   parity with and without -c against the c_baseline triples (the same
+   keys, <= 5e-4) and cli.centroid_fold --numerics parity against the
+   centroid goldens (CONTRA byte for byte, Turner under the tie rule);
 5. seqs/s (pairs/s for Durbin) of every main-path configuration, kernel
    path and plain path, and the peak device memory of each long batch.
 
@@ -121,6 +132,28 @@ DURBIN_RFAM = (64, 150, 200, 2016)   # count, shortest, longest, seed
 # multiply-adds of M, I, D (and the context ssum backward); K15's adds and
 # cubic log-adds (8 operations each: sub, 3 mul, 3 add, add).
 PAIRHMM_CELL_OPS = {"pairhmm_prob": (13, 17), "pairhmm_log": (42, 61)}
+# The parity tier's log kernels K16-K19 vs their plain versions on the card:
+# both round every add and multiply on its own (the kernels through _rn
+# intrinsics) and sum in the same tree order, so bitwise is expected; the
+# budget is the CPU tests' against JAX: the -inf pattern identical, finite
+# cells within RTOL_LOG * max(1, |x|).  A parity main path vs its plain
+# path: the same presence, BPP within TOL_PARITY_MAIN.
+RTOL_LOG = 1e-4
+TOL_PARITY_MAIN = 1e-5
+LOG_KERNELS = ("contra_inside_log", "contra_outside_log", "turner_inside_log",
+               "turner_outside_log")
+# Float operations of the log kernels (the bound): a cubic lse_pair counts
+# 8 (sub, 3 mul, 3 add, add), an add or a multiply 1.  Per live cell:
+# inside, 10 per 2-loop window cell (2 adds, 1 log-add), 28 per bifurcation
+# term t < d (ext: add + log-add; s1: mul + add + log-add; s2: add +
+# log-add) and 65 for close, rm/rmmb and the finishing log-adds; outside,
+# 11 per window cell (3 adds, 1 log-add), 19 per pm/pm2 term, 20 per
+# multibranch term (lane i has min(i, k) of them) and 40 for the rest, plus
+# 9 a cell for the QONEMB column.  Bytes: each [d, i] table read once, the
+# outputs written once.
+LOG_OPS = {"inside": (10, 28, 65), "outside": (11, 19, 20, 40, 9)}
+LOG_TABLES = {"contra_inside_log": 10 + 3, "contra_outside_log": 8 + 4,
+              "turner_inside_log": 18 + 3, "turner_outside_log": 17 + 4}
 
 
 def random_batch(B, lo, hi, seed):
@@ -140,10 +173,12 @@ def padded(seqs, N, device):
 
 def wrappers(name):
     """(kernel wrapper, plain version) of a kernel by name."""
+    from rna_algos_tpu_torch.ops import pallas_fold as PF
     from rna_algos_tpu_torch.ops import pallas_fold_long as PL
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
 
-    mod = PL if name.endswith("_long") else P8
+    mod = (PL if name.endswith("_long") else PF if name.endswith("_log")
+           else P8)
     return getattr(mod, name), getattr(mod, name + "_plain")
 
 
@@ -325,6 +360,8 @@ def work(kernel, inp):
     """(bytes, FLOPs) one call of ``kernel`` must do on ``inp``: each
     input table read once and each output written once; the FLOPs of the
     recurrences on the live cells (j < n) of this run's lengths."""
+    if kernel.endswith("_log"):
+        return log_work(kernel, inp)
     key = kernel.replace("_long", "")
     B, N = inp["seqs"].shape
     nn = 4.0 * B * N * N
@@ -344,6 +381,32 @@ def work(kernel, inp):
     tables = {"contra_inside": 9 + 3, "contra_outside": 11 + 1,
               "turner_inside": 18 + 3, "turner_outside": 20 + 1}[key]
     return tables * nn, flops
+
+
+def log_work(kernel, inp):
+    """(bytes, FLOPs) of one call of a log kernel (K16-K19) on ``inp``:
+    LOG_TABLES and LOG_OPS on the live cells of this run's lengths (window
+    cells whose inner or outer pair exists, bifurcation and multibranch
+    terms up to the span)."""
+    B, N = inp["seqs"].shape
+    nbytes = LOG_TABLES[kernel] * 4.0 * B * N * N
+    if kernel.endswith("inside_log"):
+        win, per_t, cell = LOG_OPS["inside"]
+        ops = 0.0
+    else:
+        win, per_s, per_t, cell, qmb = LOG_OPS["outside"]
+        ops = float(qmb * B * N * N)
+    for n, d, lanes in _live_cells(inp["ns"].tolist()):
+        if kernel.endswith("inside_log"):
+            m = np.minimum(d - 2, 30)
+            cells = np.where(m >= 0, (m + 1) * (m + 2) / 2, 0)
+            ops += float((lanes * (win * cells + per_t * d + cell)).sum())
+        else:
+            m = np.minimum(n - 3 - d, 30)
+            cells = np.where(m >= 0, (m + 1) * (m + 2) / 2, 0)
+            ops += float((lanes * (win * cells + per_s * (n - 1 - d) + cell)
+                          + per_t * lanes * (lanes - 1) / 2).sum())
+    return nbytes, ops
 
 
 def bound(kernel, inp):
@@ -373,6 +436,105 @@ def skew_library_call(tables):
     if not torch.equal(call(), torch.stack(K3.skew_pq_batch_plain(tables))):
         raise AssertionError("torch.gather skew differs from K3's plain version")
     return call
+
+
+def log_inputs(model, N, B, seed, device):
+    """The arguments the parity path hands its inside and outside kernels
+    (K16/K17 for CONTRA, K18/K19 for Turner) on B random sequences of
+    N/2 + 10 to N nt, recorded from one run of the path's fold function (the
+    outside's from the inside kernel's outputs)."""
+    from rna_algos_tpu_torch.ops import pallas_fold as PF
+    from rna_algos_tpu_torch.params import build_fold_score_sets
+    from rna_algos_tpu_torch.weights import contra_tables, turner_tables
+
+    seqs, ns = padded(random_batch(B, max(30, N // 2 + 10), N, seed), N,
+                      device)
+    kernels = (f"{model}_inside_log", f"{model}_outside_log")
+    if model == "contra":
+        fold = PF.mccaskill_contra_pallas
+        tbl = contra_tables(build_fold_score_sets(), device)
+    else:
+        fold = PF.mccaskill_turner_pallas
+        tbl = turner_tables(device)
+    seen, saved = {}, {k: getattr(PF, k) for k in kernels}
+
+    def recorder(k):
+        def call(*args):
+            seen[k] = args
+            return saved[k](*args)
+        return call
+
+    for k in kernels:
+        setattr(PF, k, recorder(k))
+    try:
+        fold(seqs, ns, tbl, N)
+    finally:
+        for k in kernels:
+            setattr(PF, k, saved[k])
+    return dict(seqs=seqs, ns=ns, kernels=kernels,
+                inside_args=seen[kernels[0]], outside_args=seen[kernels[1]])
+
+
+def check_log(x, kernel, args):
+    """A log kernel (K16-K19) against its plain version on the card: the
+    -inf pattern identical, no NaN, finite cells within RTOL_LOG *
+    max(1, |x|).  Returns (max abs error, max relative error, bitwise,
+    the plain version's ms: CUDA events around its one call)."""
+    kern, plain = wrappers(kernel)
+    label = LABELS[kernel]
+    got = kern(*args)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    want = plain(*args)
+    t1.record()
+    t1.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    names = ("close", "ext", "one") if len(got) == 3 else ("bppo",)
+    worst_abs = worst_rel = 0.0
+    bitwise = True
+    for name, g, w in zip(names, got, want):
+        if not torch.equal(torch.isinf(g), torch.isinf(w)) or bool(
+                torch.isnan(g).any()):
+            raise AssertionError(f"{label} {name}: -inf pattern differs "
+                                 "from plain")
+        fin = torch.isfinite(w)
+        err = (g[fin] - w[fin]).abs()
+        rel = err / w[fin].abs().clamp(min=1.0)
+        exact = torch.equal(g.view(torch.int32), w.view(torch.int32))
+        bitwise &= exact
+        a = float(err.max()) if err.numel() else 0.0
+        r = float(rel.max()) if rel.numel() else 0.0
+        print(f"  {label} {name}: max abs err {a:.3e} max rel err {r:.3e}, "
+              f"-inf pattern identical, bitwise equal: {exact}")
+        if not r <= RTOL_LOG:
+            raise AssertionError(f"{label} {name} differs from plain: {r}")
+        worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+    return worst_abs, worst_rel, bitwise, t0.elapsed_time(t1)
+
+
+def log_checks(device, err, rel, times, smi):
+    """Phase 2 for K16-K19: each against its plain version at the main
+    paths' shapes, its ms per launch (3 after a warm-up) beside the plain
+    version's and the bound, into ``err``, ``rel`` and
+    ``times[kernel][shape]``."""
+    for N, B in SHAPES_MAIN:
+        for model in ("contra", "turner"):
+            x = log_inputs(model, N, B, seed=11 * N + len(model), device=device)
+            print(f"check {model} log N={N} B={B}")
+            for kernel, args in zip(x["kernels"],
+                                    (x["inside_args"], x["outside_args"])):
+                a, r, exact, pms = check_log(x, kernel, args)
+                err[kernel] = max(err[kernel], a)
+                rel[kernel] = max(rel.get(kernel, 0.0), r)
+                ms = cuda_ms(lambda: wrappers(kernel)[0](*args), 3)
+                bms, by = bound(kernel, x)
+                times[kernel][f"N{N}_B{B}"] = (ms, pms, bms, by, None)
+                print(f"time N={N} B={B} {kernel}: kernel {ms:.4f} ms, plain "
+                      f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), share "
+                      f"{bms / ms:.4f}, bitwise {exact}, on {smi}")
 
 
 def dot_bracket_pairs(db):
@@ -730,6 +892,7 @@ def plain_kernels():
               for mod in (P8, PF, M)]
     swaps += [(PAP, "pairhmm_prob", PAP.pairhmm_prob_plain),
               (PA, "pairhmm_log", PA.pairhmm_log_plain)]
+    swaps += [(PF, k, getattr(PF, k + "_plain")) for k in LOG_KERNELS]
     saved = [(mod, k, getattr(mod, k)) for mod, k, _ in swaps]
     for mod, k, fn in swaps:
         setattr(mod, k, fn)
@@ -757,6 +920,121 @@ def counted_plain_pairhmm():
         yield calls
     finally:
         PA._pairhmm_plain = orig
+
+
+@contextlib.contextmanager
+def counted_plain_log():
+    """Count the calls of the log-space plain wavefronts (the plain versions
+    of K16-K19) while the block runs: a one-item list."""
+    from rna_algos_tpu_torch.ops import pallas_fold as PF
+
+    calls = [0]
+    saved = {k: getattr(PF, k) for k in ("_inside_log_plain",
+                                         "_outside_log_plain")}
+
+    def counting(fn):
+        def call(*args, **kw):
+            calls[0] += 1
+            return fn(*args, **kw)
+        return call
+
+    for k, fn in saved.items():
+        setattr(PF, k, counting(fn))
+    try:
+        yield calls
+    finally:
+        for k, fn in saved.items():
+            setattr(PF, k, fn)
+
+
+def parity_paths(engines, batches, counted, counts, path_kernels, smi):
+    """The parity main paths (phase 3): FoldEngine(numerics="parity") for
+    each model on each batch, counted on its own (one inside and one
+    outside launch a bucket, K3 for the skews, the plain log wavefronts
+    never called), its peak memory read (above what the script held
+    before), held against the plain path on the card (the same presence,
+    BPP within TOL_PARITY_MAIN), and its seqs/s (CUDA events around 3 calls
+    after a warm-up).  Returns the stats by run and the kernel path's
+    results."""
+    stats, results = {}, {}
+    for model, engine in engines.items():
+        path = f"{model}_parity"
+        ik, ok = path_kernels[path][1:]
+        for key, seqs in batches.items():
+            label = f"{path}_{key}"
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            with counted_plain_log() as n_plain:
+                got = counted(label, path, lambda: engine.fold_batch(seqs))
+            peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+            counts.setdefault(path, {k: 0 for k in counts[label]})
+            for k, v in counts[label].items():
+                counts[path][k] += v
+            if n_plain[0] or counts[label][ik] != 1 or counts[label][ok] != 1:
+                raise AssertionError(
+                    f"{label}: {counts[label]}, plain log wavefront calls "
+                    f"{n_plain[0]} (want 1 inside, 1 outside, 0 plain)")
+            with plain_kernels():
+                plain = engine.fold_batch(seqs)
+            worst = 0.0
+            for (bk, pk), (bp, pp), s in zip(got, plain, seqs):
+                if not (bk.shape == (len(s), len(s)) and np.isfinite(bk).all()
+                        and np.array_equal(pk, pp)):
+                    raise AssertionError(f"{label}: presence or shape differs "
+                                         "from the plain path")
+                worst = max(worst, float(np.abs(bk - bp).max()))
+            if not worst <= TOL_PARITY_MAIN:
+                raise AssertionError(f"{label}: main path disagrees with plain")
+            ms = cuda_ms(lambda: engine.fold_batch(seqs), 3)
+            stats[label] = dict(seqs_per_s=len(seqs) / (ms / 1e3),
+                                peak_gib=peak)
+            results[label] = got
+            print(f"{label}: kernel vs plain path max |dBPP| {worst:.3e}, "
+                  f"presence identical; {len(seqs) / (ms / 1e3):.2f} seqs/s "
+                  f"({ms:.2f} ms/batch); launches {ik} 1, {ok} 1, plain log "
+                  f"wavefront calls 0; peak memory {peak:.3f} GiB above the "
+                  f"{held / 2**30:.3f} GiB held before, on {smi}")
+    return stats, results
+
+
+def parity_clis(mc_cli, cf_cli, fasta, golden):
+    """The fold CLIs under --numerics parity (phase 4): cli.mccaskill with
+    and without -c against the C-baseline triples (identical key sets, BPP
+    within TOL_GOLDEN), cli.centroid_fold -c byte for byte against
+    centroid_contra/ and without -c against centroid_turner/ under the tie
+    rule.  Returns the Turner verdict and the BPP of the tie pair."""
+    tie_file, tie_rec, tie_pair = TURNER_TIE
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for flag, gold in (("-c", "mccaskill_contra.txt"),
+                           (None, "mccaskill_turner.txt")):
+            out = tmp / gold
+            mc_cli.main(["-i", fasta, "-o", str(out), "--numerics", "parity"]
+                        + ([flag] if flag else []))
+            got = parse_triples(out.read_text())
+            worst, _ = compare_triples(
+                parse_triples((golden / gold).read_text()), got, TOL_GOLDEN,
+                f"cli.mccaskill --numerics parity vs {gold}")
+            print(f"cli.mccaskill --numerics parity {flag or ''} vs "
+                  f"c_baseline/{gold}: identical key sets, worst {worst:.3e}")
+        tie_bpp = got[str(tie_rec)][tie_pair]
+        cf_cli.main(["-i", fasta, "-o", str(tmp / "cc"), "-c", "--numerics",
+                     "parity"])
+        ref_dir = golden / "centroid_contra"
+        names = sorted(os.listdir(ref_dir))
+        if names != sorted(os.listdir(tmp / "cc")) or any(
+                (ref_dir / nm).read_bytes() != (tmp / "cc" / nm).read_bytes()
+                for nm in names):
+            raise AssertionError("centroid CLI -c --numerics parity differs "
+                                 "from centroid_contra/")
+        cf_cli.main(["-i", fasta, "-o", str(tmp / "ct"), "--numerics",
+                     "parity"])
+        verdict = turner_centroid_verdict(golden / "centroid_turner",
+                                          tmp / "ct")
+    print(f"centroid CLI --numerics parity: -c {len(names)} files "
+          f"byte-identical; Turner verdict {verdict}; Turner record "
+          f"{tie_rec} BPP at {tie_pair}: {tie_bpp!r} (golden 1.0000076)")
+    return verdict, tie_bpp
 
 
 @contextlib.contextmanager
@@ -809,12 +1087,23 @@ REPLACES = {
                      "rna_algos_tpu/ops/pallas_align_prob.py:52"),
     "pairhmm_log": ("rna_algos_tpu_torch/csrc/pairhmm.cu",
                     "rna_algos_tpu/ops/pallas_align.py:66"),
+    # the parity tier's log-space fold kernels
+    "contra_inside_log": ("rna_algos_tpu_torch/csrc/contra_inside_log.cu",
+                          "rna_algos_tpu/ops/pallas_fold.py:167"),
+    "contra_outside_log": ("rna_algos_tpu_torch/csrc/contra_outside_log.cu",
+                           "rna_algos_tpu/ops/pallas_fold.py:309"),
+    "turner_inside_log": ("rna_algos_tpu_torch/csrc/turner_inside_log.cu",
+                          "rna_algos_tpu/ops/pallas_fold.py:931"),
+    "turner_outside_log": ("rna_algos_tpu_torch/csrc/turner_outside_log.cu",
+                           "rna_algos_tpu/ops/pallas_fold.py:1028"),
 }
 LABELS = {"contra_inside": "K1", "contra_outside": "K2",
           "turner_inside": "K4", "turner_outside": "K5",
           "contra_inside_long": "K8", "contra_outside_long": "K9",
           "turner_inside_long": "K12", "turner_outside_long": "K13",
-          "pairhmm_prob": "K14", "pairhmm_log": "K15"}
+          "pairhmm_prob": "K14", "pairhmm_log": "K15",
+          "contra_inside_log": "K16", "contra_outside_log": "K17",
+          "turner_inside_log": "K18", "turner_outside_log": "K19"}
 
 
 def main():
@@ -826,6 +1115,7 @@ def main():
     from rna_algos_tpu_torch.ops import _build
     from rna_algos_tpu_torch.ops import pallas_align as PA
     from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
+    from rna_algos_tpu_torch.ops import pallas_fold as PF
     from rna_algos_tpu_torch.ops import pallas_fold_long as PL
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
     from rna_algos_tpu_torch.ops import pallas_skew as K3
@@ -918,6 +1208,7 @@ def main():
             timed(x["kernels"][1], x, x["outside_args"], LONG_REPS, 1)
     durbin_times(dinputs, times)
     del dinputs
+    log_checks(dev, err, rel, times, smi)
 
     # phase 3: the main paths, each counted on its own
     batches = {
@@ -934,7 +1225,9 @@ def main():
                 PL.contra_outside_long_launches,
                 PL.turner_inside_long_launches,
                 PL.turner_outside_long_launches,
-                PAP.prob_launches, PA.log_launches)
+                PAP.prob_launches, PA.log_launches,
+                PF.contra_inside_log_launches, PF.contra_outside_log_launches,
+                PF.turner_inside_log_launches, PF.turner_outside_log_launches)
     path_kernels = {
         "contra": ("skew", "contra_inside", "contra_outside"),
         "turner": ("skew", "turner_inside", "turner_outside"),
@@ -942,6 +1235,8 @@ def main():
         "turner_long": ("skew", "turner_inside_long", "turner_outside_long"),
         "durbin_exact": ("pairhmm_prob",),
         "durbin_parity": ("pairhmm_log",),
+        "contra_parity": ("skew", "contra_inside_log", "contra_outside_log"),
+        "turner_parity": ("skew", "turner_inside_log", "turner_outside_log"),
     }
     results, counts = {}, {}
 
@@ -1052,6 +1347,12 @@ def main():
                 for m in ("exact", "parity")}
     durbin_stats = durbin_paths(dsets, aligners, counted, counts,
                                 path_kernels, smi)
+    parity_engines = {
+        model: FoldEngine(uses_contra_model=model == "contra", device="cuda",
+                          numerics="parity")
+        for model in ("contra", "turner")}
+    parity_stats, _ = parity_paths(parity_engines, batches, counted, counts,
+                                   path_kernels, smi)
 
     # the float64 goldens of the long-n anchors
     gdir = ROOT / "tests" / "golden"
@@ -1127,6 +1428,9 @@ def main():
           "records byte-identical to the tRNA-only run")
 
     durbin_clis(du_cli, fasta, golden)
+    verdict, tie_bpp = parity_clis(mc_cli, cf_cli, fasta, golden)
+    parity_stats["turner_centroid_verdict"] = verdict
+    parity_stats["turner_tie_bpp"] = tie_bpp
 
     # phase 5: main-path throughput, kernel path and plain path
     for model, engine in engines.items():
@@ -1175,6 +1479,7 @@ def main():
         k: {"seqs_per_s": v[0], "retries": v[1], "peak_gib": v[2]}
         for k, v in long_stats.items()}}))
     print(json.dumps({"durbin_paths": durbin_stats}))
+    print(json.dumps({"parity_paths": parity_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -19,7 +19,7 @@ from ..utils.output import _fmt, fold_str
 
 from ..models.centroid import DEFAULT_GAMMAS, mea_fill_gammas, traceback
 from ..parallel.runner import FoldEngine, pick_bucket
-from .common import add_port_flags, check_numerics
+from .common import add_port_flags
 
 
 def build_parser():
@@ -59,9 +59,9 @@ def centroid_structures(results, gammas, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_numerics(args.numerics)
     records = read_fasta(args.i)
-    engine = FoldEngine(uses_contra_model=args.c, device=args.device)
+    engine = FoldEngine(uses_contra_model=args.c, device=args.device,
+                        numerics=args.numerics or "exact")
     if args.bpp_cache:
         from ..utils.checkpoint import BppStore, cached_fold_batch
 

@@ -14,7 +14,7 @@ from ..utils.io import read_fasta
 from ..utils.output import probs2str_arrays
 
 from ..parallel.runner import FoldEngine
-from .common import add_port_flags, check_numerics
+from .common import add_port_flags
 
 HEADER = (
     "# Format = >{RNA sequence id} {line break} {basepairing left nucleotide}, "
@@ -36,9 +36,9 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_numerics(args.numerics)
     records = read_fasta(args.i)
-    engine = FoldEngine(uses_contra_model=args.c, device=args.device)
+    engine = FoldEngine(uses_contra_model=args.c, device=args.device,
+                        numerics=args.numerics or "exact")
     results = engine.fold_batch([r.seq for r in records])
     parts = [HEADER]
     for rna_id, (bpp, presence) in enumerate(results):

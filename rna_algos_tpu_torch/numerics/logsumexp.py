@@ -8,8 +8,10 @@ approximations (`reference/src/utils.rs:579-655`):
 * ``expf(x)`` ~= e^x for x < 0 (7 cubic segments; exact ``exp`` for x >= 0).
 
 Same float32 breakpoints and coefficients as the JAX package, the same
-select chain (each break upgrades the four Horner coefficients) and the
-same Horner nesting ``((c3*x + c2)*x + c1)*x + c0``.  Torch runs each
+segment choice (the JAX package's select chain upgrades the four Horner
+coefficients at each break x >= break; here the segment index is the
+number of such breaks, one ``bucketize``) and the same Horner nesting
+``((c3*x + c2)*x + c1)*x + c0``.  Torch runs each
 elementwise operation on its own, rounded, so nothing is contracted into a
 fused multiply-add; the log-space kernel (``csrc/pairhmm.cu``) writes its
 cubic with round-to-nearest intrinsics for the same reason.
@@ -74,13 +76,12 @@ EXPF_COEFFS = np.array(
 
 
 def _piecewise_cubic(x, breaks, coeffs):
-    """Horner evaluation with per-break coefficient selects."""
-    c = [torch.full_like(x, float(v)) for v in coeffs[0]]
-    for k in range(len(breaks)):
-        above = x >= float(breaks[k])
-        c = [torch.where(above, float(v), ck)
-             for v, ck in zip(coeffs[k + 1], c)]
-    c3, c2, c1, c0 = c
+    """Horner evaluation with the coefficients of x's segment, row k of
+    ``coeffs`` for the k breaks at or below x."""
+    seg = torch.bucketize(x.contiguous(),
+                          torch.as_tensor(breaks, device=x.device),
+                          right=True)
+    c3, c2, c1, c0 = torch.as_tensor(coeffs, device=x.device)[seg].unbind(-1)
     return ((c3 * x + c2) * x + c1) * x + c0
 
 

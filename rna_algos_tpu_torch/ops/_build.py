@@ -40,6 +40,12 @@ SIGNATURES = {
     "rna_turner_outside": [ctypes.POINTER(_P)] + [_P] * 11 + [_I, _I, _I, _P],
     "rna_pairhmm_prob": [_P] * 9 + [_I, _I, _I, _P],
     "rna_pairhmm_log": [_P] * 9 + [_I, _I, _I, _P],
+    "rna_contra_inside_log": [ctypes.POINTER(_P)] + [_P] * 8 + [_I, _I, _P],
+    "rna_contra_outside_log": [ctypes.POINTER(_P)] + [_P] * 13
+    + [_I, _I, _I, _P],
+    "rna_turner_inside_log": [ctypes.POINTER(_P)] + [_P] * 8 + [_I, _I, _P],
+    "rna_turner_outside_log": [ctypes.POINTER(_P)] + [_P] * 13
+    + [_I, _I, _I, _P],
 }
 
 
@@ -152,6 +158,12 @@ def stream_ptr(device):
 
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def ptr_array(tables, names):
+    """A C array of the data pointers of ``tables[k]`` for k in ``names``
+    (the table arguments of the Turner and log-space entry points)."""
+    return (_P * len(names))(*[tables[k].data_ptr() for k in names])
 
 
 def check_cuda(name, tensors, shapes, device, ints=("ns",)):

@@ -16,7 +16,6 @@ every recurrence but the 2-loop term, so each pass has one plain core
 and window inserts as functions.
 """
 
-import ctypes
 import functools
 
 import torch
@@ -559,10 +558,6 @@ def turner_inside_plain(mi, KT, scal, ns):
                          insert)
 
 
-def _table_array(tables, names):
-    return (ctypes.c_void_p * len(names))(*[tables[k].data_ptr() for k in names])
-
-
 def turner_inside(mi, KT, scal, ns):
     """Kernel K4 (``csrc/turner_inside.cu``) for CUDA tensors, its plain
     version for CPU tensors.  ``mi``: the 18 merged (B, N, N) [d, i] inside
@@ -596,7 +591,7 @@ def _turner_inside_cuda(mi, KT, scal, ns):
     args = [KT, scal, ns, close, ext, one, rm, rmm,
             _ring(B, N, RING_SLOTS_TURNER, dev)]
     _build.library().call(
-        entry, _table_array(ins, TURNER_INSIDE_TABLES),
+        entry, _build.ptr_array(ins, TURNER_INSIDE_TABLES),
         *[_build.ptr(t) for t in args], B, N, _build.stream_ptr(dev),
     )
     return close, ext, one
@@ -670,7 +665,7 @@ def _turner_outside_cuda(mo, one, QONE, extR, KT, scal, ns, min_span):
     args = [one, QONE, extR, KT, scal, ns, bppo, pm, pm2, g,
             _ring(B, N, RING_SLOTS_TURNER, dev)]
     _build.library().call(
-        entry, _table_array(ins, TURNER_OUTSIDE_TABLES),
+        entry, _build.ptr_array(ins, TURNER_OUTSIDE_TABLES),
         *[_build.ptr(t) for t in args], B, N, int(min_span),
         _build.stream_ptr(dev),
     )

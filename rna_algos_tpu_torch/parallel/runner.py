@@ -40,17 +40,17 @@ def _promote(N):
     return N
 
 
-def kernel_bucket(n, contra):
+def kernel_bucket(n, contra, numerics="exact"):
     """The bucket the port folds a length-n sequence in: ``pick_bucket``
     and the JAX runner's promotions to the kernel tiers.  Lengths past the
-    tiers (Turner n > 1024, any n > 2048) raise: the JAX package folds them
-    with the XLA scan, which is not ported."""
+    tiers (Turner n > 1024, any n > 2048; under parity any n > 256) raise:
+    the JAX package folds them with the XLA scan, which is not ported."""
     N = _promote(pick_bucket(n))
-    if not M.pallas_available(contra, N):
+    if not M.pallas_available(contra, N, numerics):
         model = "CONTRA" if contra else "Turner"
         raise NotImplementedError(
             f"{model} sequence of length {n} (bucket {pick_bucket(n)}) "
-            f"{M.GENERIC_N_ITEM}"
+            f"under {numerics} numerics {M.GENERIC_N_ITEM}"
         )
     return N
 
@@ -130,10 +130,11 @@ class FoldEngine:
     """Cached-table, bucketed McCaskill batch runner on one device."""
 
     def __init__(self, uses_contra_model=False, allows_short_hairpins=False,
-                 device="cuda"):
+                 device="cuda", numerics="exact"):
         self.contra = bool(uses_contra_model)
         self.allows_short_hairpins = bool(allows_short_hairpins)
         self.device = resolve_device(device)
+        self.numerics = check_mode(numerics)
         if self.contra:
             self.tbl = contra_tables(build_fold_score_sets(), self.device)
         else:
@@ -146,8 +147,9 @@ class FoldEngine:
         results = [None] * len(seqs)
         by_bucket = {}
         for k in order:
-            by_bucket.setdefault(kernel_bucket(len(seqs[k]), self.contra),
-                                 []).append(k)
+            by_bucket.setdefault(
+                kernel_bucket(len(seqs[k]), self.contra, self.numerics),
+                []).append(k)
         for N, idxs in by_bucket.items():
             arr = torch.as_tensor(pad_seqs([seqs[k] for k in idxs], N),
                                   dtype=torch.int64, device=self.device)
@@ -156,6 +158,7 @@ class FoldEngine:
             bpp, presence = M.mccaskill_bpp_batch_auto(
                 arr, ns, self.tbl, N=N, contra=self.contra,
                 allows_short_hairpins=self.allows_short_hairpins,
+                numerics=self.numerics,
             )
             bpp = bpp.cpu().numpy()
             presence = presence.cpu().numpy()

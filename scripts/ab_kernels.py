@@ -2,7 +2,7 @@
 a CUDA GPU, in turns (A, B, B, A), on the same inputs.
 
     python scripts/ab_kernels.py --a OLD_CSRC_DIR [--b NEW_CSRC_DIR]
-        [--a-split] [--short-only]
+        [--a-split] [--short-only | --pairhmm]
 
 ``--b`` defaults to the package's own ``csrc/``.  Each build goes into the
 ``_build`` directory beside its sources.  ``--a-split`` says build A
@@ -14,7 +14,10 @@ and unless ``--short-only`` the long tier's (K8/K9 at N = 512, 1024, 2048;
 K12/K13 at 512, 1024).  Prints each kernel's CUDA-event ms per build and
 turn (REPS launches after one warm-up), each build's ptxas register and
 spill lines, and the largest difference between the two builds' outputs.
-Needs a GPU.
+``--pairhmm`` times the Durbin pair-HMM kernels K14 and K15 instead (a
+forward and a backward launch per timed call) on chip_smoke.py's two Durbin
+sets (630 tRNA pairs at N = 128, 2,016 random pairs at N = 256).  Entry
+points a build does not define are not bound.  Needs a GPU.
 """
 
 import argparse
@@ -70,6 +73,9 @@ def load(csrc, split):
     _build.BUILD_DIR = csrc.parent / "_build"
     _build.library.cache_clear()
     saved = _build.SIGNATURES
+    text = "".join(p.read_text() for p in csrc.glob("*.cu"))
+    _build.SIGNATURES = {k: v for k, v in saved.items()
+                         if f'"C" int {k}(' in text}
     if split:
         sigs = {"rna_skew": saved["rna_skew"], **SPLIT_SIGNATURES}
         if (csrc / "contra_inside_long.cu").exists():
@@ -98,6 +104,8 @@ def main(argv=None):
                     help="build A predates the stacked/long merge")
     ap.add_argument("--short-only", action="store_true",
                     help="only N = 128 and 256")
+    ap.add_argument("--pairhmm", action="store_true",
+                    help="the Durbin pair-HMM kernels K14 and K15 instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA GPU available", file=sys.stderr)
@@ -116,6 +124,8 @@ def main(argv=None):
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {k} ptxas: {line.strip()}")
     use(libs["B"])
+    if args.pairhmm:
+        return ab_pairhmm(libs, dev, chip_smoke)
     cases = []   # (N, B, inputs)
     for N, B in chip_smoke.SHAPES_MAIN:
         cases.append((N, B, chip_smoke.kernel_inputs(N, B, seed=7 * N,
@@ -149,6 +159,34 @@ def main(argv=None):
                    for x, y in zip(got["A"], got["B"]))
         print(f"N={N} B={B} {kernel}: max |A - B| {diff:.3e}"
               f"{' (bitwise equal)' if same else ''}")
+    return 0
+
+
+def ab_pairhmm(libs, dev, chip_smoke):
+    """K14 and K15 of the two builds in turns A, B, B, A on the Durbin sets
+    (10 timed calls of a forward and a backward launch each), and the
+    largest difference between their outputs."""
+    from rna_algos_tpu_torch.utils.io import read_fasta
+
+    trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
+    sets = {key: chip_smoke.durbin_inputs(seqs, pairs, dev)
+            for key, (seqs, pairs) in chip_smoke.durbin_sets(trnas).items()}
+    outs = {}
+    for turn, which in enumerate(("A", "B", "B", "A")):
+        use(libs[which])
+        for key, x in sets.items():
+            for kernel in ("pairhmm_prob", "pairhmm_log"):
+                fn = chip_smoke.pairhmm_wrappers(kernel)[0]
+                calls = chip_smoke.pairhmm_calls(kernel, x, fn)
+                ms = chip_smoke.cuda_ms(lambda: [c() for c in calls], 10) / 2
+                outs.setdefault((key, kernel), {})[which] = [
+                    t for c in calls for t in c()]
+                print(f"turn {turn} build {which} {key} {kernel}: "
+                      f"{ms:.4f} ms per launch")
+    for (key, kernel), got in outs.items():
+        same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(got["A"], got["B"]))
+        print(f"{key} {kernel}: outputs of A and B bitwise equal: {same}")
     return 0
 
 

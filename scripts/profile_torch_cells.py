@@ -9,7 +9,9 @@ seeded random 150-200 nt sequences (bucket 256) and 16 seeded random
 600-1,000 nt sequences (bucket 1024, the long tier), for CONTRA and Turner;
 and the Durbin pair-HMM on chip_smoke.py's three runs: the 630 pairs of
 the tRNAs tiled to 36 sequences (bucket 128) exact and parity, and the
-2,016 pairs of 64 random 150-200 nt sequences (bucket 256) exact.
+2,016 pairs of 64 random 150-200 nt sequences (bucket 256) exact; and the
+parity tier (``FoldEngine(numerics="parity")``, kernels K16-K19) on the
+tRNA and random 150-200 nt cells, both models.
 For each it prints the unprofiled batch time (the mean of REPS batches in
 one CUDA-event window after two warm-ups, as chip_smoke.cuda_ms; every
 cell is timed before the first profiler session, whose instrumentation
@@ -38,7 +40,9 @@ KERNELS = ("skew_kernel", "contra_inside_kernel", "contra_outside_kernel",
            "turner_inside_kernel", "turner_outside_kernel",
            "contra_inside_wide_kernel", "contra_outside_wide_kernel",
            "turner_inside_wide_kernel", "turner_outside_wide_kernel",
-           "pairhmm_prob_kernel", "pairhmm_log_kernel")
+           "pairhmm_prob_kernel", "pairhmm_log_kernel",
+           "contra_inside_log_kernel", "contra_outside_log_kernel",
+           "turner_inside_log_kernel", "turner_outside_log_kernel")
 
 
 def _union(intervals):
@@ -117,6 +121,12 @@ def main(argv=None):
                "turner": FoldEngine(uses_contra_model=False, device="cuda")}
     calls = {(m, c): (lambda e=engines[m], s=cells[c]: e.fold_batch(s))
              for m in engines for c in cells}
+    for m in ("contra", "turner"):
+        engine = FoldEngine(uses_contra_model=m == "contra", device="cuda",
+                            numerics="parity")
+        for c in ("trna_N128_B192", "rfam_N256_B96"):
+            calls[(f"{m}_parity", c)] = (lambda e=engine, s=cells[c]:
+                                         e.fold_batch(s))
     dsets = chip_smoke.durbin_sets(trnas)
     for path, mode, key in chip_smoke.DURBIN_RUNS:
         aligner = AlignEngine(device="cuda", numerics=mode)

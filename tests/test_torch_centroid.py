@@ -95,8 +95,12 @@ def test_mccaskill_cli_within_golden_budget(tmp_path):
 @pytest.mark.parametrize("cli", [cf_cli, mc_cli])
 def test_cli_refuses_what_is_not_ported(tmp_path, cli):
     out = str(tmp_path / "o")
+    # under parity the JAX package folds buckets past 256 with the XLA
+    # scan, which is not ported
+    fa400 = tmp_path / "n400.fa"
+    fa400.write_text(">n400\n" + "GCAU" * 100 + "\n")
     with pytest.raises(NotImplementedError, match="A10"):
-        cli.main(["-i", FASTA, "-o", out, "-c", "--device", "cpu",
+        cli.main(["-i", str(fa400), "-o", out, "-c", "--device", "cpu",
                   "--numerics", "parity"])
     # past the kernel tiers (CONTRA n > 2048, Turner n > 1024) the JAX
     # package runs the XLA scan, which is not ported

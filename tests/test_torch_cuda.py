@@ -1,7 +1,8 @@
-"""Kernels K1-K5, K8, K9, K12-K15 against their plain versions on a
+"""Kernels K1-K5, K8, K9, K12-K19 against their plain versions on a
 CUDA GPU: the checks of chip_smoke.py, at the main paths' buckets (the long
 tier's at a centred per-sequence ln_sigma, the pair-HMM's at each pair's
-settled ln_sigma).  Skipped without a GPU; run on
+settled ln_sigma, the parity tier's log kernels on a few random sequences
+at N = 128 and 256).  Skipped without a GPU; run on
 the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
 import numpy as np
@@ -128,7 +129,7 @@ def test_turner_main_path_launches_its_kernels(device):
 def test_long_main_path_launches_its_kernels(device, contra):
     from rna_algos_tpu_torch.ops import pallas_fold_long as PL
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
-    from rna_algos_tpu_torch.parallel.runner import FoldEngine
+    from rna_algos_tpu_torch.parallel.runner import FoldEngine, kernel_bucket
 
     model = "contra" if contra else "turner"
     mine = (getattr(PL, f"{model}_inside_long_launches"),
@@ -191,3 +192,43 @@ def test_durbin_path_launches_its_kernel(device, numerics):
     assert mine.count >= 2 and other.count == 0
     assert all(p.shape == (len(seqs[a]), len(seqs[b])) and np.isfinite(p).all()
                for (a, b), p in zip(pairs, out))
+
+
+@pytest.fixture(scope="module", params=[("contra", 128), ("turner", 128),
+                                        ("contra", 256), ("turner", 256)],
+                ids=lambda s: f"{s[0]}_N{s[1]}")
+def log_inputs(device, request):
+    model, N = request.param
+    return chip_smoke.log_inputs(model, N, 8, seed=N + 5, device=device)
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["inside", "outside"])
+def test_log_kernel_matches_plain(log_inputs, which):
+    """K16/K17 (CONTRA) and K18/K19 (Turner): the -inf pattern identical,
+    finite cells within 1e-4 * max(1, |x|) (bitwise in the chip runs)."""
+    kernel = log_inputs["kernels"][which]
+    args = (log_inputs["inside_args"], log_inputs["outside_args"])[which]
+    _abs, rel, _bitwise, _ms = chip_smoke.check_log(log_inputs, kernel, args)
+    assert rel <= chip_smoke.RTOL_LOG
+
+
+@pytest.mark.parametrize("contra", [True, False], ids=["contra", "turner"])
+def test_parity_path_launches_its_kernels(device, contra):
+    from rna_algos_tpu_torch.ops import pallas_fold as PF
+    from rna_algos_tpu_torch.parallel.runner import FoldEngine, kernel_bucket
+
+    model = "contra" if contra else "turner"
+    mine = (getattr(PF, f"{model}_inside_log_launches"),
+            getattr(PF, f"{model}_outside_log_launches"))
+    engine = FoldEngine(uses_contra_model=contra, device=device,
+                        numerics="parity")
+    seqs = chip_smoke.random_batch(6, 60, 200, seed=7)
+    for c in mine:
+        c.reset()
+    with chip_smoke.counted_plain_log() as n_plain:
+        out = engine.fold_batch(seqs)
+    buckets = {kernel_bucket(len(s), contra, "parity") for s in seqs}
+    assert all(c.count == len(buckets) for c in mine)   # no retry loop
+    assert n_plain[0] == 0
+    assert all(bpp.shape == (len(s), len(s)) and np.isfinite(bpp).all()
+               for (bpp, _), s in zip(out, seqs))
