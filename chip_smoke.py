@@ -11,7 +11,11 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    K2 (CONTRA) and K4, K5 (Turner) within stated tolerances at N = 128,
    B = 64 and N = 256, B = 32; the long tier's K8, K9 (CONTRA) and K12, K13
    (Turner), the same four sources launched past N = 256, at N = 512, B = 8
-   and N = 1024, B = 4, and K8, K9 at N = 2048, B = 2, at a fixed ln_sigma
+   and N = 1024, B = 4, and K8, K9 also at N = 2048, B = 2, the main paths'
+   N = 512, B = 32, N = 1024, B = 16 and N = 2048, B = 8, and N = 512,
+   B = 80 (one block a
+   sequence), each launch's cluster size printed, compared on the live
+   cells (i + d < n) with their dead cells exactly 0, at a fixed ln_sigma
    that centres each sequence's scaled Z; the Durbin pair-HMM's K14
    (probability space) and K15 (log space), forward and backward, on the
    630 tRNA pairs at N = 128 and 2,016 random pairs at N = 256, at each
@@ -78,8 +82,13 @@ sys.path.insert(0, str(ROOT))
 SHAPES_CHECK = ((128, 64), (256, 32))
 SHAPES_MAIN = ((128, 192), (256, 96))
 # The long tier: kernel checks, and the main paths' shapes, per model.
-LONG_CHECK = {"contra": ((512, 8), (1024, 4), (2048, 2)),
+LONG_CHECK = {"contra": ((512, 8), (1024, 4), (2048, 2), (512, 32),
+                         (1024, 16), (2048, 8), (512, 80)),
               "turner": ((512, 8), (1024, 4))}
+# The kernels that compute live cells only (i + d < n) and leave the dead
+# ones the zeros their wrappers pass: K8 and K9, compared with their plain
+# versions on the live cells.
+LIVE_ONLY = ("contra_inside_long", "contra_outside_long")
 LONG_MAIN = {"contra": ((512, 32), (1024, 16), (2048, 8)),
              "turner": ((512, 32), (1024, 16))}
 # bucket -> (batch, shortest, longest) of the long main-path batches
@@ -307,15 +316,48 @@ def check_skew(inp):
     return 0.0
 
 
+def cluster_sizes(N, B, clusters):
+    """K8's and K9's cluster sizes (blocks per sequence) for a launch over
+    B sequences at N, recorded in ``clusters[kernel][shape]``; a note for
+    the log."""
+    from rna_algos_tpu_torch.ops import pallas_fold_long as PL
+
+    sizes = PL.contra_cluster_sizes(B, N)
+    for k, c in zip(LIVE_ONLY, sizes):
+        clusters.setdefault(k, {})[f"N{N}_B{B}"] = c
+    return f"cluster size K8 {sizes[0]}, K9 {sizes[1]}"
+
+
+def live_cells(kernel, inp, like):
+    """The cells ``kernel`` is compared on: all, or for LIVE_ONLY kernels
+    the live ones (i + d < n), after checking that each dead cell of
+    ``like`` (the kernel's outputs) is exactly 0."""
+    live = torch.ones_like(like[0], dtype=torch.bool)
+    if kernel in LIVE_ONLY:
+        N = live.shape[1]
+        r = torch.arange(N, device=live.device)
+        live = ((r[None, :, None] + r[None, None, :])
+                < inp["ns"].view(-1, 1, 1))
+        for g in like:
+            if bool((g[~live] != 0).any()):
+                raise AssertionError(
+                    f"{LABELS[kernel]}: a dead cell is not 0")
+    return live
+
+
 def check_inside(inp, label="K1", kernel="contra_inside"):
     """An inside kernel (K1, K4, K8 or K12) vs its plain version on close,
-    ext, one: |k - p| <= RTOL_INSIDE * |p|.  Returns (max abs error, max
-    relative error); the scaled partition functions run up to ~1e8, so the
-    relative error is the telling one."""
+    ext, one: |k - p| <= RTOL_INSIDE * |p| (K8: on live cells, the dead
+    ones 0).  Returns (max abs error, max relative error); the scaled
+    partition functions run up to ~1e8, so the relative error is the
+    telling one."""
     kern, plain = wrappers(kernel)
     got = kern(*inp["inside_args"])
     want = plain(*inp["inside_args"])
     torch.cuda.synchronize()
+    live = live_cells(kernel, inp, got)
+    got = [g[live] for g in got]
+    want = [w[live] for w in want]
     worst_abs = worst_rel = 0.0
     for name, g, w in zip(("close", "ext", "one"), got, want):
         err = (g - w).abs()
@@ -326,26 +368,31 @@ def check_inside(inp, label="K1", kernel="contra_inside"):
         print(f"  {label} {name}: max rel err {rel:.3e} max abs "
               f"{float(err.max()):.3e}, {int(bad.sum())} outside tolerance")
         if bool(bad.any()):
-            idx = bad.nonzero()[0].tolist()
+            k = int(bad.nonzero()[0])
             raise AssertionError(
-                f"{label} {name} differs from plain at {idx}: kernel "
-                f"{float(g[tuple(idx)])!r} plain {float(w[tuple(idx)])!r}"
-            )
+                f"{label} {name} differs from plain at live cell {k}: "
+                f"kernel {float(g[k])!r} plain {float(w[k])!r}")
+    if kernel in LIVE_ONLY:
+        print(f"  {label}: dead cells (i + d >= n) all 0")
     return worst_abs, worst_rel
 
 
 def check_outside(inp, label="K2", kernel="contra_outside"):
     """An outside kernel (K2, K5, K9 or K13) vs its plain version on bppo:
-    max |k - p| <= ATOL_BPPO."""
+    max |k - p| <= ATOL_BPPO (K9: on live cells, the dead ones 0)."""
     kern, plain = wrappers(kernel)
     got = kern(*inp["outside_args"])
     want = plain(*inp["outside_args"])
     torch.cuda.synchronize()
+    live = live_cells(kernel, inp, [got])
+    got, want = got[live], want[live]
     err = float((got - want).abs().max())
     print(f"  {label} bppo: max abs err {err:.3e}, max bppo "
           f"{float(want.max()):.4f}")
-    if not bool(torch.isfinite(got).all()) or err > ATOL_BPPO:
+    if not bool(torch.isfinite(got).all()) or not err <= ATOL_BPPO:
         raise AssertionError(f"{label} bppo differs from plain: {err}")
+    if kernel in LIVE_ONLY:
+        print(f"  {label}: dead cells (i + d >= n) all 0")
     return err
 
 
@@ -358,8 +405,10 @@ def _live_cells(ns):
 
 def work(kernel, inp):
     """(bytes, FLOPs) one call of ``kernel`` must do on ``inp``: each
-    input table read once and each output written once; the FLOPs of the
-    recurrences on the live cells (j < n) of this run's lengths."""
+    input table read once (K8/K9: on the live cells, i + d < n, the only
+    ones they read) and each output written once (whole: the wrappers
+    zero-fill them); the FLOPs of the recurrences on the live cells of
+    this run's lengths."""
     if kernel.endswith("_log"):
         return log_work(kernel, inp)
     key = kernel.replace("_long", "")
@@ -369,18 +418,20 @@ def work(kernel, inp):
         return 2 * len(inp["pq"]) * nn, 0.0
     model = key.split("_")[0]
     win = 2 * WINDOW_FMAS[model] + CELL_FLOPS
-    flops = 0.0
+    flops = live = 0.0
     for n, d, lanes in _live_cells(inp["ns"].tolist()):
+        live += 4.0 * float(lanes.sum())
         if key.endswith("inside"):
             # ext: d + 1 FMAs, s2: d - 1, per cell
             flops += float((lanes * (win + 4.0 * d)).sum())
         else:
-            # pm: n - 2 - d FMAs per cell; sa, sbc: i terms at lane i
-            flops += float((lanes * (win + 2.0 * np.maximum(n - 2 - d, 0))
+            # pm: n - 2 - d - i FMAs at lane i; sa, sbc: i terms at lane i
+            flops += float((lanes * win
+                            + (lanes - 1) * np.maximum(lanes - 2, 0)
                             + 2.0 * lanes * (lanes - 1)).sum())
-    tables = {"contra_inside": 9 + 3, "contra_outside": 11 + 1,
-              "turner_inside": 18 + 3, "turner_outside": 20 + 1}[key]
-    return tables * nn, flops
+    ins, outs = {"contra_inside": (9, 3), "contra_outside": (11, 1),
+                 "turner_inside": (18, 3), "turner_outside": (20, 1)}[key]
+    return ins * (live if kernel in LIVE_ONLY else nn) + outs * nn, flops
 
 
 def log_work(kernel, inp):
@@ -407,6 +458,21 @@ def log_work(kernel, inp):
             ops += float((lanes * (win * cells + per_s * (n - 1 - d) + cell)
                           + per_t * lanes * (lanes - 1) / 2).sum())
     return nbytes, ops
+
+
+def reread_ms(kernel, inp):
+    """K8's or K9's HBM re-read floor in ms: the bytes its O(d) sums load
+    on this run's live cells, at the HBM rate, as if the L2 kept none of
+    them (inside: 16 B a bifurcation term t >= 1; outside: 8 B a pm term,
+    12 B an sa/sbc term)."""
+    nbytes = 0.0
+    for n, d, lanes in _live_cells(inp["ns"].tolist()):
+        if kernel == "contra_inside_long":
+            nbytes += 16.0 * float((lanes * np.maximum(d - 1, 0)).sum())
+        else:
+            nbytes += float((4.0 * (lanes - 1) * np.maximum(lanes - 2, 0)
+                             + 6.0 * lanes * (lanes - 1)).sum())
+    return nbytes / PEAK_BYTES_PER_S * 1e3
 
 
 def bound(kernel, inp):
@@ -762,7 +828,10 @@ def durbin_paths(dsets, aligners, counted, counts, path_kernels, smi):
             plain = aligners[mode].match_probs_pairs(seqs, pairs)
         pwall = time.perf_counter() - t0
         worst = 0.0
-        for (a, b), g, w in zip(pairs, got, plain):
+        if list(got) != pairs or list(plain) != pairs:
+            raise AssertionError(f"{label}: the keys are not the pairs")
+        for (a, b) in pairs:
+            g, w = got[(a, b)], plain[(a, b)]
             if not (g.shape == (len(seqs[a]), len(seqs[b]))
                     and np.isfinite(g).all() and (g >= -1e-3).all()
                     and (g < 1.001).all()):
@@ -1162,9 +1231,12 @@ def main():
         check_model(kernel_inputs(N, B, seed=N + B, device=dev))
         check_model(turner_inputs(N, B, seed=N + B + 1, device=dev))
     builders = {"contra": kernel_inputs, "turner": turner_inputs}
+    clusters = {}   # K8/K9 -> shape -> blocks per sequence
     for model, shapes in LONG_CHECK.items():
         for N, B in shapes:
-            print(f"check {model} N={N} B={B}")
+            note = (f", {cluster_sizes(N, B, clusters)}" if model == "contra"
+                    else "")
+            print(f"check {model} N={N} B={B}{note}")
             check_model(builders[model](N, B, seed=N + B, device=dev))
     trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
     dsets = durbin_sets(trnas)
@@ -1181,8 +1253,12 @@ def main():
         pms = cuda_ms(lambda: plain(*args), preps)
         bms, by = bound(kernel, x)
         times[key or kernel][f"N{N}_B{B}"] = (ms, pms, bms, by, None)
+        note = ""
+        if kernel in LIVE_ONLY:
+            note = (f", HBM re-read floor {reread_ms(kernel, x):.4f} ms, "
+                    f"{cluster_sizes(N, B, clusters)}")
         print(f"time N={N} B={B} {kernel}: kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms, bound {bms:.4f} ms ({by})")
+              f"{pms:.4f} ms, bound {bms:.4f} ms ({by}){note}")
 
     for N, B in SHAPES_MAIN:
         inp = kernel_inputs(N, B, seed=7 * N, device=dev)
@@ -1309,6 +1385,13 @@ def main():
             peak = torch.cuda.max_memory_allocated() / 2**30
             runs = counts[key][ik]
             retries = runs - 1 - (N > 512)
+            if model == "contra":
+                # the run's shape, and past 512 the prefix seed's (N / 2)
+                shapes = [(N, len(seqs))] + ([(N // 2, len(seqs))]
+                                             if N > 512 else [])
+                print(f"  {key}: " + "; ".join(
+                    f"N={n_} B={b_} {cluster_sizes(n_, b_, clusters)}"
+                    for n_, b_ in shapes))
             t0 = time.perf_counter()
             with plain_kernels(), recorded_ln_sigma() as ls_p:
                 plain = engine.fold_batch(seqs)
@@ -1467,6 +1550,8 @@ def main():
         }
         if k in rel:
             entry["max_rel_err"] = rel[k]
+        if k in clusters:
+            entry["cluster_by_shape"] = clusters[k]
         if k == "skew":
             entry["library_ms_by_shape"] = {s: v[4]
                                             for s, v in by_shape.items()}

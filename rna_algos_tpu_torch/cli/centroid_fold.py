@@ -19,7 +19,7 @@ from ..utils.output import _fmt, fold_str
 
 from ..models.centroid import DEFAULT_GAMMAS, mea_fill_gammas, traceback
 from ..parallel.runner import FoldEngine, pick_bucket
-from .common import add_port_flags
+from .common import add_port_flags, numerics_of
 
 
 def build_parser():
@@ -61,7 +61,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     records = read_fasta(args.i)
     engine = FoldEngine(uses_contra_model=args.c, device=args.device,
-                        numerics=args.numerics or "exact")
+                        numerics=numerics_of(args))
     if args.bpp_cache:
         from ..utils.checkpoint import BppStore, cached_fold_batch
 

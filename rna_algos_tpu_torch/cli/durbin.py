@@ -4,8 +4,8 @@ Same flags and output bytes as the JAX CLI, plus ``--device``.  Every
 unordered record pair (i < j) is scored (bin/durbin_algo.rs:58-63); the
 sequences get PSEUDO_BASE sentinels at both ends (:49-50); the triples
 subtract the sentinel offset and keep only p > 0 (:76-89), row-major like
-the reference's dense matrix walk.  ``--numerics exact`` (default) and
-``fast`` run kernel K14 (scaled probabilities), ``parity`` runs K15 (log
+the reference's dense matrix walk.  ``--numerics exact`` and ``fast`` run
+kernel K14 (scaled probabilities), ``parity`` runs K15 (log
 space with the reference's cubic log-add).
 """
 
@@ -18,6 +18,7 @@ from ..constants import PSEUDO_BASE
 from ..parallel.runner import AlignEngine
 from ..utils.io import read_fasta
 from ..utils.output import probs2str_arrays
+from .common import add_numerics_flag, numerics_of
 
 HEADER = (
     "# Format = >{RNA sequence id 1},{RNA sequence id 2} {line break} "
@@ -32,11 +33,9 @@ def build_parser():
     p.add_argument("-i", required=True, help="input FASTA file path")
     p.add_argument("-o", required=True, help="output file path")
     p.add_argument("-t", type=int, default=None, help="worker hint (compat)")
-    p.add_argument(
-        "--numerics", choices=("exact", "parity", "fast"), default="exact",
-        help="exact (default) and fast run the probability-space kernel "
-        "K14; parity runs the log-space kernel K15 with the reference's cubics",
-    )
+    add_numerics_flag(
+        p, "exact and fast run the probability-space kernel K14; parity "
+        "runs the log-space kernel K15 with the reference's cubics")
     p.add_argument(
         "--device", default="cuda",
         help="torch device to align on (default cuda; no fallback to the CPU)",
@@ -54,10 +53,11 @@ def main(argv=None):
     pairs = [
         (i, j) for i in range(len(records)) for j in range(i + 1, len(records))
     ]
-    engine = AlignEngine(device=args.device, numerics=args.numerics)
+    engine = AlignEngine(device=args.device, numerics=numerics_of(args))
     probs = engine.match_probs_pairs(wrapped, pairs)
     parts = [HEADER]
-    for (a, b), mat in zip(pairs, probs):
+    for (a, b) in pairs:
+        mat = probs[(a, b)]
         iv, jv = np.nonzero(mat > 0.0)  # row-major, like the reference walk
         parts.append(
             f"\n\n>{a},{b}\n"

@@ -14,7 +14,7 @@ from ..utils.io import read_fasta
 from ..utils.output import probs2str_arrays
 
 from ..parallel.runner import FoldEngine
-from .common import add_port_flags
+from .common import add_port_flags, numerics_of
 
 HEADER = (
     "# Format = >{RNA sequence id} {line break} {basepairing left nucleotide}, "
@@ -38,7 +38,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     records = read_fasta(args.i)
     engine = FoldEngine(uses_contra_model=args.c, device=args.device,
-                        numerics=args.numerics or "exact")
+                        numerics=numerics_of(args))
     results = engine.fold_batch([r.seq for r in records])
     parts = [HEADER]
     for rna_id, (bpp, presence) in enumerate(results):

@@ -9,8 +9,8 @@
 // (_contra_inside_prob_kernel).  The TPU kernels differ only in how they
 // fit VMEM (G sequences stacked along sublanes; R-row table chunks with
 // the DP state resident across grid steps); here the tables and the
-// histories are read where they lie in global memory, so one kernel serves
-// both tiers.  Inputs are the merged [d, i] tables of
+// histories are read where they lie in global memory.  Inputs are the
+// merged [d, i] tables of
 // contra_prob_mats_merged (CANON, the sigma span powers and the
 // special-cell LEN factors folded in), so for pair (i, j = i + d):
 //
@@ -24,30 +24,45 @@
 //   one  = rmmb + s1 + s2
 //
 // with c(s, l) = close*JB of span s at lane l, the window-buffer rows.
-// The window loop, the rm/rmmb update and the bifurcation sums are the
-// helpers of common.cuh that K4/K12 (turner_inside.cu) share.
+// The window loop, the rm/rmmb update and K1's bifurcation sums are the
+// helpers of common.cuh that K4/K12 (turner_inside.cu) share; K8's close
+// and its share of the sums are cluster.cuh's.
 //
-// Bound: the latency of n dependent spans, each ending in __syncthreads
-// because span d reads lanes of earlier spans, and within a span the O(d)
-// bifurcation sums, four loads a term, walked serially by each lane's
-// thread (at n = 2000 a thread of the N = 2048 launch walks ~2 x 10^6
-// terms per pass).  The FLOPs (~0.7 n^3) and the bytes (each table read
-// once) bound it far lower.  Design (launch.cuh): one block per sequence
-// (the TPU's sequence stacking becomes the grid), one thread per lane up
-// to N = 1024 and two strided lanes a thread at 2048, the whole span loop
-// inside the block, in a narrow (N <= 256) and a wide entry kernel.  The
-// 2-loop window is a 32-slot ring of inserted rows c(s, .) (slot s & 31),
-// in shared memory up to N = 1024 and in a global scratch at 2048, contracted in FP32 with FMA against the per-sequence
-// 32 x 32 banded matrix in shared memory; the TPU's SIGL aging pass is
-// unnecessary because the matrix already carries each cell's sigma power.
-// The rm/rmmb histories and the ext/one tables stay in global memory and
-// are read coalesced along anti-diagonals.  Buffers this kernel writes are
-// never read through the read-only path.  Rows at or past n are never
-// written: the wrapper passes zeroed outputs.  The lever for a later
-// change: several blocks per sequence (a cluster with the ring in
-// distributed shared memory) to use more than B of the 132 SMs, and a
-// blocked form of the bifurcation sums.
+// K1 (N <= 256): one block per sequence, one thread per lane, the whole
+// span loop inside the block (launch.cuh's narrow entry), bound by the
+// latency of n dependent spans, each ending in __syncthreads because span
+// d reads lanes of earlier spans.  The 2-loop window is a 32-slot ring of
+// inserted rows c(s, .) (slot s & 31) in shared memory, contracted in FP32
+// with FMA against the per-sequence 32 x 32 banded matrix in shared
+// memory; the TPU's SIGL aging pass is unnecessary because the matrix
+// already carries each cell's sigma power.  The rm/rmmb histories and the
+// ext/one tables stay in global memory and are read coalesced along
+// anti-diagonals.  Buffers this kernel writes are never read through the
+// read-only path.  Rows at or past n are never written: the wrapper passes
+// zeroed outputs.
+//
+// K8 (N = 512, 1024, 2048): a cluster of C blocks per sequence
+// (cluster.cuh; C = 16 at N = 2048 B = 8).  What bounds it: each span's
+// bifurcation sums re-read the history triangle of the spans before it,
+// four loads a term, ~16 B x n^3 / 6 per sequence (~10 GB at n = 1,550),
+// with little reuse once a batch's histories outgrow the 50 MB L2; the
+// FLOPs (~0.7 n^3) and the bytes of one pass over the tables bound it far
+// lower.  One block per sequence kept that re-read to B SMs and walked
+// each lane's O(d) terms on one thread (~1 load in flight a thread).  Here
+// each block owns N / C lanes, in chunks interleaved over the cluster so
+// that every span's live lanes spread over all its blocks; only live cells
+// (i + d < n) are computed, and a dead cell stays the zero the wrapper
+// passes (nothing downstream reads one: tests/test_torch_long_deadcells.py);
+// each live lane's terms t >= 1 are spread over the block's threads that
+// lanes leave idle (rna_cl_part), RNA_CL_BATCH_INSIDE terms' loads at a time,
+// and their parts summed in a fixed order by the lane's owner thread.  The
+// window ring keeps 32 slots of, per chunk, its lanes and the next chunk's
+// first 32 (written by that chunk's block through distributed shared
+// memory); a span's row is inserted at the start of the next span, into
+// the slot of span d - 33 that no lane reads then, so one cluster barrier
+// a span suffices.  s1 and s2 rows by span & 3 with one halo lane a chunk.
 
+#include "cluster.cuh"
 #include "launch.cuh"
 
 #define CONTRA_INSIDE_PARAMS                                                \
@@ -58,26 +73,23 @@
       const float *__restrict__ JB, const float *__restrict__ KW,           \
       const float *__restrict__ scal, const int *__restrict__ ns,           \
       float *close, float *ext, float *one, float *rm_hist,                 \
-      float *rmm_hist, float *ring_g, int N, int smem_ring
+      float *rmm_hist, int N
 #define CONTRA_INSIDE_ARGS                                                  \
   H, MBC, ACC, JS, STK, I11, B0R, B0L, JB, KW, scal, ns, close, ext, one,   \
-      rm_hist, rmm_hist, ring_g, N, smem_ring
+      rm_hist, rmm_hist, N
 
-template <int LPT, bool WIDE>
-__device__ __forceinline__ void contra_inside_body(CONTRA_INSIDE_PARAMS) {
+__global__ void contra_inside_kernel(CONTRA_INSIDE_PARAMS) {
   extern __shared__ float smem[];
   const int LW = N + 33;                  // ring row: N lanes + window pad
   const int b = blockIdx.x;
-  // narrow: ring | kw | s2r | s1r; wide: kw | s2r | s1r [| ring]
-  float* kw = WIDE ? smem : smem + RNA_WIN * LW;   // 32 * 32
+  // ring | kw | s2r | s1r
+  float* kw = smem + RNA_WIN * LW;        // 32 * 32
   float* s2r = kw + RNA_WIN * RNA_WIN;    // 2 * (N + 1), by span parity
   float* s1r = s2r + 2 * (N + 1);         // 2 * (N + 1), by span parity
-  float* ring = WIDE ? rna_rings(s1r + 2 * (N + 1), ring_g, b,
-                                 (long long)RNA_WIN * LW, smem_ring)
-                     : smem;              // RNA_WIN * LW
+  float* ring = smem;                     // RNA_WIN * LW
 
   const int tid = threadIdx.x;
-  const int T = WIDE ? blockDim.x : N;   // narrow: one thread per lane
+  const int T = N;                        // one thread per lane
   const long long base = (long long)b * N * N;
 
   for (int e = tid; e < RNA_WIN * LW; e += T) ring[e] = 0.0f;
@@ -91,13 +103,12 @@ __device__ __forceinline__ void contra_inside_body(CONTRA_INSIDE_PARAMS) {
   const int n = ns[b];
   __syncthreads();
 
-  RnaInsideLane st[LPT];
-  float c[LPT];
+  RnaInsideLane st;
+  float c;
+  const int i = tid;
   for (int d = 0; d < n; ++d) {
     // phase A: close from the window ring and the s2 ring (spans < d)
-#pragma unroll
-    for (int k = 0; k < LPT; ++k) {
-      const int i = tid + k * T;
+    {
       const long long row = base + (long long)d * N + i;
       const float win = rna_window_inside(ring, kw, 0, d, i, LW);
       float two = JS[row] * win;
@@ -105,33 +116,125 @@ __device__ __forceinline__ void contra_inside_body(CONTRA_INSIDE_PARAMS) {
       two = two + B0R[row] * ring[((d - 3) & (RNA_WIN - 1)) * LW + i + 1];
       two = two + B0L[row] * ring[((d - 3) & (RNA_WIN - 1)) * LW + i + 2];
       two = two + I11[row] * ring[((d - 4) & (RNA_WIN - 1)) * LW + i + 2];
-      c[k] = rna_inside_close(H[row] + two, MBC, ACC, s2r, s, row, d, i, N,
-                              st[k], close, rm_hist, rmm_hist);
+      c = rna_inside_close(H[row] + two, MBC, ACC, s2r, s, row, d, i, N, st,
+                           close, rm_hist, rmm_hist);
     }
     __syncthreads();
 
     // phase B: insert this span into the ring; bifurcation sums over the
     // rm/rmmb rows of spans <= d (all lanes now visible)
-#pragma unroll
-    for (int k = 0; k < LPT; ++k) {
-      const int i = tid + k * T;
+    {
       const long long row = base + (long long)d * N + i;
-      ring[(d & (RNA_WIN - 1)) * LW + i] = c[k] * JB[row];
-      rna_inside_bifurcation(st[k], s.mbu1, base, row, d, i, N, ext, one,
+      ring[(d & (RNA_WIN - 1)) * LW + i] = c * JB[row];
+      rna_inside_bifurcation(st, s.mbu1, base, row, d, i, N, ext, one,
                              rm_hist, rmm_hist, s1r, s2r);
     }
     __syncthreads();
   }
 }
 
-__global__ void contra_inside_kernel(CONTRA_INSIDE_PARAMS) {
-  contra_inside_body<1, false>(CONTRA_INSIDE_ARGS);
+// K8's shared memory at L lanes a block: kw | ring, 32 rows of L / G
+// segments of G + 32 lanes | s2r, s1r, 4 rows of L / G segments of G + 1
+// lanes each | the es and s2 parts, one a thread each.
+static size_t contra_inside_cl_smem(int L) {
+  const int segs = L / rna_cl_chunk(L);
+  return sizeof(float) * (RNA_WIN * RNA_WIN + RNA_WIN * (L + 32 * segs) +
+                          8 * (L + segs) + 2 * RNA_CL_THREADS);
 }
 
-template <int LPT>
-__global__ void __launch_bounds__(RNA_MAX_THREADS)
-    contra_inside_wide_kernel(CONTRA_INSIDE_PARAMS) {
-  contra_inside_body<LPT, true>(CONTRA_INSIDE_ARGS);
+__global__ void __launch_bounds__(RNA_CL_THREADS)
+    contra_inside_cluster_kernel(CONTRA_INSIDE_PARAMS) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int L = N / C;
+  const RnaClLayout y = {C, (int)cluster.block_rank(), L, rna_cl_chunk(L)};
+  const int b = blockIdx.x / C;
+  const int SW = y.G + 32;           // ring segment: a chunk + the next 32
+  const int LW = L / y.G * SW;       // ring row
+  const int TW = L / y.G * (y.G + 1);  // s1/s2 row: a chunk + the next one
+  float* kw = smem;                        // 32 * 32
+  float* ring = kw + RNA_WIN * RNA_WIN;    // RNA_WIN * LW, slot s & 31
+  float* s2r = ring + RNA_WIN * LW;        // 4 * TW, row s & 3
+  float* s1r = s2r + 4 * TW;               // 4 * TW, row s & 3
+  float* part = s1r + 4 * TW;              // es | s2, RNA_CL_THREADS each
+
+  const int tid = threadIdx.x;
+  const long long base = (long long)b * N * N;
+  for (int e = tid; e < RNA_WIN * LW + 8 * TW; e += RNA_CL_THREADS)
+    ring[e] = 0.0f;                        // ring, s2r and s1r
+  for (int e = tid; e < RNA_WIN * RNA_WIN; e += RNA_CL_THREADS)
+    kw[e] = KW[(long long)b * RNA_WIN * RNA_WIN + e];
+  const RnaScalars s = rna_scalars(scal + b * RNA_SCAL);
+  const int n = ns[b];
+
+  // the lane this thread owns (if il < L), its ring and s1/s2 columns, and
+  // where its chunk is the halo of the chunk below
+  const int il = tid, q = il / y.G, p = il % y.G;
+  const int i = y.lane(il);
+  const int col = q * SW + p, tcol = q * (y.G + 1) + p;
+  int lo_rank = 0, lo_q = 0;
+  const bool lo = il < L && y.next_chunk(q, -1, N, lo_rank, lo_q);
+  float* lo_ring = lo ? cluster.map_shared_rank(ring, lo_rank) : nullptr;
+  float* lo_s2r = lo ? cluster.map_shared_rank(s2r, lo_rank) : nullptr;
+  float* lo_s1r = lo ? cluster.map_shared_rank(s1r, lo_rank) : nullptr;
+  const int lo_col = lo_q * SW + y.G + p, lo_tcol = lo_q * (y.G + 1) + y.G;
+  cluster.sync();   // every block zeroed before the first halo write
+
+  RnaInsideLane st;
+  float ins = 0.0f;     // c * JB of the span before, for the ring
+  for (int d = 0; d < n; ++d) {
+    if (d >= 1 && il < y.live(n, d - 1)) {
+      const int slot = ((d - 1) & (RNA_WIN - 1)) * LW;
+      ring[slot + col] = ins;
+      if (lo && p < 32) lo_ring[slot + lo_col] = ins;
+    }
+    const int m = y.live(n, d);
+    const RnaClPart pt = rna_cl_part(m, tid);
+    if (pt.p < pt.k) {
+      float es = 0.0f, s2 = 0.0f;
+      if (pt.ll < m)
+        rna_cl_bifurcation_part(base, d, y.lane(pt.ll), N, 1 + pt.p, pt.k,
+                                ext, one, rm_hist, rmm_hist, es, s2);
+      part[tid] = es;
+      part[RNA_CL_THREADS + tid] = s2;
+    }
+    const long long row = base + (long long)d * N + i;
+    if (il < m) {
+      const float win = rna_window_inside(ring, kw, 0, d, col, LW);
+      float two = JS[row] * win;
+      two = two + STK[row] * ring[((d - 2) & (RNA_WIN - 1)) * LW + col + 1];
+      two = two + B0R[row] * ring[((d - 3) & (RNA_WIN - 1)) * LW + col + 1];
+      two = two + B0L[row] * ring[((d - 3) & (RNA_WIN - 1)) * LW + col + 2];
+      two = two + I11[row] * ring[((d - 4) & (RNA_WIN - 1)) * LW + col + 2];
+      const float s2_prev = d >= 2 ? s2r[((d - 2) & 3) * TW + tcol + 1] : 0.0f;
+      const float c = rna_cl_inside_close(H[row] + two, s2_prev, MBC, ACC, s,
+                                          row, d, st, close, rm_hist,
+                                          rmm_hist);
+      ins = c * JB[row];
+    }
+    __syncthreads();
+    if (il < m) {
+      // term t = 0: rm(d, i) * ext(-1, i) = rm(d, i)
+      float es = st.rm, s2 = 0.0f;
+      for (int k = 0; k < pt.k; ++k) {
+        es += part[k * pt.m32 + il];
+        s2 += part[RNA_CL_THREADS + k * pt.m32 + il];
+      }
+      const float rmm_nb =
+          (d >= 1 && i + 1 < N) ? __ldcg(rmm_hist + row - N + 1) : 0.0f;
+      const float s1v = s.mbu1 * (rmm_nb + s1r[((d - 1) & 3) * TW + tcol + 1]);
+      s1r[(d & 3) * TW + tcol] = s1v;
+      s2r[(d & 3) * TW + tcol] = s2;
+      if (lo && p == 0) {
+        lo_s1r[(d & 3) * TW + lo_tcol] = s1v;
+        lo_s2r[(d & 3) * TW + lo_tcol] = s2;
+      }
+      ext[row] = st.epow + es;
+      one[row] = st.rmmb + s1v + s2;
+    }
+    cluster.sync();
+  }
 }
 
 extern "C" int rna_contra_inside(
@@ -139,18 +242,23 @@ extern "C" int rna_contra_inside(
     const float* STK, const float* I11, const float* B0R, const float* B0L,
     const float* JB, const float* KW, const float* scal, const int* ns,
     float* close, float* ext, float* one, float* rm_hist, float* rmm_hist,
-    float* ring_g, int B, int N, void* stream) {
+    int B, int N, void* stream) {
   if (!rna_shape_ok(N)) return (int)cudaErrorInvalidValue;
-  const size_t fixed = sizeof(float) * (RNA_WIN * RNA_WIN + 4 * (N + 1));
-  const size_t ring = sizeof(float) * RNA_WIN * (N + 33);
-  int smem_ring = 1;
-  if (N <= RNA_NARROW)
-    return rna_launch(contra_inside_kernel, B, N, fixed + ring, stream,
+  if (N <= RNA_NARROW) {
+    const size_t shmem = sizeof(float) * (RNA_WIN * RNA_WIN + 4 * (N + 1) +
+                                          RNA_WIN * (N + 33));
+    return rna_launch(contra_inside_kernel, B, N, shmem, stream,
                       CONTRA_INSIDE_ARGS);
-  const size_t shmem = rna_smem(fixed, ring, &smem_ring);
-  if (N <= RNA_MAX_THREADS)
-    return rna_launch(contra_inside_wide_kernel<1>, B, N, shmem, stream,
-                      CONTRA_INSIDE_ARGS);
-  return rna_launch(contra_inside_wide_kernel<RNA_MAX_LPT>, B,
-                    RNA_MAX_THREADS, shmem, stream, CONTRA_INSIDE_ARGS);
+  }
+  const int C = rna_cl_size(contra_inside_cluster_kernel,
+                            contra_inside_cl_smem, B, N);
+  return rna_cl_launch(contra_inside_cluster_kernel, B, C,
+                       C ? contra_inside_cl_smem(N / C) : 0, stream,
+                       CONTRA_INSIDE_ARGS);
+}
+
+// The cluster size K8 takes for B sequences at N (0: none launches).
+extern "C" int rna_contra_inside_cluster(int B, int N) {
+  return rna_cl_size(contra_inside_cluster_kernel, contra_inside_cl_smem, B,
+                     N);
 }

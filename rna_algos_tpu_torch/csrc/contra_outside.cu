@@ -28,17 +28,30 @@
 // VMEM; here one(t-1, j+1) and ext(j+1, n-1) are indexed directly in the
 // inside outputs.  The window loop, base, pm, pm2, qa and the multibranch
 // context are the helpers of common.cuh that K5/K13 (turner_outside.cu)
-// share.
+// share; K9's share of the sums and its bppo are cluster.cuh's.
 //
-// Bound and design as K1/K8 (contra_inside.cu): the latency of n dependent
-// spans and each lane's serial O(n) multibranch sums (pm over one column,
-// sa/sbc over one anti-diagonal: five loads a term); one block per
-// sequence, lanes strided (launch.cuh), the g2 window as a 32-slot ring
-// (lanes offset by 32 so i-1-a never goes negative) in shared memory up to
-// N = 1024 and in global memory at 2048, contracted in FP32 against the
-// per-sequence banded matrix, the pm/pm2/g histories in global memory.
-// Rows at or past n stay the zeros the wrapper passes.
+// K2 (N <= 256): bound and design as K1 (contra_inside.cu): the latency of
+// n dependent spans and each lane's serial O(n) multibranch sums (pm over
+// one column, sa/sbc over one anti-diagonal: five loads a term); one block
+// per sequence, one thread per lane, the g2 window as a 32-slot ring
+// (lanes offset by 32 so i-1-a never goes negative) in shared memory,
+// contracted in FP32 against the per-sequence banded matrix, the pm/pm2/g
+// histories in global memory.  Rows at or past n stay the zeros the
+// wrapper passes.
+//
+// K9 (N = 512, 1024, 2048): a cluster of C blocks per sequence, as K8
+// (cluster.cuh, contra_inside.cu): each block owns N / C lanes in chunks
+// interleaved over the cluster and computes their live cells only (a dead
+// cell's bppo stays 0; its g, pm and pm2 are never read); each live lane's
+// pm, sa and sbc terms are spread over the block's idle threads and their
+// parts summed by the lane's owner.  The ring holds 32 slots of, per
+// chunk, the chunk below's last 32 lanes (written by that chunk's block
+// through distributed shared memory) and its own; span d + 1's row is
+// inserted at the start of span d, into the slot of span d + 33, which no
+// lane reads then; qa's rows by span parity with one halo lane a chunk.
+// One cluster barrier a span.
 
+#include "cluster.cuh"
 #include "launch.cuh"
 
 #define CONTRA_OUTSIDE_PARAMS                                               \
@@ -50,27 +63,23 @@
       const float *__restrict__ QONE, const float *__restrict__ EXTR,       \
       const float *__restrict__ B0LO, const float *__restrict__ KW,         \
       const float *__restrict__ scal, const int *__restrict__ ns,           \
-      float *bppo, float *pm_hist, float *pm2_hist, float *g_hist,          \
-      float *ring_g, int N, int min_span, int smem_ring
+      float *bppo, float *pm_hist, float *pm2_hist, float *g_hist, int N,   \
+      int min_span
 #define CONTRA_OUTSIDE_ARGS                                                 \
   CLOSE, MBC, ACCB, ACCMB, STKO, I11O, B0RO, JRB, JSN, ONE, QONE, EXTR,     \
-      B0LO, KW, scal, ns, bppo, pm_hist, pm2_hist, g_hist, ring_g, N,       \
-      min_span, smem_ring
+      B0LO, KW, scal, ns, bppo, pm_hist, pm2_hist, g_hist, N, min_span
 
-template <int LPT, bool WIDE>
-__device__ __forceinline__ void contra_outside_body(CONTRA_OUTSIDE_PARAMS) {
+__global__ void contra_outside_kernel(CONTRA_OUTSIDE_PARAMS) {
   extern __shared__ float smem[];
   const int LW = N + 32;                  // ring row: 32 pad lanes + N
   const int b = blockIdx.x;
-  // narrow: ring | kw | qab; wide: kw | qab [| ring]
-  float* kw = WIDE ? smem : smem + RNA_WIN * LW;   // 32 * 32
+  // ring | kw | qab
+  float* kw = smem + RNA_WIN * LW;        // 32 * 32
   float* qab = kw + RNA_WIN * RNA_WIN;    // 2 * N, by span parity
-  float* ring = WIDE ? rna_rings(qab + 2 * N, ring_g, b,
-                                 (long long)RNA_WIN * (N + 33), smem_ring)
-                     : smem;              // RNA_WIN * LW
+  float* ring = smem;                     // RNA_WIN * LW
 
   const int tid = threadIdx.x;
-  const int T = WIDE ? blockDim.x : N;   // narrow: one thread per lane
+  const int T = N;                        // one thread per lane
   const long long base = (long long)b * N * N;
 
   for (int e = tid; e < RNA_WIN * LW; e += T) ring[e] = 0.0f;
@@ -79,21 +88,16 @@ __device__ __forceinline__ void contra_outside_body(CONTRA_OUTSIDE_PARAMS) {
   for (int e = tid; e < 2 * N; e += T) qab[e] = 0.0f;
   const float mbu1 = scal[b * RNA_SCAL + 2];
   const int n = ns[b];
-  float b0lo[LPT], p2prev[LPT], g2[LPT];
-#pragma unroll
-  for (int k = 0; k < LPT; ++k) {
-    b0lo[k] = B0LO[(long long)b * N + tid + k * T];
-    p2prev[k] = 0.0f;
-  }
+  const int i = tid;
+  const float b0lo = B0LO[(long long)b * N + i];
+  float p2prev = 0.0f, g2;
   __syncthreads();
 
   for (int d = n - 1; d >= 0; --d) {
     const bool span_ok = d + 1 >= min_span;
 
     // phase A: everything but the ring insert (reads spans > d only)
-#pragma unroll
-    for (int k = 0; k < LPT; ++k) {
-      const int i = tid + k * T;
+    {
       const long long row = base + (long long)d * N + i;
       const RnaOutsidePair p =
           rna_outside_pair(CLOSE, ACCB, EXTR, row, b, i, d, N);
@@ -102,31 +106,120 @@ __device__ __forceinline__ void contra_outside_body(CONTRA_OUTSIDE_PARAMS) {
       float two = jrb * win;
       two = two + STKO[row] * ring[((d + 2) & (RNA_WIN - 1)) * LW + 31 + i];
       two = two + B0RO[row] * ring[((d + 3) & (RNA_WIN - 1)) * LW + 31 + i];
-      two = two +
-            jrb * b0lo[k] * ring[((d + 3) & (RNA_WIN - 1)) * LW + 30 + i];
+      two = two + jrb * b0lo * ring[((d + 3) & (RNA_WIN - 1)) * LW + 30 + i];
       two = two + I11O[row] * ring[((d + 4) & (RNA_WIN - 1)) * LW + 30 + i];
-      g2[k] = rna_outside_bppo(p, two * p.c, span_ok, mbu1, p2prev[k], ACCMB,
-                               MBC, JSN, ONE, QONE, base, row, d, i, n, N,
-                               bppo, pm_hist, pm2_hist, g_hist, qab);
+      g2 = rna_outside_bppo(p, two * p.c, span_ok, mbu1, p2prev, ACCMB, MBC,
+                            JSN, ONE, QONE, base, row, d, i, n, N, bppo,
+                            pm_hist, pm2_hist, g_hist, qab);
     }
     __syncthreads();
 
     // phase B: insert g2 (its slot held span d + 32, read above)
-#pragma unroll
-    for (int k = 0; k < LPT; ++k)
-      ring[(d & (RNA_WIN - 1)) * LW + 32 + tid + k * T] = g2[k];
+    ring[(d & (RNA_WIN - 1)) * LW + 32 + i] = g2;
     __syncthreads();
   }
 }
 
-__global__ void contra_outside_kernel(CONTRA_OUTSIDE_PARAMS) {
-  contra_outside_body<1, false>(CONTRA_OUTSIDE_ARGS);
+// K9's shared memory at L lanes a block: kw | ring, 32 rows of L / G
+// segments of 32 + G lanes | qab, 2 rows of L / G segments of 1 + G lanes
+// | the pm, sa and sbc parts, one a thread each.
+static size_t contra_outside_cl_smem(int L) {
+  const int segs = L / rna_cl_chunk(L);
+  return sizeof(float) * (RNA_WIN * RNA_WIN + RNA_WIN * (L + 32 * segs) +
+                          2 * (L + segs) + 3 * RNA_CL_THREADS);
 }
 
-template <int LPT>
-__global__ void __launch_bounds__(RNA_MAX_THREADS)
-    contra_outside_wide_kernel(CONTRA_OUTSIDE_PARAMS) {
-  contra_outside_body<LPT, true>(CONTRA_OUTSIDE_ARGS);
+__global__ void __launch_bounds__(RNA_CL_THREADS)
+    contra_outside_cluster_kernel(CONTRA_OUTSIDE_PARAMS) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int L = N / C;
+  const RnaClLayout y = {C, (int)cluster.block_rank(), L, rna_cl_chunk(L)};
+  const int b = blockIdx.x / C;
+  const int SW = 32 + y.G;           // ring segment: the chunk below's last
+                                     // 32 lanes + a chunk
+  const int LW = L / y.G * SW;       // ring row
+  const int TW = L / y.G * (1 + y.G);  // qab row: one lane below + a chunk
+  float* kw = smem;                        // 32 * 32
+  float* ring = kw + RNA_WIN * RNA_WIN;    // RNA_WIN * LW, slot s & 31
+  float* qab = ring + RNA_WIN * LW;        // 2 * TW, row s & 1
+  float* part = qab + 2 * TW;              // pm | sa | sbc
+
+  const int tid = threadIdx.x;
+  const long long base = (long long)b * N * N;
+  for (int e = tid; e < RNA_WIN * LW + 2 * TW; e += RNA_CL_THREADS)
+    ring[e] = 0.0f;                        // ring and qab
+  for (int e = tid; e < RNA_WIN * RNA_WIN; e += RNA_CL_THREADS)
+    kw[e] = KW[(long long)b * RNA_WIN * RNA_WIN + e];
+  const float mbu1 = scal[b * RNA_SCAL + 2];
+  const int n = ns[b];
+
+  // the lane this thread owns (if il < L), its ring and qab columns, and
+  // where its chunk is the halo of the chunk above
+  const int il = tid, q = il / y.G, p = il % y.G;
+  const int i = y.lane(il);
+  const int col = q * SW + 32 + p, qcol = q * (1 + y.G) + 1 + p;
+  int hi_rank = 0, hi_q = 0;
+  const bool hi = il < L && y.next_chunk(q, 1, N, hi_rank, hi_q);
+  float* hi_ring = hi ? cluster.map_shared_rank(ring, hi_rank) : nullptr;
+  float* hi_qab = hi ? cluster.map_shared_rank(qab, hi_rank) : nullptr;
+  const int hi_col = hi_q * SW + p - (y.G - 32), hi_qcol = hi_q * (1 + y.G);
+  const float b0lo = il < L ? B0LO[(long long)b * N + i] : 0.0f;
+  float p2prev = 0.0f, g_prev = 0.0f, g2 = 0.0f;
+  cluster.sync();   // every block zeroed before the first halo write
+
+  for (int d = n - 1; d >= 0; --d) {
+    if (d + 1 < n && il < y.live(n, d + 1)) {
+      const int slot = ((d + 1) & (RNA_WIN - 1)) * LW;
+      ring[slot + col] = g2;
+      if (hi && p >= y.G - 32) hi_ring[slot + hi_col] = g2;
+    }
+    const bool span_ok = d + 1 >= min_span;
+    const int m = y.live(n, d);
+    const RnaClPart pt = rna_cl_part(m, tid);
+    if (pt.p < pt.k) {
+      float pm = 0.0f, sa = 0.0f, sbc = 0.0f;
+      if (pt.ll < m)
+        rna_cl_outside_part(base, d, y.lane(pt.ll), n, N, pt.p, pt.k, ONE,
+                            QONE, g_hist, pm_hist, pm2_hist, pm, sa, sbc);
+      part[tid] = pm;
+      part[RNA_CL_THREADS + tid] = sa;
+      part[2 * RNA_CL_THREADS + tid] = sbc;
+    }
+    const long long row = base + (long long)d * N + i;
+    RnaOutsidePair pr = {};
+    float two = 0.0f;
+    if (il < m) {
+      pr = rna_outside_pair(CLOSE, ACCB, EXTR, row, b, i, d, N);
+      const int w = col - 32;   // the ring helpers' lane: 32 + w - 1 - a
+      const float win = rna_window_outside(ring, kw, 0, d, w, LW);
+      const float jrb = JRB[row];
+      two = jrb * win;
+      two = two + STKO[row] * ring[((d + 2) & (RNA_WIN - 1)) * LW + 31 + w];
+      two = two + B0RO[row] * ring[((d + 3) & (RNA_WIN - 1)) * LW + 31 + w];
+      two = two + jrb * b0lo * ring[((d + 3) & (RNA_WIN - 1)) * LW + 30 + w];
+      two = two + I11O[row] * ring[((d + 4) & (RNA_WIN - 1)) * LW + 30 + w];
+    }
+    __syncthreads();
+    if (il < m) {
+      float pm = 0.0f, sa = 0.0f, sbc = 0.0f;
+      for (int k = 0; k < pt.k; ++k) {
+        pm += part[k * pt.m32 + il];
+        sa += part[RNA_CL_THREADS + k * pt.m32 + il];
+        sbc += part[2 * RNA_CL_THREADS + k * pt.m32 + il];
+      }
+      float qa;
+      g2 = rna_cl_outside_bppo(pr, two * pr.c, span_ok, mbu1, p2prev, g_prev,
+                               pm, sa, sbc,
+                               qab[((d + 1) & 1) * TW + qcol - 1], ACCMB,
+                               MBC, JSN, row, i, N, bppo, pm_hist, pm2_hist,
+                               g_hist, qa);
+      qab[(d & 1) * TW + qcol] = qa;
+      if (hi && p == y.G - 1) hi_qab[(d & 1) * TW + hi_qcol] = qa;
+    }
+    cluster.sync();
+  }
 }
 
 extern "C" int rna_contra_outside(
@@ -135,19 +228,24 @@ extern "C" int rna_contra_outside(
     const float* B0RO, const float* JRB, const float* JSN, const float* ONE,
     const float* QONE, const float* EXTR, const float* B0LO, const float* KW,
     const float* scal, const int* ns, float* bppo, float* pm_hist,
-    float* pm2_hist, float* g_hist, float* ring_g, int B, int N,
-    int min_span, void* stream) {
+    float* pm2_hist, float* g_hist, int B, int N, int min_span,
+    void* stream) {
   if (!rna_shape_ok(N)) return (int)cudaErrorInvalidValue;
-  const size_t fixed = sizeof(float) * (RNA_WIN * RNA_WIN + 2 * N);
-  const size_t ring = sizeof(float) * RNA_WIN * (N + 32);
-  int smem_ring = 1;
-  if (N <= RNA_NARROW)
-    return rna_launch(contra_outside_kernel, B, N, fixed + ring, stream,
+  if (N <= RNA_NARROW) {
+    const size_t shmem = sizeof(float) * (RNA_WIN * RNA_WIN + 2 * N +
+                                          RNA_WIN * (N + 32));
+    return rna_launch(contra_outside_kernel, B, N, shmem, stream,
                       CONTRA_OUTSIDE_ARGS);
-  const size_t shmem = rna_smem(fixed, ring, &smem_ring);
-  if (N <= RNA_MAX_THREADS)
-    return rna_launch(contra_outside_wide_kernel<1>, B, N, shmem, stream,
-                      CONTRA_OUTSIDE_ARGS);
-  return rna_launch(contra_outside_wide_kernel<RNA_MAX_LPT>, B,
-                    RNA_MAX_THREADS, shmem, stream, CONTRA_OUTSIDE_ARGS);
+  }
+  const int C = rna_cl_size(contra_outside_cluster_kernel,
+                            contra_outside_cl_smem, B, N);
+  return rna_cl_launch(contra_outside_cluster_kernel, B, C,
+                       C ? contra_outside_cl_smem(N / C) : 0, stream,
+                       CONTRA_OUTSIDE_ARGS);
+}
+
+// The cluster size K9 takes for B sequences at N (0: none launches).
+extern "C" int rna_contra_outside_cluster(int B, int N) {
+  return rna_cl_size(contra_outside_cluster_kernel, contra_outside_cl_smem,
+                     B, N);
 }

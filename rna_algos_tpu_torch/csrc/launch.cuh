@@ -1,20 +1,21 @@
 // Launch shape of the wavefront kernels (inside and outside, both models)
 // at every N they serve: 32 to 1024 in steps of 32, and 2048 (CONTRA).
+// CONTRA past N = 256 (K8/K9) runs a cluster of blocks per sequence
+// (cluster.cuh); everything else here runs one block per sequence.
 //
-// One block per sequence; a block has at most 1,024 threads, so
-// T = min(N, 1024) threads, each holding LPT = N / T lanes, strided
-// (lane = threadIdx.x + k * T): N = 2048 runs two lanes per thread.  Each
-// kernel's body is one __forceinline__ template behind two entry kernels:
+// A block has at most 1,024 threads, so T = min(N, 1024) threads, each
+// holding LPT = N / T lanes, strided (lane = threadIdx.x + k * T).  Each
+// Turner kernel's body is one __forceinline__ template behind two entry
+// kernels, and each CONTRA source keeps the narrow one:
 //
 // - narrow, N <= 256: no launch bound, so a thread keeps every register
 //   the body wants (Turner's take 80-96), and the window rings first in
 //   dynamic shared memory;
-// - wide, N > 256: __launch_bounds__(1024), a thread held to 64
+// - wide, N > 256 (Turner): __launch_bounds__(1024), a thread held to 64
 //   registers, the rings after the fixed shared arrays where they fit and
 //   in a global scratch (one slice per sequence, L1/L2-resident) where they
-//   do not: a CONTRA ring is 32 x (N + 33) floats, 266 KB at N = 2048;
-//   Turner's four rings are 104 x (N + 33) floats, 227 KB alone at
-//   N = 512.  Either way the body addresses them through one pointer.
+//   do not: Turner's four rings are 104 x (N + 33) floats, 227 KB alone
+//   at N = 512.  Either way the body addresses them through one pointer.
 //
 // ptxas allocates and schedules the two very differently; both are kept
 // as the separate stacked and long kernels had them (PERF.md: the same

@@ -34,8 +34,10 @@ _I = ctypes.c_int
 # is a c_void_p so ctypes never narrows it to a 32-bit int.
 SIGNATURES = {
     "rna_skew": [ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _I, _I, _P],
-    "rna_contra_inside": [_P] * 18 + [_I, _I, _P],
-    "rna_contra_outside": [_P] * 21 + [_I, _I, _I, _P],
+    "rna_contra_inside": [_P] * 17 + [_I, _I, _P],
+    "rna_contra_outside": [_P] * 20 + [_I, _I, _I, _P],
+    "rna_contra_inside_cluster": [_I, _I],
+    "rna_contra_outside_cluster": [_I, _I],
     "rna_turner_inside": [ctypes.POINTER(_P)] + [_P] * 9 + [_I, _I, _P],
     "rna_turner_outside": [ctypes.POINTER(_P)] + [_P] * 11 + [_I, _I, _I, _P],
     "rna_pairhmm_prob": [_P] * 9 + [_I, _I, _I, _P],

@@ -7,9 +7,11 @@ The TPU streamed the score tables through VMEM in R-row chunks and kept
 the DP state resident; none of that carries over.  The maths is that of
 the stacked tier (``pallas_fold_prob8``) at any N: the same merged tables,
 the same outside auxiliaries, the same plain versions (K1's, K2's, K4's and
-K5's) and the same kernels (``csrc/contra_inside.cu`` etc.), which run one
-CUDA block of up to 1,024 threads per sequence, each thread holding
-N / 1024 lanes at N = 2048.  The long wrappers launch them through
+K5's) and the same sources (``csrc/contra_inside.cu`` etc.).  K8 and K9
+run a cluster of C blocks per sequence (``csrc/cluster.cuh``; C from the
+batch, N and the card, ``contra_cluster_sizes``) and compute live cells
+only: a cell with i + d >= n stays 0.  K12 and K13 run one block of 1,024
+threads per sequence.  The long wrappers launch them through
 ``pallas_fold_prob8``'s helpers and count their own launches.
 
 Two things differ from the stacked tier around the kernels, both as in the
@@ -49,6 +51,14 @@ def _check_n(name, N, contra):
     if N not in long_tiers(contra):
         raise ValueError(f"{name}: N = {N} is not a long tier "
                          f"{long_tiers(contra)}")
+
+
+def contra_cluster_sizes(B, N):
+    """(K8's, K9's) cluster size, the blocks a sequence runs on, for a
+    launch over B sequences at N on the current CUDA device."""
+    lib = _build.library().lib
+    return (lib.rna_contra_inside_cluster(B, N),
+            lib.rna_contra_outside_cluster(B, N))
 
 
 def contra_inside_long(mi, KW, scal, ns):

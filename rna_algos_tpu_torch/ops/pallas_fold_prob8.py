@@ -6,9 +6,10 @@ and the fixed-scale runs wrapped in the rescale-retry loop.
 The TPU stacked G sequences along sublanes and aged a lane-major window;
 none of that layout is carried over.  Here each kernel runs one CUDA block
 per sequence (``csrc/contra_inside.cu``, ``csrc/contra_outside.cu``,
-``csrc/turner_inside.cu``, ``csrc/turner_outside.cu``; the long tier's K8,
-K9, K12 and K13 are the same kernels at N > 256, launched through the
-helpers below by ``pallas_fold_long``).  The plain versions
+``csrc/turner_inside.cu``, ``csrc/turner_outside.cu``; the long tier's K8
+and K9, a cluster of blocks per sequence, and K12 and K13 are entries of the
+same sources past N = 256, launched through the helpers below by
+``pallas_fold_long``).  The plain versions
 below compute the same recurrences for the whole batch with tensor ops per
 span; the wrappers use them for CPU tensors only.  The two models share
 every recurrence but the 2-loop term, so each pass has one plain core
@@ -53,9 +54,7 @@ TURNER_SPECIALS = (
 TM3_AGE = 6   # the two 2x3 cells (a, b) = (2, 3), (3, 2): age a + b + 1
 MAX_N = 256  # the stacked tier; pallas_fold_long serves 512, 1024, 2048
 # Rows of the window-ring scratch per sequence, used where the rings do not
-# fit in shared memory: CONTRA one 32-slot ring, Turner three 32-slot rings
-# and one 8-slot ring.
-RING_SLOTS_CONTRA = 32
+# fit in shared memory: Turner's three 32-slot rings and one 8-slot ring.
 RING_SLOTS_TURNER = 3 * 32 + 8
 
 inside_launches = _build.LaunchCounter("contra_inside")
@@ -271,16 +270,17 @@ def contra_inside(mi, KW, scal, ns):
 
 
 def _ring(B, N, slots, dev):
-    """Window-ring scratch of a launch past MAX_N, used where the rings do
-    not fit in shared memory (the kernel zeroes what it uses); up to MAX_N
-    they always do, and the scratch is empty."""
+    """Window-ring scratch of a Turner launch past MAX_N, where the rings
+    do not fit in shared memory (the kernel zeroes what it uses); up to
+    MAX_N they always do, and the scratch is empty."""
     shape = (B, slots, N + 33) if N > MAX_N else (0,)
     return torch.empty(shape, device=dev)
 
 
 def _contra_inside_cuda(mi, KW, scal, ns):
     """Check the inputs of the CONTRA inside kernel (K1 at N <= 256, K8
-    past it) and launch it: (close, ext, one)."""
+    past it) and launch it: (close, ext, one), zero where K8 skips a dead
+    cell (i + d >= n)."""
     entry = "rna_contra_inside"
     dev = mi["H"].device
     B, N, _ = mi["H"].shape
@@ -292,9 +292,7 @@ def _contra_inside_cuda(mi, KW, scal, ns):
     close, ext, one = (torch.zeros((B, N, N), device=dev) for _ in range(3))
     rm, rmm = torch.empty((B, N, N), device=dev), torch.empty((B, N, N), device=dev)
     args = [ins[k] for k in INSIDE_TABLES] + [
-        KW, scal, ns, close, ext, one, rm, rmm,
-        _ring(B, N, RING_SLOTS_CONTRA, dev),
-    ]
+        KW, scal, ns, close, ext, one, rm, rmm]
     _build.library().call(
         entry, *[_build.ptr(t) for t in args], B, N, _build.stream_ptr(dev),
     )
@@ -322,6 +320,11 @@ def _outside_plain(CLOSE, MBC, ACCB, ACCMB, one, QONE, extR, scal, ns,
     ONEpad = torch.cat([one, zeros(B, N, N)], dim=2)
     PMp, PM2p = zeros(B, N + 1, 2 * N), zeros(B, N + 1, 2 * N)  # lane N + l
     lanes = torch.arange(N, device=dev)
+    # pm at lane l of span d sums the live terms t < n - 2 - d - l only, so
+    # no one cell past a sequence's end is read (the long kernels leave
+    # those unwritten; tests/test_torch_long_deadcells.py)
+    tl = lanes[:, None] + lanes[None, :]     # [t, l]
+    n_b = ns.to(dev).view(-1, 1, 1)
     qa = zeros(B, N)
     p2prev = zeros(B, N)
     for d in range(n_max - 1, -1, -1):
@@ -335,10 +338,11 @@ def _outside_plain(CLOSE, MBC, ACCB, ACCMB, one, QONE, extR, scal, ns,
         two = two_at(d) * c
         acc_mb = c * ACCMB[:, d]
         T = N - 2 - d
-        pm = (
-            (Gt[:, d + 2:d + 2 + T] * ONEpad[:, :T, d + 1:d + 1 + N]).sum(1)
-            if T > 0 else zeros(B, N)
-        )
+        if T > 0:
+            terms = Gt[:, d + 2:d + 2 + T] * ONEpad[:, :T, d + 1:d + 1 + N]
+            pm = torch.where(tl[:T] < n_b - 2 - d, terms, z).sum(1)
+        else:
+            pm = zeros(B, N)
         pm_new = pm if span_ok else zeros(B, N)
         pm2_raw = Gt[:, d + 1] + mbu1 * p2prev
         p2prev = pm2_raw
@@ -454,9 +458,7 @@ def _contra_outside_cuda(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
     bppo = torch.zeros((B, N, N), device=dev)
     pm, pm2, g = (torch.empty((B, N, N), device=dev) for _ in range(3))
     args = [ins[k] for k in OUTSIDE_TABLES] + [
-        one, QONE, extR, b0lo, KW, scal, ns, bppo, pm, pm2, g,
-        _ring(B, N, RING_SLOTS_CONTRA, dev),
-    ]
+        one, QONE, extR, b0lo, KW, scal, ns, bppo, pm, pm2, g]
     _build.library().call(
         entry, *[_build.ptr(t) for t in args], B, N, int(min_span),
         _build.stream_ptr(dev),

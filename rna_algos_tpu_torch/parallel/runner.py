@@ -100,10 +100,11 @@ class AlignEngine:
 
     def match_probs_pairs(self, seqs, pairs):
         """Posterior match probabilities for (a, b) index pairs of
-        sentinel-wrapped sequences (bin/durbin_algo.rs:49-50): a list of
-        numpy arrays cropped to (len(seqs[a]), len(seqs[b])), in the order
-        of ``pairs`` (pairs are batched by bucket)."""
-        results = [None] * len(pairs)
+        sentinel-wrapped sequences (bin/durbin_algo.rs:49-50), as the JAX
+        engine returns them: ``{(a, b): probs}``, each a numpy array cropped
+        to (len(seqs[a]), len(seqs[b])), keyed in the order of ``pairs``
+        (pairs are batched by bucket)."""
+        results = dict.fromkeys(map(tuple, pairs))
         by_bucket = {}
         for k, (a, b) in enumerate(pairs):
             N = align_bucket(len(seqs[a]), len(seqs[b]))
@@ -121,8 +122,8 @@ class AlignEngine:
                 self.at, N1=N, N2=N, numerics=self.numerics,
             ).cpu().numpy()
             for slot, k in enumerate(ks):
-                results[k] = probs[slot, :len(firsts[slot]),
-                                   :len(seconds[slot])]
+                results[tuple(pairs[k])] = probs[slot, :len(firsts[slot]),
+                                                 :len(seconds[slot])]
         return results
 
 
@@ -130,13 +131,17 @@ class FoldEngine:
     """Cached-table, bucketed McCaskill batch runner on one device."""
 
     def __init__(self, uses_contra_model=False, allows_short_hairpins=False,
-                 device="cuda", numerics="exact"):
+                 fss=None, device="cuda", numerics="exact"):
+        """``fss``: the CONTRAfold score-set dict the tables are built from
+        (``build_fold_score_sets()`` when None); the Turner model ignores
+        it, as the JAX engine does."""
         self.contra = bool(uses_contra_model)
         self.allows_short_hairpins = bool(allows_short_hairpins)
         self.device = resolve_device(device)
         self.numerics = check_mode(numerics)
         if self.contra:
-            self.tbl = contra_tables(build_fold_score_sets(), self.device)
+            self.tbl = contra_tables(
+                build_fold_score_sets() if fss is None else fss, self.device)
         else:
             self.tbl = turner_tables(self.device)
 

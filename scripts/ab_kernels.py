@@ -5,7 +5,10 @@ a CUDA GPU, in turns (A, B, B, A), on the same inputs.
         [--a-split] [--short-only | --pairhmm]
 
 ``--b`` defaults to the package's own ``csrc/``.  Each build goes into the
-``_build`` directory beside its sources.  ``--a-split`` says build A
+``_build`` directory beside its sources.  A build from before the cluster
+kernels K8/K9 is handed the ring scratch its CONTRA entry points take (a
+global one past N = 256), and K8/K9's outputs are compared on live cells
+(i + d < n) only.  ``--a-split`` says build A
 predates the merge of the stacked and long kernels: its N <= 256 entry
 points take no ring scratch, and its N > 256 ones (if it has them) carry a
 ``_long`` suffix.  Inputs and shapes are chip_smoke.py's main-path ones:
@@ -14,6 +17,11 @@ and unless ``--short-only`` the long tier's (K8/K9 at N = 512, 1024, 2048;
 K12/K13 at 512, 1024).  Prints each kernel's CUDA-event ms per build and
 turn (REPS launches after one warm-up), each build's ptxas register and
 spill lines, and the largest difference between the two builds' outputs.
+With the long tier it then times the barriers that end each span of K8/K9,
+alone: a probe kernel (built with nvcc into a temporary directory) runs
+B clusters of C blocks of 1,024 threads at each long CONTRA launch shape
+of chip_smoke.py, each block looping over 2,000 spans with one
+``__syncthreads()`` and one cluster ``sync()`` a span and nothing else.
 ``--pairhmm`` times the Durbin pair-HMM kernels K14 and K15 instead (a
 forward and a backward launch per timed call) on chip_smoke.py's two Durbin
 sets (630 tRNA pairs at N = 128, 2,016 random pairs at N = 256).  Entry
@@ -25,6 +33,7 @@ import ctypes
 import pathlib
 import subprocess
 import sys
+import tempfile
 
 import torch
 
@@ -44,10 +53,26 @@ SPLIT_SIGNATURES = {
 }
 
 
-class SplitBuild:
-    """A build from before the merge, called with the merged entry points'
-    arguments: below N = 257 the ring scratch (the last pointer before B)
-    is dropped, past it the ``_long`` entry point is called."""
+# the CONTRA entry points of a build from before the cluster kernels K8/K9:
+# a ring scratch (the last pointer before B), used past N = 256
+RING_SIGNATURES = {
+    "rna_contra_inside": [_P] * 18 + [_I, _I, _P],
+    "rna_contra_outside": [_P] * 21 + [_I, _I, _I, _P],
+}
+
+
+def with_ring(args):
+    """The arguments of a CONTRA entry point with a ring scratch inserted
+    before B: (B, 32, N + 33) floats past N = 256, empty below."""
+    k = next(j for j, a in enumerate(args) if isinstance(a, int))
+    B, N = args[k], args[k + 1]
+    ring = torch.empty((B, 32, N + 33) if N > 256 else (0,), device="cuda")
+    return (*args[:k], ctypes.c_void_p(ring.data_ptr()), *args[k:])
+
+
+class RingBuild:
+    """A build from before the cluster kernels K8/K9, called with today's
+    arguments: its CONTRA entry points are handed their ring scratch."""
 
     def __init__(self, lib):
         self.lib = lib
@@ -55,12 +80,26 @@ class SplitBuild:
         self.compiler_output = lib.compiler_output
 
     def call(self, name, *args):
+        if name in WAVEFRONT[:2]:
+            args = with_ring(args)
+        return self.lib.call(name, *args)
+
+
+class SplitBuild(RingBuild):
+    """A build from before the merge, called with the merged entry points'
+    arguments: below N = 257 Turner's ring scratch (the last pointer before
+    B) is dropped, past it the ``_long`` entry point is called, the CONTRA
+    ones with their ring scratch."""
+
+    def call(self, name, *args):
         if name in WAVEFRONT:
             k = next(j for j, a in enumerate(args) if isinstance(a, int))
-            if args[k + 1] <= 256:
-                args = args[:k - 1] + args[k:]
-            else:
+            if args[k + 1] > 256:
+                if name in WAVEFRONT[:2]:
+                    args = with_ring(args)
                 name += "_long"
+            elif name in WAVEFRONT[2:]:
+                args = args[:k - 1] + args[k:]
         return self.lib.call(name, *args)
 
 
@@ -74,18 +113,22 @@ def load(csrc, split):
     _build.library.cache_clear()
     saved = _build.SIGNATURES
     text = "".join(p.read_text() for p in csrc.glob("*.cu"))
-    _build.SIGNATURES = {k: v for k, v in saved.items()
+    ring = split or "rna_rings(" in (csrc / "contra_inside.cu").read_text()
+    known = {**saved, **RING_SIGNATURES} if ring else saved
+    _build.SIGNATURES = {k: v for k, v in known.items()
                          if f'"C" int {k}(' in text}
     if split:
         sigs = {"rna_skew": saved["rna_skew"], **SPLIT_SIGNATURES}
         if (csrc / "contra_inside_long.cu").exists():
-            sigs.update({k + "_long": saved[k] for k in WAVEFRONT})
+            sigs.update({k + "_long": known[k] for k in WAVEFRONT})
         _build.SIGNATURES = sigs
     try:
         lib = _build.library()
     finally:
         _build.SIGNATURES = saved
-    return SplitBuild(lib) if split else lib
+    if split:
+        return SplitBuild(lib)
+    return RingBuild(lib) if ring else lib
 
 
 def use(lib):
@@ -153,13 +196,102 @@ def main(argv=None):
                 print(f"turn {turn} build {which} N={N} B={B} {kernel}: "
                       f"{ms:.4f} ms")
     for (N, B, kernel), got in outs.items():
-        diff = max(float((x - y).abs().max())
-                   for x, y in zip(got["A"], got["B"]))
+        a, b, note = got["A"], got["B"], ""
+        if kernel in chip_smoke.LIVE_ONLY:
+            # a build before the cluster kernels computes the dead cells too
+            x = next(c for n_, b_, c in cases
+                     if (n_, b_) == (N, B) and kernel in c["kernels"])
+            r = torch.arange(N, device=dev)
+            live = ((r[None, :, None] + r[None, None, :])
+                    < x["ns"].view(-1, 1, 1))
+            a, b = [t[live] for t in a], [t[live] for t in b]
+            note = " on live cells"
+        rel = max(float(((x - y).abs() / y.abs().clamp(min=1e-30)).max())
+                  for x, y in zip(a, b))
+        diff = max(float((x - y).abs().max()) for x, y in zip(a, b))
         same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
-                   for x, y in zip(got["A"], got["B"]))
-        print(f"N={N} B={B} {kernel}: max |A - B| {diff:.3e}"
-              f"{' (bitwise equal)' if same else ''}")
+                   for x, y in zip(a, b))
+        print(f"N={N} B={B} {kernel}: max |A - B| {diff:.3e}, max "
+              f"relative {rel:.3e}{note}{' (bitwise equal)' if same else ''}")
+    if not args.short_only:
+        use(libs["B"])
+        barrier_probe(chip_smoke)
     return 0
+
+
+BARRIER_SPANS = 2000
+BARRIER_PROBE = r"""
+#include <cooperative_groups.h>
+namespace cg = cooperative_groups;
+
+__global__ void __launch_bounds__(1024) probe(int spans, int* sink) {
+  cg::cluster_group cluster = cg::this_cluster();
+  int acc = 0;
+  for (int d = 0; d < spans; ++d) {
+    acc += d ^ threadIdx.x;
+    __syncthreads();
+    cluster.sync();
+  }
+  if (acc == -1) sink[0] = acc;
+}
+
+extern "C" int probe_launch(int B, int C, int spans, int* sink,
+                            void* stream) {
+  cudaError_t err = cudaSuccess;
+  if (C > 8)
+    err = cudaFuncSetAttribute(
+        probe, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(B * C);
+  cfg.blockDim = dim3(1024);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, probe, spans, sink);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def barrier_probe(chip_smoke):
+    """The barriers that end each span of K8/K9, alone: per long CONTRA
+    launch shape (N, B) and its cluster size C, the ms of one probe launch
+    of BARRIER_SPANS spans (CUDA events, 5 launches after a warm-up) and
+    the microseconds a span."""
+    from rna_algos_tpu_torch.ops import _build
+    from rna_algos_tpu_torch.ops import pallas_fold_long as PL
+
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    shapes = sorted(set(chip_smoke.LONG_MAIN["contra"])
+                    | set(chip_smoke.LONG_CHECK["contra"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        src, so = pathlib.Path(tmp, "probe.cu"), pathlib.Path(tmp, "probe.so")
+        src.write_text(BARRIER_PROBE)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS[:6], "-shared",
+                        "-o", str(so), str(src)], check=True)
+        lib = ctypes.CDLL(str(so))
+        lib.probe_launch.argtypes = [_I] * 3 + [_P] * 2
+        for N, B in shapes:
+            C = PL.contra_cluster_sizes(B, N)[0]
+
+            def launch():
+                err = lib.probe_launch(B, C, BARRIER_SPANS, sink.data_ptr(),
+                                       stream)
+                if err:
+                    raise RuntimeError(f"barrier probe: CUDA error {err}")
+
+            ms = chip_smoke.cuda_ms(launch, 5)
+            print(f"barrier N={N} B={B} C={C}: {ms:.4f} ms for "
+                  f"{BARRIER_SPANS} spans, {1e3 * ms / BARRIER_SPANS:.4f} us "
+                  "a span (cluster barrier + block barrier)")
 
 
 def ab_pairhmm(libs, dev, chip_smoke):

@@ -7,6 +7,8 @@ on a CUDA GPU.
 Cells as in chip_smoke.py: the six tRNAs tiled to B = 192 (bucket 128), 96
 seeded random 150-200 nt sequences (bucket 256) and 16 seeded random
 600-1,000 nt sequences (bucket 1024, the long tier), for CONTRA and Turner;
+CONTRA also on the long tier's 32 random 300-500 nt (bucket 512) and 8
+random 1,100-2,000 nt (bucket 2048) sequences;
 and the Durbin pair-HMM on chip_smoke.py's three runs: the 630 pairs of
 the tRNAs tiled to 36 sequences (bucket 128) exact and parity, and the
 2,016 pairs of 64 random 150-200 nt sequences (bucket 256) exact; and the
@@ -34,11 +36,11 @@ sys.path.insert(0, str(ROOT))
 
 # unprofiled batches timed per cell, as chip_smoke.py's throughput phase
 REPS = 5
-# device kernel names: the narrow (N <= 256) and wide (N > 256) entry
-# kernels of each wavefront source
+# device kernel names: the narrow (N <= 256) and the long-tier (N > 256)
+# entry kernels of each wavefront source
 KERNELS = ("skew_kernel", "contra_inside_kernel", "contra_outside_kernel",
            "turner_inside_kernel", "turner_outside_kernel",
-           "contra_inside_wide_kernel", "contra_outside_wide_kernel",
+           "contra_inside_cluster_kernel", "contra_outside_cluster_kernel",
            "turner_inside_wide_kernel", "turner_outside_wide_kernel",
            "pairhmm_prob_kernel", "pairhmm_log_kernel",
            "contra_inside_log_kernel", "contra_outside_log_kernel",
@@ -111,9 +113,9 @@ def main(argv=None):
     print(torch.cuda.get_device_name(0), torch.__version__)
     trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
     cells = {"trna_N128_B192": trnas * 32,
-             "rfam_N256_B96": chip_smoke.random_batch(96, 150, 200, seed=2024),
-             "long_N1024_B16": chip_smoke.random_batch(
-                 *chip_smoke.LONG_BATCHES[1024], seed=1024)}
+             "rfam_N256_B96": chip_smoke.random_batch(96, 150, 200, seed=2024)}
+    longs = {f"long_N{N}_B{b}": chip_smoke.random_batch(b, lo, hi, seed=N)
+             for N, (b, lo, hi) in chip_smoke.LONG_BATCHES.items()}
     trace_dir = pathlib.Path(args.trace_dir) if args.trace_dir else None
     if trace_dir:
         trace_dir.mkdir(parents=True, exist_ok=True)
@@ -121,6 +123,10 @@ def main(argv=None):
                "turner": FoldEngine(uses_contra_model=False, device="cuda")}
     calls = {(m, c): (lambda e=engines[m], s=cells[c]: e.fold_batch(s))
              for m in engines for c in cells}
+    # the long cells: CONTRA at every long bucket, Turner at 1024
+    for c, seqs in longs.items():
+        for m in ("contra", "turner") if "N1024" in c else ("contra",):
+            calls[(m, c)] = (lambda e=engines[m], s=seqs: e.fold_batch(s))
     for m in ("contra", "turner"):
         engine = FoldEngine(uses_contra_model=m == "contra", device="cuda",
                             numerics="parity")

@@ -1,6 +1,7 @@
 """Kernels K1-K5, K8, K9, K12-K19 against their plain versions on a
 CUDA GPU: the checks of chip_smoke.py, at the main paths' buckets (the long
-tier's at a centred per-sequence ln_sigma, the pair-HMM's at each pair's
+tier's at a centred per-sequence ln_sigma, K8/K9 on live cells with their
+dead cells 0, at every cluster size the check shapes take; the pair-HMM's at each pair's
 settled ln_sigma, the parity tier's log kernels on a few random sequences
 at N = 128 and 256).  Skipped without a GPU; run on
 the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
@@ -190,8 +191,9 @@ def test_durbin_path_launches_its_kernel(device, numerics):
         c.reset()
     out = engine.match_probs_pairs(seqs, pairs)
     assert mine.count >= 2 and other.count == 0
+    assert list(out) == pairs
     assert all(p.shape == (len(seqs[a]), len(seqs[b])) and np.isfinite(p).all()
-               for (a, b), p in zip(pairs, out))
+               for (a, b), p in out.items())
 
 
 @pytest.fixture(scope="module", params=[("contra", 128), ("turner", 128),

@@ -110,21 +110,23 @@ def _wrapped(seqs):
 
 def test_align_engine_crop_and_order():
     """Pairs of two buckets (64, 128) in mixed order, a reversed and a
-    repeated pair: each result cropped to its pair's lengths, in the order
-    of ``pairs``, bitwise the pair's result alone."""
+    repeated pair: a dict keyed by pair, as the JAX engine returns, each
+    result cropped to its pair's lengths and bitwise the pair's result
+    alone."""
     rng = np.random.default_rng(31)
     lens = (20, 100, 35, 58)
     seqs = _wrapped([rng.integers(0, 4, n) for n in lens])
     pairs = [(1, 2), (0, 2), (3, 1), (2, 3), (0, 2), (2, 0)]
     engine = AlignEngine(device="cpu")
     got = engine.match_probs_pairs(seqs, pairs)
-    assert len(got) == len(pairs)
-    for (a, b), mat in zip(pairs, got):
+    assert isinstance(got, dict) and list(got) == list(dict.fromkeys(pairs))
+    for (a, b) in pairs:
+        mat = got[(a, b)]
         assert mat.shape == (len(seqs[a]), len(seqs[b]))
-        alone = engine.match_probs_pairs(seqs, [(a, b)])[0]
+        alone = engine.match_probs_pairs(seqs, [(a, b)])[(a, b)]
         np.testing.assert_array_equal(mat, alone)
-    np.testing.assert_array_equal(got[1], got[4])
-    assert np.isfinite(got[0]).all() and got[0].max() > 0.05
+    np.testing.assert_array_equal(got[(0, 2)].T.shape, got[(2, 0)].shape)
+    assert np.isfinite(got[(1, 2)]).all() and got[(1, 2)].max() > 0.05
     with pytest.raises(NotImplementedError, match="A10"):
         engine.match_probs_pairs(_wrapped([np.zeros(300, np.int32)] * 2),
                                  [(0, 1)])
