@@ -10,13 +10,14 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    both directions, also on the Turner precompute's 18 tables at once; K1,
    K2 (CONTRA) and K4, K5 (Turner) within stated tolerances at N = 128,
    B = 64 and N = 256, B = 32; the long tier's K8, K9 (CONTRA) and K12, K13
-   (Turner), the same four sources launched past N = 256, at N = 512, B = 8
-   and N = 1024, B = 4, and K8, K9 also at N = 2048, B = 2, the main paths'
-   N = 512, B = 32, N = 1024, B = 16 and N = 2048, B = 8, and N = 512,
-   B = 80 (one block a
-   sequence), each launch's cluster size printed, compared on the live
-   cells (i + d < n) with their dead cells exactly 0, at a fixed ln_sigma
-   that centres each sequence's scaled Z; the Durbin pair-HMM's K14
+   (Turner), the same four sources launched past N = 256 as a cluster of
+   blocks per sequence, at N = 512, B = 8 and N = 1024, B = 4, and K8, K9
+   also at N = 2048, B = 2, the main paths' N = 512, B = 32, N = 1024,
+   B = 16 (and CONTRA's N = 2048, B = 8; Turner's prefix pass N = 512,
+   B = 16), and N = 512, B = 80 (more clusters than fit at once: waves),
+   each launch's cluster size printed, compared on the live cells
+   (i + d < n) with their dead cells exactly 0, at a fixed ln_sigma that
+   centres each sequence's scaled Z; the Durbin pair-HMM's K14
    (probability space) and K15 (log space), forward and backward, on the
    630 tRNA pairs at N = 128 and 2,016 random pairs at N = 256, at each
    pair's settled ln_sigma; the parity tier's log-space K16, K17 (CONTRA)
@@ -84,11 +85,13 @@ SHAPES_MAIN = ((128, 192), (256, 96))
 # The long tier: kernel checks, and the main paths' shapes, per model.
 LONG_CHECK = {"contra": ((512, 8), (1024, 4), (2048, 2), (512, 32),
                          (1024, 16), (2048, 8), (512, 80)),
-              "turner": ((512, 8), (1024, 4))}
+              "turner": ((512, 8), (1024, 4), (512, 32), (1024, 16),
+                         (512, 16), (512, 80))}
 # The kernels that compute live cells only (i + d < n) and leave the dead
-# ones the zeros their wrappers pass: K8 and K9, compared with their plain
-# versions on the live cells.
-LIVE_ONLY = ("contra_inside_long", "contra_outside_long")
+# ones the zeros their wrappers pass: the cluster kernels K8, K9, K12 and
+# K13, compared with their plain versions on the live cells.
+LIVE_ONLY = ("contra_inside_long", "contra_outside_long",
+             "turner_inside_long", "turner_outside_long")
 LONG_MAIN = {"contra": ((512, 32), (1024, 16), (2048, 8)),
              "turner": ((512, 32), (1024, 16))}
 # bucket -> (batch, shortest, longest) of the long main-path batches
@@ -316,16 +319,18 @@ def check_skew(inp):
     return 0.0
 
 
-def cluster_sizes(N, B, clusters):
-    """K8's and K9's cluster sizes (blocks per sequence) for a launch over
-    B sequences at N, recorded in ``clusters[kernel][shape]``; a note for
-    the log."""
+def cluster_sizes(model, N, B, clusters):
+    """A model's long inside and outside kernels' cluster sizes (blocks per
+    sequence; K8/K9 or K12/K13) for a launch over B sequences at N,
+    recorded in ``clusters[kernel][shape]``; a note for the log."""
     from rna_algos_tpu_torch.ops import pallas_fold_long as PL
 
-    sizes = PL.contra_cluster_sizes(B, N)
-    for k, c in zip(LIVE_ONLY, sizes):
+    sizes = getattr(PL, f"{model}_cluster_sizes")(B, N)
+    kernels = (f"{model}_inside_long", f"{model}_outside_long")
+    for k, c in zip(kernels, sizes):
         clusters.setdefault(k, {})[f"N{N}_B{B}"] = c
-    return f"cluster size K8 {sizes[0]}, K9 {sizes[1]}"
+    return (f"cluster size {LABELS[kernels[0]]} {sizes[0]}, "
+            f"{LABELS[kernels[1]]} {sizes[1]}")
 
 
 def live_cells(kernel, inp, like):
@@ -347,8 +352,8 @@ def live_cells(kernel, inp, like):
 
 def check_inside(inp, label="K1", kernel="contra_inside"):
     """An inside kernel (K1, K4, K8 or K12) vs its plain version on close,
-    ext, one: |k - p| <= RTOL_INSIDE * |p| (K8: on live cells, the dead
-    ones 0).  Returns (max abs error, max relative error); the scaled
+    ext, one: |k - p| <= RTOL_INSIDE * |p| (K8, K12: on live cells, the
+    dead ones 0).  Returns (max abs error, max relative error); the scaled
     partition functions run up to ~1e8, so the relative error is the
     telling one."""
     kern, plain = wrappers(kernel)
@@ -379,7 +384,7 @@ def check_inside(inp, label="K1", kernel="contra_inside"):
 
 def check_outside(inp, label="K2", kernel="contra_outside"):
     """An outside kernel (K2, K5, K9 or K13) vs its plain version on bppo:
-    max |k - p| <= ATOL_BPPO (K9: on live cells, the dead ones 0)."""
+    max |k - p| <= ATOL_BPPO (K9, K13: on live cells, the dead ones 0)."""
     kern, plain = wrappers(kernel)
     got = kern(*inp["outside_args"])
     want = plain(*inp["outside_args"])
@@ -405,8 +410,8 @@ def _live_cells(ns):
 
 def work(kernel, inp):
     """(bytes, FLOPs) one call of ``kernel`` must do on ``inp``: each
-    input table read once (K8/K9: on the live cells, i + d < n, the only
-    ones they read) and each output written once (whole: the wrappers
+    input table read once (LIVE_ONLY kernels: on the live cells, i + d < n,
+    the only ones they read) and each output written once (whole: the wrappers
     zero-fill them); the FLOPs of the recurrences on the live cells of
     this run's lengths."""
     if kernel.endswith("_log"):
@@ -461,13 +466,16 @@ def log_work(kernel, inp):
 
 
 def reread_ms(kernel, inp):
-    """K8's or K9's HBM re-read floor in ms: the bytes its O(d) sums load
-    on this run's live cells, at the HBM rate, as if the L2 kept none of
-    them (inside: 16 B a bifurcation term t >= 1; outside: 8 B a pm term,
-    12 B an sa/sbc term)."""
+    """A long kernel's HBM re-read floor in ms: the bytes its O(d) sums
+    load on this run's live cells, at the HBM rate, as if the L2 kept none
+    of them.  Both models sum alike: inside (K8, K12) 16 B a bifurcation
+    term t >= 1; outside (K9, K13) 8 B a pm term, 12 B an sa/sbc term."""
+    inside = kernel.endswith("_inside_long")
+    if not inside and not kernel.endswith("_outside_long"):
+        raise ValueError(f"reread_ms: {kernel} is not a long kernel")
     nbytes = 0.0
     for n, d, lanes in _live_cells(inp["ns"].tolist()):
-        if kernel == "contra_inside_long":
+        if inside:
             nbytes += 16.0 * float((lanes * np.maximum(d - 1, 0)).sum())
         else:
             nbytes += float((4.0 * (lanes - 1) * np.maximum(lanes - 2, 0)
@@ -1231,12 +1239,11 @@ def main():
         check_model(kernel_inputs(N, B, seed=N + B, device=dev))
         check_model(turner_inputs(N, B, seed=N + B + 1, device=dev))
     builders = {"contra": kernel_inputs, "turner": turner_inputs}
-    clusters = {}   # K8/K9 -> shape -> blocks per sequence
+    clusters = {}   # K8/K9/K12/K13 -> shape -> blocks per sequence
     for model, shapes in LONG_CHECK.items():
         for N, B in shapes:
-            note = (f", {cluster_sizes(N, B, clusters)}" if model == "contra"
-                    else "")
-            print(f"check {model} N={N} B={B}{note}")
+            print(f"check {model} N={N} B={B}, "
+                  f"{cluster_sizes(model, N, B, clusters)}")
             check_model(builders[model](N, B, seed=N + B, device=dev))
     trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
     dsets = durbin_sets(trnas)
@@ -1256,7 +1263,7 @@ def main():
         note = ""
         if kernel in LIVE_ONLY:
             note = (f", HBM re-read floor {reread_ms(kernel, x):.4f} ms, "
-                    f"{cluster_sizes(N, B, clusters)}")
+                    f"{cluster_sizes(kernel.split('_')[0], N, B, clusters)}")
         print(f"time N={N} B={B} {kernel}: kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms, bound {bms:.4f} ms ({by}){note}")
 
@@ -1385,13 +1392,12 @@ def main():
             peak = torch.cuda.max_memory_allocated() / 2**30
             runs = counts[key][ik]
             retries = runs - 1 - (N > 512)
-            if model == "contra":
-                # the run's shape, and past 512 the prefix seed's (N / 2)
-                shapes = [(N, len(seqs))] + ([(N // 2, len(seqs))]
-                                             if N > 512 else [])
-                print(f"  {key}: " + "; ".join(
-                    f"N={n_} B={b_} {cluster_sizes(n_, b_, clusters)}"
-                    for n_, b_ in shapes))
+            # the run's shape, and past 512 the prefix seed's (N / 2)
+            shapes = [(N, len(seqs))] + ([(N // 2, len(seqs))]
+                                         if N > 512 else [])
+            print(f"  {key}: " + "; ".join(
+                f"N={n_} B={b_} {cluster_sizes(model, n_, b_, clusters)}"
+                for n_, b_ in shapes))
             t0 = time.perf_counter()
             with plain_kernels(), recorded_ln_sigma() as ls_p:
                 plain = engine.fold_batch(seqs)

@@ -1,5 +1,6 @@
-// Launch shape of the long CONTRA wavefronts K8 and K9 (N = 512, 1024,
-// 2048): a thread-block cluster of C blocks per sequence.
+// Launch shape of the long wavefronts, CONTRA's K8 and K9 (N = 512, 1024,
+// 2048) and Turner's K12 and K13 (N = 512, 1024): a thread-block cluster
+// of C blocks per sequence.
 //
 // Each block of a sequence's cluster owns L = N / C lanes, in chunks
 // interleaved over the blocks (RnaClLayout), their state in registers (one
@@ -23,11 +24,14 @@
 // an H100 80GB HBM3 at 700 W: PERF.md).  A batch that no C fits (more
 // sequences than SMs at N = 512, or more than half of them at N = 2048,
 // where one block's ring exceeds shared memory) takes the smallest C that
-// launches.  L >= 32 so that a chunk holds a warp and its halo comes from
-// one neighbour, and L <= 1024 so that each lane has its own thread.
+// launches (Turner's four rings fit one block's shared memory only from
+// C = 4 at N = 512 and C = 8 at N = 1024).  L >= 32 so that a chunk holds
+// a warp and its halo comes from one neighbour, and L <= 1024 so that
+// each lane has its own thread.
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 
 #include "common.cuh"
 
@@ -184,6 +188,34 @@ __device__ __forceinline__ RnaClPart rna_cl_part(int m, int tid) {
   q.p = q.m32 ? tid / q.m32 : 0;
   q.ll = q.m32 ? tid - q.p * q.m32 : 0;
   return q;
+}
+
+// The parts of K12/K13 (turner_inside.cu, turner_outside.cu): as
+// rna_cl_part, but on the threads that own no lane (tid >= L), so that the
+// owners run their lane's 2-loop term meanwhile; an owner has no part.
+// Every live lane gets at least one part while L <= RNA_CL_THREADS / 2
+// (Turner's rings keep L <= 128).
+__device__ __forceinline__ RnaClPart rna_cl_part_free(int m, int tid,
+                                                      int L) {
+  const int t = tid - L;
+  RnaClPart q;
+  q.m32 = (m + 31) & ~31;
+  q.k = q.m32 ? (RNA_CL_THREADS - L) / q.m32 : 0;
+  q.p = t >= 0 && q.m32 ? t / q.m32 : q.k;
+  q.ll = t >= 0 && q.m32 ? t - q.p * q.m32 : 0;
+  return q;
+}
+
+// Stage the cells `row` of the `count` tables T into dst[k * stride]
+// with cp.async (the caller commits the group): a lane's owner stages its
+// next span's cells and reads them a span later, its own copies only,
+// after __pipeline_wait_prior(0), so the tables' HBM latency leaves the
+// span's critical path.
+__device__ __forceinline__ void rna_cl_stage(float* dst, int stride,
+                                             const float* const* T,
+                                             int count, long long row) {
+  for (int k = 0; k < count; ++k)
+    __pipeline_memcpy_async(dst + k * stride, T[k] + row, sizeof(float));
 }
 
 // K8's close of span d (rna_inside_close with the s2 term s2(d-2, i+1)

@@ -38,8 +38,10 @@ SIGNATURES = {
     "rna_contra_outside": [_P] * 20 + [_I, _I, _I, _P],
     "rna_contra_inside_cluster": [_I, _I],
     "rna_contra_outside_cluster": [_I, _I],
-    "rna_turner_inside": [ctypes.POINTER(_P)] + [_P] * 9 + [_I, _I, _P],
-    "rna_turner_outside": [ctypes.POINTER(_P)] + [_P] * 11 + [_I, _I, _I, _P],
+    "rna_turner_inside": [ctypes.POINTER(_P)] + [_P] * 8 + [_I, _I, _P],
+    "rna_turner_outside": [ctypes.POINTER(_P)] + [_P] * 10 + [_I, _I, _I, _P],
+    "rna_turner_inside_cluster": [_I, _I],
+    "rna_turner_outside_cluster": [_I, _I],
     "rna_pairhmm_prob": [_P] * 9 + [_I, _I, _I, _P],
     "rna_pairhmm_log": [_P] * 9 + [_I, _I, _I, _P],
     "rna_contra_inside_log": [ctypes.POINTER(_P)] + [_P] * 8 + [_I, _I, _P],

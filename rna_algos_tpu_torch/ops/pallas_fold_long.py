@@ -7,11 +7,11 @@ The TPU streamed the score tables through VMEM in R-row chunks and kept
 the DP state resident; none of that carries over.  The maths is that of
 the stacked tier (``pallas_fold_prob8``) at any N: the same merged tables,
 the same outside auxiliaries, the same plain versions (K1's, K2's, K4's and
-K5's) and the same sources (``csrc/contra_inside.cu`` etc.).  K8 and K9
-run a cluster of C blocks per sequence (``csrc/cluster.cuh``; C from the
-batch, N and the card, ``contra_cluster_sizes``) and compute live cells
-only: a cell with i + d >= n stays 0.  K12 and K13 run one block of 1,024
-threads per sequence.  The long wrappers launch them through
+K5's) and the same sources (``csrc/contra_inside.cu`` etc.).  K8, K9, K12
+and K13 run a cluster of C blocks per sequence (``csrc/cluster.cuh``; C
+from the batch, N and the card, ``contra_cluster_sizes`` and
+``turner_cluster_sizes``) and compute live cells only: a cell with
+i + d >= n stays 0.  The long wrappers launch them through
 ``pallas_fold_prob8``'s helpers and count their own launches.
 
 Two things differ from the stacked tier around the kernels, both as in the
@@ -59,6 +59,14 @@ def contra_cluster_sizes(B, N):
     lib = _build.library().lib
     return (lib.rna_contra_inside_cluster(B, N),
             lib.rna_contra_outside_cluster(B, N))
+
+
+def turner_cluster_sizes(B, N):
+    """(K12's, K13's) cluster size, the blocks a sequence runs on, for a
+    launch over B sequences at N on the current CUDA device."""
+    lib = _build.library().lib
+    return (lib.rna_turner_inside_cluster(B, N),
+            lib.rna_turner_outside_cluster(B, N))
 
 
 def contra_inside_long(mi, KW, scal, ns):

@@ -6,9 +6,9 @@ and the fixed-scale runs wrapped in the rescale-retry loop.
 The TPU stacked G sequences along sublanes and aged a lane-major window;
 none of that layout is carried over.  Here each kernel runs one CUDA block
 per sequence (``csrc/contra_inside.cu``, ``csrc/contra_outside.cu``,
-``csrc/turner_inside.cu``, ``csrc/turner_outside.cu``; the long tier's K8
-and K9, a cluster of blocks per sequence, and K12 and K13 are entries of the
-same sources past N = 256, launched through the helpers below by
+``csrc/turner_inside.cu``, ``csrc/turner_outside.cu``; the long tier's K8,
+K9, K12 and K13, a cluster of blocks per sequence, are entries of the same
+sources past N = 256, launched through the helpers below by
 ``pallas_fold_long``).  The plain versions
 below compute the same recurrences for the whole batch with tensor ops per
 span; the wrappers use them for CPU tensors only.  The two models share
@@ -53,9 +53,6 @@ TURNER_SPECIALS = (
 )
 TM3_AGE = 6   # the two 2x3 cells (a, b) = (2, 3), (3, 2): age a + b + 1
 MAX_N = 256  # the stacked tier; pallas_fold_long serves 512, 1024, 2048
-# Rows of the window-ring scratch per sequence, used where the rings do not
-# fit in shared memory: Turner's three 32-slot rings and one 8-slot ring.
-RING_SLOTS_TURNER = 3 * 32 + 8
 
 inside_launches = _build.LaunchCounter("contra_inside")
 outside_launches = _build.LaunchCounter("contra_outside")
@@ -267,14 +264,6 @@ def contra_inside(mi, KW, scal, ns):
     out = _contra_inside_cuda(mi, KW, scal, ns)
     inside_launches.count += 1
     return out
-
-
-def _ring(B, N, slots, dev):
-    """Window-ring scratch of a Turner launch past MAX_N, where the rings
-    do not fit in shared memory (the kernel zeroes what it uses); up to
-    MAX_N they always do, and the scratch is empty."""
-    shape = (B, slots, N + 33) if N > MAX_N else (0,)
-    return torch.empty(shape, device=dev)
 
 
 def _contra_inside_cuda(mi, KW, scal, ns):
@@ -579,7 +568,8 @@ def turner_inside(mi, KT, scal, ns):
 
 def _turner_inside_cuda(mi, KT, scal, ns):
     """Check the inputs of the Turner inside kernel (K4 at N <= 256, K12
-    past it) and launch it: (close, ext, one)."""
+    past it) and launch it: (close, ext, one), zero where K12 skips a dead
+    cell (i + d >= n)."""
     entry = "rna_turner_inside"
     dev = mi["H"].device
     B, N, _ = mi["H"].shape
@@ -590,8 +580,7 @@ def _turner_inside_cuda(mi, KT, scal, ns):
     _build.check_cuda(entry, ins, shapes, dev)
     close, ext, one = (torch.zeros((B, N, N), device=dev) for _ in range(3))
     rm, rmm = torch.empty((B, N, N), device=dev), torch.empty((B, N, N), device=dev)
-    args = [KT, scal, ns, close, ext, one, rm, rmm,
-            _ring(B, N, RING_SLOTS_TURNER, dev)]
+    args = [KT, scal, ns, close, ext, one, rm, rmm]
     _build.library().call(
         entry, _build.ptr_array(ins, TURNER_INSIDE_TABLES),
         *[_build.ptr(t) for t in args], B, N, _build.stream_ptr(dev),
@@ -664,8 +653,7 @@ def _turner_outside_cuda(mo, one, QONE, extR, KT, scal, ns, min_span):
     _build.check_cuda(entry, ins, shapes, dev)
     bppo = torch.zeros((B, N, N), device=dev)
     pm, pm2, g = (torch.empty((B, N, N), device=dev) for _ in range(3))
-    args = [one, QONE, extR, KT, scal, ns, bppo, pm, pm2, g,
-            _ring(B, N, RING_SLOTS_TURNER, dev)]
+    args = [one, QONE, extR, KT, scal, ns, bppo, pm, pm2, g]
     _build.library().call(
         entry, _build.ptr_array(ins, TURNER_OUTSIDE_TABLES),
         *[_build.ptr(t) for t in args], B, N, int(min_span),

@@ -6,22 +6,24 @@ a CUDA GPU, in turns (A, B, B, A), on the same inputs.
 
 ``--b`` defaults to the package's own ``csrc/``.  Each build goes into the
 ``_build`` directory beside its sources.  A build from before the cluster
-kernels K8/K9 is handed the ring scratch its CONTRA entry points take (a
-global one past N = 256), and K8/K9's outputs are compared on live cells
-(i + d < n) only.  ``--a-split`` says build A
-predates the merge of the stacked and long kernels: its N <= 256 entry
-points take no ring scratch, and its N > 256 ones (if it has them) carry a
-``_long`` suffix.  Inputs and shapes are chip_smoke.py's main-path ones:
-N = 128, B = 192 and N = 256, B = 96 for the four kernels (K1/K2, K4/K5),
-and unless ``--short-only`` the long tier's (K8/K9 at N = 512, 1024, 2048;
-K12/K13 at 512, 1024).  Prints each kernel's CUDA-event ms per build and
-turn (REPS launches after one warm-up), each build's ptxas register and
-spill lines, and the largest difference between the two builds' outputs.
-With the long tier it then times the barriers that end each span of K8/K9,
-alone: a probe kernel (built with nvcc into a temporary directory) runs
-B clusters of C blocks of 1,024 threads at each long CONTRA launch shape
-of chip_smoke.py, each block looping over 2,000 spans with one
-``__syncthreads()`` and one cluster ``sync()`` a span and nothing else.
+kernels (K8/K9 for CONTRA, K12/K13 for Turner) is handed the ring scratch
+its entry points take (``ring_g``, a global one past N = 256), and the
+cluster kernels' outputs are compared on live cells (i + d < n) only.
+``--a-split`` says build A predates the merge of the stacked and long
+kernels: its N <= 256 entry points take no ring scratch, and its N > 256
+ones (if it has them) carry a ``_long`` suffix and take one.  Inputs and
+shapes are chip_smoke.py's main-path ones: N = 128, B = 192 and N = 256,
+B = 96 for the four kernels (K1/K2, K4/K5), and unless ``--short-only``
+the long tier's (K8/K9 at N = 512, 1024, 2048; K12/K13 at 512, 1024).
+Prints each kernel's CUDA-event ms per build and turn (REPS launches after
+one warm-up), each build's ptxas register and spill lines, and the largest
+difference between the two builds' outputs.
+With the long tier it then times the barriers that end each span of the
+cluster kernels, alone: a probe kernel (built with nvcc into a temporary
+directory) runs B clusters of C blocks of 1,024 threads at each long
+launch shape of chip_smoke.py (C that model's), each block looping over
+2,000 spans with one ``__syncthreads()`` and one cluster ``sync()`` a span
+and nothing else.
 ``--pairhmm`` times the Durbin pair-HMM kernels K14 and K15 instead (a
 forward and a backward launch per timed call) on chip_smoke.py's two Durbin
 sets (630 tRNA pairs at N = 128, 2,016 random pairs at N = 256).  Entry
@@ -31,6 +33,7 @@ points a build does not define are not bound.  Needs a GPU.
 import argparse
 import ctypes
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -44,62 +47,58 @@ REPS = {128: 10, 256: 10, 512: 3, 1024: 3, 2048: 3}
 WAVEFRONT = ("rna_contra_inside", "rna_contra_outside", "rna_turner_inside",
              "rna_turner_outside")
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the entry points of a build from before the merge
-SPLIT_SIGNATURES = {
-    "rna_contra_inside": [_P] * 17 + [_I, _I, _P],
-    "rna_contra_outside": [_P] * 20 + [_I, _I, _I, _P],
-    "rna_turner_inside": [ctypes.POINTER(_P)] + [_P] * 8 + [_I, _I, _P],
-    "rna_turner_outside": [ctypes.POINTER(_P)] + [_P] * 10 + [_I, _I, _I, _P],
-}
+# Ring rows a sequence of an older build's ring scratch: CONTRA's window
+# ring, Turner's three 32-slot rings and its 8-slot ring.
+RING_ROWS = {"rna_contra_inside": 32, "rna_contra_outside": 32,
+             "rna_turner_inside": 104, "rna_turner_outside": 104}
 
 
-# the CONTRA entry points of a build from before the cluster kernels K8/K9:
-# a ring scratch (the last pointer before B), used past N = 256
-RING_SIGNATURES = {
-    "rna_contra_inside": [_P] * 18 + [_I, _I, _P],
-    "rna_contra_outside": [_P] * 21 + [_I, _I, _I, _P],
-}
+def ring_signature(sig):
+    """An entry point's argument types with the ring scratch (a pointer)
+    before B, the first int."""
+    k = sig.index(_I)
+    return [*sig[:k], _P, *sig[k:]]
 
 
-def with_ring(args):
-    """The arguments of a CONTRA entry point with a ring scratch inserted
-    before B: (B, 32, N + 33) floats past N = 256, empty below."""
+def with_ring(name, args):
+    """The arguments of a wavefront entry point with its ring scratch
+    inserted before B: (B, rows, N + 33) floats past N = 256, empty
+    below."""
     k = next(j for j, a in enumerate(args) if isinstance(a, int))
     B, N = args[k], args[k + 1]
-    ring = torch.empty((B, 32, N + 33) if N > 256 else (0,), device="cuda")
+    ring = torch.empty((B, RING_ROWS[name], N + 33) if N > 256 else (0,),
+                       device="cuda")
     return (*args[:k], ctypes.c_void_p(ring.data_ptr()), *args[k:])
 
 
 class RingBuild:
-    """A build from before the cluster kernels K8/K9, called with today's
-    arguments: its CONTRA entry points are handed their ring scratch."""
+    """A build whose wavefront entry points in ``ringed`` take a ring
+    scratch (from before the cluster kernels), called with today's
+    arguments."""
 
-    def __init__(self, lib):
+    def __init__(self, lib, ringed):
         self.lib = lib
+        self.ringed = ringed
         self.path = lib.path
         self.compiler_output = lib.compiler_output
 
     def call(self, name, *args):
-        if name in WAVEFRONT[:2]:
-            args = with_ring(args)
+        if name in self.ringed:
+            args = with_ring(name, args)
         return self.lib.call(name, *args)
 
 
 class SplitBuild(RingBuild):
     """A build from before the merge, called with the merged entry points'
-    arguments: below N = 257 Turner's ring scratch (the last pointer before
-    B) is dropped, past it the ``_long`` entry point is called, the CONTRA
-    ones with their ring scratch."""
+    arguments: past N = 256 the ``_long`` entry point is called, with its
+    ring scratch; below it the entry point itself, which takes none."""
 
     def call(self, name, *args):
         if name in WAVEFRONT:
             k = next(j for j, a in enumerate(args) if isinstance(a, int))
             if args[k + 1] > 256:
-                if name in WAVEFRONT[:2]:
-                    args = with_ring(args)
+                args = with_ring(name, args)
                 name += "_long"
-            elif name in WAVEFRONT[2:]:
-                args = args[:k - 1] + args[k:]
         return self.lib.call(name, *args)
 
 
@@ -113,22 +112,26 @@ def load(csrc, split):
     _build.library.cache_clear()
     saved = _build.SIGNATURES
     text = "".join(p.read_text() for p in csrc.glob("*.cu"))
-    ring = split or "rna_rings(" in (csrc / "contra_inside.cu").read_text()
-    known = {**saved, **RING_SIGNATURES} if ring else saved
-    _build.SIGNATURES = {k: v for k, v in known.items()
-                         if f'"C" int {k}(' in text}
     if split:
-        sigs = {"rna_skew": saved["rna_skew"], **SPLIT_SIGNATURES}
+        sigs = {k: saved[k] for k in ("rna_skew", *WAVEFRONT)}
         if (csrc / "contra_inside_long.cu").exists():
-            sigs.update({k + "_long": known[k] for k in WAVEFRONT})
-        _build.SIGNATURES = sigs
+            sigs.update({k + "_long": ring_signature(saved[k])
+                         for k in WAVEFRONT})
+        ringed = set()
+    else:
+        decl = {k: re.search(rf'"C" int {k}\(([^)]*)\)', text)
+                for k in WAVEFRONT}
+        ringed = {k for k, m in decl.items() if "ring_g" in m.group(1)}
+        sigs = {k: ring_signature(v) if k in ringed else v
+                for k, v in saved.items() if f'"C" int {k}(' in text}
+    _build.SIGNATURES = sigs
     try:
         lib = _build.library()
     finally:
         _build.SIGNATURES = saved
     if split:
-        return SplitBuild(lib)
-    return RingBuild(lib) if ring else lib
+        return SplitBuild(lib, ringed)
+    return RingBuild(lib, ringed) if ringed else lib
 
 
 def use(lib):
@@ -261,8 +264,9 @@ extern "C" int probe_launch(int B, int C, int spans, int* sink,
 
 
 def barrier_probe(chip_smoke):
-    """The barriers that end each span of K8/K9, alone: per long CONTRA
-    launch shape (N, B) and its cluster size C, the ms of one probe launch
+    """The barriers that end each span of the cluster kernels, alone: per
+    long launch shape (N, B) of each model and its inside kernel's cluster
+    size C (K8's or K12's), the ms of one probe launch
     of BARRIER_SPANS spans (CUDA events, 5 launches after a warm-up) and
     the microseconds a span."""
     from rna_algos_tpu_torch.ops import _build
@@ -270,8 +274,9 @@ def barrier_probe(chip_smoke):
 
     sink = torch.zeros(1, dtype=torch.int32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    shapes = sorted(set(chip_smoke.LONG_MAIN["contra"])
-                    | set(chip_smoke.LONG_CHECK["contra"]))
+    shapes = [(model, N, B) for model in ("contra", "turner")
+              for N, B in sorted(set(chip_smoke.LONG_MAIN[model])
+                                 | set(chip_smoke.LONG_CHECK[model]))]
     with tempfile.TemporaryDirectory() as tmp:
         src, so = pathlib.Path(tmp, "probe.cu"), pathlib.Path(tmp, "probe.so")
         src.write_text(BARRIER_PROBE)
@@ -279,8 +284,8 @@ def barrier_probe(chip_smoke):
                         "-o", str(so), str(src)], check=True)
         lib = ctypes.CDLL(str(so))
         lib.probe_launch.argtypes = [_I] * 3 + [_P] * 2
-        for N, B in shapes:
-            C = PL.contra_cluster_sizes(B, N)[0]
+        for model, N, B in shapes:
+            C = getattr(PL, f"{model}_cluster_sizes")(B, N)[0]
 
             def launch():
                 err = lib.probe_launch(B, C, BARRIER_SPANS, sink.data_ptr(),
@@ -289,7 +294,7 @@ def barrier_probe(chip_smoke):
                     raise RuntimeError(f"barrier probe: CUDA error {err}")
 
             ms = chip_smoke.cuda_ms(launch, 5)
-            print(f"barrier N={N} B={B} C={C}: {ms:.4f} ms for "
+            print(f"barrier {model} N={N} B={B} C={C}: {ms:.4f} ms for "
                   f"{BARRIER_SPANS} spans, {1e3 * ms / BARRIER_SPANS:.4f} us "
                   "a span (cluster barrier + block barrier)")
 

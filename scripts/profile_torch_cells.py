@@ -5,10 +5,10 @@ on a CUDA GPU.
     python scripts/profile_torch_cells.py [--trace-dir DIR]
 
 Cells as in chip_smoke.py: the six tRNAs tiled to B = 192 (bucket 128), 96
-seeded random 150-200 nt sequences (bucket 256) and 16 seeded random
-600-1,000 nt sequences (bucket 1024, the long tier), for CONTRA and Turner;
-CONTRA also on the long tier's 32 random 300-500 nt (bucket 512) and 8
-random 1,100-2,000 nt (bucket 2048) sequences;
+seeded random 150-200 nt sequences (bucket 256), and the long tier's 32
+random 300-500 nt (bucket 512) and 16 random 600-1,000 nt sequences
+(bucket 1024), for CONTRA and Turner; CONTRA also on 8 random 1,100-2,000
+nt sequences (bucket 2048);
 and the Durbin pair-HMM on chip_smoke.py's three runs: the 630 pairs of
 the tRNAs tiled to 36 sequences (bucket 128) exact and parity, and the
 2,016 pairs of 64 random 150-200 nt sequences (bucket 256) exact; and the
@@ -36,12 +36,12 @@ sys.path.insert(0, str(ROOT))
 
 # unprofiled batches timed per cell, as chip_smoke.py's throughput phase
 REPS = 5
-# device kernel names: the narrow (N <= 256) and the long-tier (N > 256)
+# device kernel names: the narrow (N <= 256) and the cluster (N > 256)
 # entry kernels of each wavefront source
 KERNELS = ("skew_kernel", "contra_inside_kernel", "contra_outside_kernel",
            "turner_inside_kernel", "turner_outside_kernel",
            "contra_inside_cluster_kernel", "contra_outside_cluster_kernel",
-           "turner_inside_wide_kernel", "turner_outside_wide_kernel",
+           "turner_inside_cluster_kernel", "turner_outside_cluster_kernel",
            "pairhmm_prob_kernel", "pairhmm_log_kernel",
            "contra_inside_log_kernel", "contra_outside_log_kernel",
            "turner_inside_log_kernel", "turner_outside_log_kernel")
@@ -123,9 +123,9 @@ def main(argv=None):
                "turner": FoldEngine(uses_contra_model=False, device="cuda")}
     calls = {(m, c): (lambda e=engines[m], s=cells[c]: e.fold_batch(s))
              for m in engines for c in cells}
-    # the long cells: CONTRA at every long bucket, Turner at 1024
+    # the long cells: CONTRA at every long bucket, Turner at 512 and 1024
     for c, seqs in longs.items():
-        for m in ("contra", "turner") if "N1024" in c else ("contra",):
+        for m in ("contra",) if "N2048" in c else ("contra", "turner"):
             calls[(m, c)] = (lambda e=engines[m], s=seqs: e.fold_batch(s))
     for m in ("contra", "turner"):
         engine = FoldEngine(uses_contra_model=m == "contra", device="cuda",

@@ -1,7 +1,7 @@
 """Kernels K1-K5, K8, K9, K12-K19 against their plain versions on a
 CUDA GPU: the checks of chip_smoke.py, at the main paths' buckets (the long
-tier's at a centred per-sequence ln_sigma, K8/K9 on live cells with their
-dead cells 0, at every cluster size the check shapes take; the pair-HMM's at each pair's
+tier's at a centred per-sequence ln_sigma, K8/K9 and K12/K13 on live cells
+with their dead cells 0, at every cluster size the check shapes take; the pair-HMM's at each pair's
 settled ln_sigma, the parity tier's log kernels on a few random sequences
 at N = 128 and 256).  Skipped without a GPU; run on
 the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""

@@ -1,9 +1,9 @@
 """The dead-cell contract of the probability-space wavefronts, on the CPU.
 
 A cell (d, i) of the [d, i] tables is dead when i + d >= n: its pair
-(i, i + d) ends past the sequence.  The long CONTRA kernels K8 and K9 skip
-such cells and leave them the zeros the wrappers pass, so nothing
-downstream of them may read one.  Here the plain path, on a ragged batch at
+(i, i + d) ends past the sequence.  The long kernels K8, K9 (CONTRA) and
+K12, K13 (Turner) skip such cells and leave them the zeros the wrappers
+pass, so nothing downstream of them may read one.  Here the plain path, on a ragged batch at
 N = 128, has close, ext and one set to NaN at every dead cell before the
 outside auxiliaries, and bppo set to NaN there before the finish: the
 settled ln_sigma, the live BPPs and the presence must be bitwise those of
