@@ -22,7 +22,10 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    630 tRNA pairs at N = 128 and 2,016 random pairs at N = 256, at each
    pair's settled ln_sigma; the parity tier's log-space K16, K17 (CONTRA)
    and K18, K19 (Turner) at N = 128, B = 192 and N = 256, B = 96 on random
-   sequences, the -inf pattern identical and bitwise equality stated), and
+   sequences, the -inf pattern identical and bitwise equality stated, K17
+   and K19 bitwise equal there and on edge batches at N = 32 and N = 256
+   (n = 1, 2, 3 and lengths around powers of two), each launch's threads a
+   lane printed), and
    each one's time beside the plain version's, its bound and, for K3, the
    time of one torch.gather computing the same skew, at the main paths'
    shapes;
@@ -154,18 +157,34 @@ RTOL_LOG = 1e-4
 TOL_PARITY_MAIN = 1e-5
 LOG_KERNELS = ("contra_inside_log", "contra_outside_log", "turner_inside_log",
                "turner_outside_log")
+# K17 and K19 split every tree exactly as the halving tree splits, so they
+# must be bitwise equal to their plain versions, also on batches that reach
+# the split's edges: n = 1, 2, 3 (k = 0 at every first span), trees smaller
+# than a lane's thread group, lanes whose context trees are all -inf (i = 0,
+# or k = 0), lengths just past a power of two.  With the main shapes they
+# reach every group size (G = 32, 16, 8, 4 at N = 32, 64, 128, 256; N = 64
+# is the parity path's smallest bucket).
+LOG_BITWISE = ("contra_outside_log", "turner_outside_log")
+LOG_EDGE = {32: (1, 2, 3, 4, 5, 7, 9, 16, 31, 32),
+            64: (1, 2, 3, 16, 17, 33, 63, 64),
+            256: (1, 2, 3, 5, 30, 33, 64, 129, 200, 256)}
 # Float operations of the log kernels (the bound): a cubic lse_pair counts
 # 8 (sub, 3 mul, 3 add, add), an add or a multiply 1.  Per live cell:
 # inside, 10 per 2-loop window cell (2 adds, 1 log-add), 28 per bifurcation
 # term t < d (ext: add + log-add; s1: mul + add + log-add; s2: add +
 # log-add) and 65 for close, rm/rmmb and the finishing log-adds; outside,
 # 11 per window cell (3 adds, 1 log-add), 19 per pm/pm2 term, 20 per
-# multibranch term (lane i has min(i, k) of them) and 40 for the rest, plus
-# 9 a cell for the QONEMB column.  Bytes: each [d, i] table read once, the
-# outputs written once.
+# multibranch term and 40 for the rest, plus 9 a cell for the QONEMB column,
+# counted as this run's data needs them (log_outside_terms).  Bytes: inside,
+# each [d, i] table read once whole, the outputs written once; outside, each
+# input where this run's data needs it (log_outside_bytes), bppo written
+# once whole.
 LOG_OPS = {"inside": (10, 28, 65), "outside": (11, 19, 20, 40, 9)}
-LOG_TABLES = {"contra_inside_log": 10 + 3, "contra_outside_log": 8 + 4,
-              "turner_inside_log": 18 + 3, "turner_outside_log": 17 + 4}
+LOG_TABLES = {"contra_inside_log": 10 + 3, "turner_inside_log": 18 + 3}
+# Outside inputs besides CLOSE, ONEP and QONE: the other [d, i] tables, the
+# per-lane vectors (EXTR besides) and the (32, 31) length tables.
+LOG_OUTSIDE_INPUTS = {"contra_outside_log": (7, 2, 1),
+                      "turner_outside_log": (16, 1, 2)}
 
 
 def random_batch(B, lo, hi, seed):
@@ -440,29 +459,86 @@ def work(kernel, inp):
 
 
 def log_work(kernel, inp):
-    """(bytes, FLOPs) of one call of a log kernel (K16-K19) on ``inp``:
-    LOG_TABLES and LOG_OPS on the live cells of this run's lengths (window
-    cells whose inner or outer pair exists, bifurcation and multibranch
-    terms up to the span)."""
+    """(bytes, FLOPs) of one call of a log kernel (K16-K19) on ``inp``.
+    Inside: LOG_TABLES and LOG_OPS on the live cells of this run's lengths,
+    window cells whose inner pair exists, bifurcation terms up to the span.
+    Outside, what this run's data needs (``log_outside_bytes``,
+    ``log_outside_terms``)."""
     B, N = inp["seqs"].shape
-    nbytes = LOG_TABLES[kernel] * 4.0 * B * N * N
-    if kernel.endswith("inside_log"):
-        win, per_t, cell = LOG_OPS["inside"]
-        ops = 0.0
-    else:
+    if kernel.endswith("outside_log"):
         win, per_s, per_t, cell, qmb = LOG_OPS["outside"]
-        ops = float(qmb * B * N * N)
+        cells, wins, pms, ctxs = log_outside_terms(inp)
+        return (log_outside_bytes(kernel, inp),
+                float(qmb * B * N * N + cell * cells + win * wins
+                      + per_s * pms + per_t * ctxs))
+    nbytes = LOG_TABLES[kernel] * 4.0 * B * N * N
+    win, per_t, cell = LOG_OPS["inside"]
+    ops = 0.0
     for n, d, lanes in _live_cells(inp["ns"].tolist()):
-        if kernel.endswith("inside_log"):
-            m = np.minimum(d - 2, 30)
-            cells = np.where(m >= 0, (m + 1) * (m + 2) / 2, 0)
-            ops += float((lanes * (win * cells + per_t * d + cell)).sum())
-        else:
-            m = np.minimum(n - 3 - d, 30)
-            cells = np.where(m >= 0, (m + 1) * (m + 2) / 2, 0)
-            ops += float((lanes * (win * cells + per_s * (n - 1 - d) + cell)
-                          + per_t * lanes * (lanes - 1) / 2).sum())
+        m = np.minimum(d - 2, 30)
+        cells = np.where(m >= 0, (m + 1) * (m + 2) / 2, 0)
+        ops += float((lanes * (win * cells + per_t * d + cell)).sum())
     return nbytes, ops
+
+
+def _outside_cells(inp):
+    """Per sequence of an outside log call: (n, D, I, live, full), the
+    [d, i] grids, the live cells (i + d < n) and the full ones (live, CLOSE
+    finite, d + 1 >= min_span: the only cells whose bppo is not -inf)."""
+    args = inp["outside_args"]
+    close = torch.isfinite(args[0]["CLOSE"]).cpu().numpy()
+    min_span = int(args[-1])
+    N = close.shape[1]
+    D, I = np.meshgrid(np.arange(N), np.arange(N), indexing="ij")
+    for b, n in enumerate(inp["ns"].tolist()):
+        live = D + I <= n - 1
+        yield n, D, I, live, live & close[b] & (D + 1 >= min_span)
+
+
+def log_outside_terms(inp):
+    """The terms an outside log call (K17, K19) needs on this run's data:
+    (live cells, window leaves, pm/pm2 terms, multibranch context terms).
+    At live cell (d, i), with r = n - 1 - d - i and k = n - 1 - d: r pm
+    terms (the g cells past the sequence's end are -inf); where CLOSE is
+    finite and the span reaches min_span, also the window leaves
+    sum_{a < min(i, 31)} min(31 - a, r) (outer pairs inside the sequence)
+    and min(i, k) context terms."""
+    totals = np.zeros(4)
+    for n, D, I, live, full in _outside_cells(inp):
+        r = n - 1 - D - I
+        A = np.minimum(I, 31)
+        win = sum(np.where(a < A, np.minimum(31 - a, r), 0)
+                  for a in range(31))
+        totals += (live.sum(), win[full].sum(), r[live].sum(),
+                   np.minimum(I, n - 1 - D)[full].sum())
+    return totals
+
+
+def log_outside_bytes(kernel, inp):
+    """The bytes an outside log call (K17, K19) must move on this run's
+    data, each input cell read once where some term needs it and bppo
+    written once whole: CLOSE at every live cell; the other [d, i] tables at
+    the full cells (elsewhere bppo, g and the window rows are -inf whatever
+    they hold); ONEP at the pm terms' cells (s, c = i + d + 1), s < n - c,
+    of spans d + 1 >= min_span; QONE at the context terms' cells (t, i),
+    1 <= t <= min(i, n - 1 - d), of the full cells; EXTL (and B0LO) at the
+    full cells' lanes, EXTR at their pair ends j + 1; the length tables,
+    scal and ns whole."""
+    from rna_algos_tpu_torch.ops.pallas_fold import N_SCAL, W, W2
+
+    others, vectors, lens = LOG_OUTSIDE_INPUTS[kernel]
+    B, N = inp["seqs"].shape
+    min_span = int(inp["outside_args"][-1])
+    cells = 0.0
+    for n, D, I, live, full in _outside_cells(inp):
+        lanes = full.any(axis=0)
+        kmax = n - 1 - np.where(lanes, full.argmax(axis=0), n - 1)
+        c = np.arange(max(min_span, 1), n)
+        cells += (live.sum() + others * full.sum() + (n - c).sum()
+                  + np.minimum(np.arange(N), kmax)[lanes].sum()
+                  + vectors * lanes.sum()
+                  + len(np.unique((D + I + 1)[full])))
+    return 4.0 * (cells + lens * W2 * W + B * N_SCAL + B + B * N * N)
 
 
 def reread_ms(kernel, inp):
@@ -512,17 +588,22 @@ def skew_library_call(tables):
     return call
 
 
-def log_inputs(model, N, B, seed, device):
+def log_inputs(model, N, B, seed, device, lengths=None):
     """The arguments the parity path hands its inside and outside kernels
     (K16/K17 for CONTRA, K18/K19 for Turner) on B random sequences of
-    N/2 + 10 to N nt, recorded from one run of the path's fold function (the
-    outside's from the inside kernel's outputs)."""
+    N/2 + 10 to N nt (or of the given ``lengths``), recorded from one run of
+    the path's fold function (the outside's from the inside kernel's
+    outputs)."""
     from rna_algos_tpu_torch.ops import pallas_fold as PF
     from rna_algos_tpu_torch.params import build_fold_score_sets
     from rna_algos_tpu_torch.weights import contra_tables, turner_tables
 
-    seqs, ns = padded(random_batch(B, max(30, N // 2 + 10), N, seed), N,
-                      device)
+    if lengths is None:
+        batch = random_batch(B, max(30, N // 2 + 10), N, seed)
+    else:
+        rng = np.random.default_rng(seed)
+        batch = [list(rng.integers(0, 4, size=n)) for n in lengths]
+    seqs, ns = padded(batch, N, device)
     kernels = (f"{model}_inside_log", f"{model}_outside_log")
     if model == "contra":
         fold = PF.mccaskill_contra_pallas
@@ -552,8 +633,9 @@ def log_inputs(model, N, B, seed, device):
 def check_log(x, kernel, args):
     """A log kernel (K16-K19) against its plain version on the card: the
     -inf pattern identical, no NaN, finite cells within RTOL_LOG *
-    max(1, |x|).  Returns (max abs error, max relative error, bitwise,
-    the plain version's ms: CUDA events around its one call)."""
+    max(1, |x|); K17 and K19 bitwise equal (LOG_BITWISE).  Returns (max
+    abs error, max relative error, bitwise, the plain version's ms: CUDA
+    events around its one call)."""
     kern, plain = wrappers(kernel)
     label = LABELS[kernel]
     got = kern(*args)
@@ -585,19 +667,74 @@ def check_log(x, kernel, args):
               f"-inf pattern identical, bitwise equal: {exact}")
         if not r <= RTOL_LOG:
             raise AssertionError(f"{label} {name} differs from plain: {r}")
+        if kernel in LOG_BITWISE and not exact:
+            raise AssertionError(f"{label} {name} is not bitwise equal to "
+                                 "its plain version")
         worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
     return worst_abs, worst_rel, bitwise, t0.elapsed_time(t1)
+
+
+def check_log_dead_cells(x):
+    """K17 or K19 (x's outside kernel) lets no dead cell through: with NaN
+    in every dead cell (i + d >= n) of each [d, i] table it is handed and
+    in all of its scratch, its bppo is bitwise that of the call on the
+    untouched inputs, and -inf in every dead cell.  Two kernel launches,
+    no plain version (on CPU tensors, two calls of the plain version)."""
+    from rna_algos_tpu_torch.ops import pallas_fold as PF
+
+    kernel = x["kernels"][1]
+    kern = wrappers(kernel)[0]
+    args = x["outside_args"]
+    want = kern(*args)
+    N = want.shape[1]
+    r = torch.arange(N, device=want.device)
+    dead = (r[None, :, None] + r[None, None, :]) >= x["ns"].view(-1, 1, 1)
+    nan = torch.full((), float("nan"), device=want.device)
+    mo = {k: torch.where(dead, nan, v) for k, v in args[0].items()}
+    scratch = PF._outside_log_scratch
+    PF._outside_log_scratch = lambda *a: tuple(
+        t.fill_(float("nan")) for t in scratch(*a))
+    try:
+        got = kern(mo, *args[1:])
+    finally:
+        PF._outside_log_scratch = scratch
+    if not (torch.equal(got.view(torch.int32), want.view(torch.int32))
+            and bool((got[dead] == float("-inf")).all())):
+        raise AssertionError(f"{LABELS[kernel]}: a dead cell or the scratch "
+                             "reached bppo")
+    print(f"  {LABELS[kernel]}: NaN in every dead table cell and the "
+          "scratch, bppo bitwise unchanged")
+
+
+def log_groups(N):
+    """K17's and K19's launch layout at N, for the log."""
+    from rna_algos_tpu_torch.ops import pallas_fold as PF
+
+    g = PF.outside_log_group(N)
+    return (f"K17/K19 {g} threads a lane, {N * g} threads a sequence, "
+            "cluster size 1")
 
 
 def log_checks(device, err, rel, times, smi):
     """Phase 2 for K16-K19: each against its plain version at the main
     paths' shapes, its ms per launch (3 after a warm-up) beside the plain
     version's and the bound, into ``err``, ``rel`` and
-    ``times[kernel][shape]``."""
+    ``times[kernel][shape]``; before that K17 and K19 alone, bitwise, on
+    the edge batches of LOG_EDGE, and with their dead cells poisoned."""
+    for N, lengths in LOG_EDGE.items():
+        for model in ("contra", "turner"):
+            x = log_inputs(model, N, len(lengths), seed=5 * N + len(model),
+                           device=device, lengths=lengths)
+            print(f"check {model} log edge N={N} n={lengths}, "
+                  f"{log_groups(N)}")
+            kernel = x["kernels"][1]
+            a, _r, _exact, _pms = check_log(x, kernel, x["outside_args"])
+            err[kernel] = max(err[kernel], a)
+            check_log_dead_cells(x)
     for N, B in SHAPES_MAIN:
         for model in ("contra", "turner"):
             x = log_inputs(model, N, B, seed=11 * N + len(model), device=device)
-            print(f"check {model} log N={N} B={B}")
+            print(f"check {model} log N={N} B={B}, {log_groups(N)}")
             for kernel, args in zip(x["kernels"],
                                     (x["inside_args"], x["outside_args"])):
                 a, r, exact, pms = check_log(x, kernel, args)

@@ -12,21 +12,36 @@
 //   body  = JB + LEN[b][a]; (0,0): STKO - JS(d+2, i-1); (0,1): + B0RO;
 //           (1,0): + B0LO(i); (1,1): + I11O
 //   bppo  = base (+) two (+) ctx, -inf where CLOSE is -inf or the span is
-//           below min_span; ctx, pm, pm2: rna_log_mb_context
+//           below min_span; ctx, pm, pm2: rna_log_split_context
 //   g2    = bppo - CLOSE + JS,  g = bppo + MBC - CLOSE (-inf where CLOSE is)
 //
-// with g2 of each finished span in the window ring.  Every -inf - -inf of
-// the JAX kernel is guarded as it guards it (the stack's JS term is 0 where
-// span d + 2 was not reached; g2 and g are -inf where CLOSE is), so no NaN
-// reaches presence.
+// Every -inf - -inf of the JAX kernel is guarded as it guards it (the
+// stack's JS term is 0 where span d + 2 was not reached; g2 and g are -inf
+// where CLOSE is), so no NaN reaches presence.
 //
-// Bound: latency, as K16: n dependent spans, each lane's ~650 window
-// leaves and ~2 x 2k multibranch leaves a span, each a cubic log-add.
-// Design as K16: one block per sequence, thread i = lane i, the window a
-// 32-slot ring of g2 rows in shared memory (lanes offset by 32, -inf to the
-// left), the g/pm/pm2 histories in global scratch in [d, i] layout
-// (coalesced reads of pm(d+t, i-t)); the span-invariant QONEMB column of
-// each lane is computed once, into scratch, before the span loop.
+// Bound: latency and issue.  n dependent spans; a live lane's span is ~500
+// window leaves and ~2k + 2 min(i, k) multibranch leaves (k = n - 1 - d),
+// each a cubic log-add of ~40 dependent instructions.
+// Design: one block of 1,024 threads per sequence, a group of G = 1024 / N
+// threads a lane (fold_log.cuh rna_log_group: 4 at N = 256, 8 at 128).
+// The group splits every tree as the halving tree splits (bitwise equal to
+// the plain version): the window's 31 trees dealt whole to its threads, the
+// four multibranch trees by residue, with shuffles for the top levels.
+// Only live work runs: a lane with i + d >= n does nothing at span d (its
+// bppo stays the wrapper's -inf), and a lane whose CLOSE is -inf computes
+// only pm and pm2.  Nothing reads a dead cell's g, g2, pm or pm2 (the
+// window's and pm's leaves that would lie past the sequence's end, and the
+// window's lanes left of 0, are skipped; the context reads (d+t, i-t),
+// live), so those cells are never written.  The window rows sit in a
+// 33-slot ring in shared memory (RNA_OWIN: one barrier a span); a span's
+// ten table cells a lane are staged one span ahead with cp.async; g
+// (transposed), (pm2, pm) (by pair end j) and QONEMB (transposed, computed
+// by the whole block first) live in the wrapper's scratch, laid out so a
+// group's leaves read neighbouring words.  Every log-add takes its cubic's
+// coefficients from shared memory by index (rna_lse_pair_s), the same bits
+// as rna_lse_pair in fewer instructions.
+
+#include <cuda_pipeline.h>
 
 #include "fold_log.cuh"
 
@@ -34,116 +49,167 @@ struct ContraOutsideLogTables {
   const float* t[8];  // CLOSE MBC ACC STKO I11O B0RO JB JS
 };
 
+// Staged cells of a lane and span: the 8 tables at (d, i), JS(d+2, i-1)
+// (0 where span d + 2 was not reached) and EXTR(j+1).
+#define COL_JS2 8
+#define COL_EXTR 9
+#define COL_STAGED 10
+
 #define COL_PARAMS                                                           \
   ContraOutsideLogTables tabs, const float *__restrict__ ONEP,               \
       const float *__restrict__ QONE, const float *__restrict__ B0LO,        \
       const float *__restrict__ EXTL, const float *__restrict__ EXTR,        \
       const float *__restrict__ LEN, const float *__restrict__ scal,         \
-      const int *__restrict__ ns, float *bppo, float *g_hist,                \
-      float *pm_hist, float *pm2_hist, float *qmb, int N, int min_span
+      const int *__restrict__ ns, float *bppo, float *g_t, float2 *pp,       \
+      float *qmb, int N, int min_span
 
-__global__ void contra_outside_log_kernel(COL_PARAMS) {
+// Stage span d's cells of lanes 0 .. n-1-d into `st` ([k][lane]).
+__device__ __forceinline__ void col_stage(const ContraOutsideLogTables& tabs,
+                                          const float* __restrict__ EXTR,
+                                          float* st, long long base, int b,
+                                          int d, int n, int N) {
+  const int nl = n - d;
+  for (int e = threadIdx.x; e < COL_STAGED * nl; e += blockDim.x) {
+    const int k = e / nl, l = e - k * nl;
+    float* dst = st + k * N + l;
+    if (k < COL_JS2) {
+      __pipeline_memcpy_async(dst, tabs.t[k] + base + (long long)d * N + l,
+                              sizeof(float));
+    } else if (k == COL_EXTR) {
+      __pipeline_memcpy_async(dst, EXTR + (long long)b * 2 * N + l + d + 1,
+                              sizeof(float));
+    } else if (d + 2 <= n - 1 && l >= 1) {
+      __pipeline_memcpy_async(
+          dst, tabs.t[7] + base + (long long)(d + 2) * N + l - 1,
+          sizeof(float));
+    } else {
+      *dst = 0.0f;
+    }
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(RNA_LOG_THREADS, 1)
+    contra_outside_log_kernel(COL_PARAMS) {
   extern __shared__ float smem[];
-  const int LW = N + 32;                 // ring row: 32 pad lanes + N
-  float* ring = smem;                    // RNA_WIN * LW
-  float* len = ring + RNA_WIN * LW;      // RNA_LEN_SIZE
-  const float* CLOSE = tabs.t[0];
-  const float* MBC = tabs.t[1];
-  const float* ACC = tabs.t[2];
-  const float* STKO = tabs.t[3];
-  const float* I11O = tabs.t[4];
-  const float* B0RO = tabs.t[5];
-  const float* JB = tabs.t[6];
-  const float* JS = tabs.t[7];
+  float* ring = smem;                    // RNA_OWIN * N: g2 rows
+  float* len = ring + RNA_OWIN * N;      // RNA_LEN_SIZE
+  float* stage = len + RNA_LEN_SIZE;     // 2 * COL_STAGED * N
 
   const int b = blockIdx.x;
-  const int i = threadIdx.x;
-  for (int e = i; e < RNA_WIN * LW; e += N) ring[e] = RNA_NEG;
-  for (int e = i; e < RNA_LEN_SIZE; e += N) len[e] = LEN[e];
+  const int tid = threadIdx.x;
+  const int i = tid / G, r = tid % G;
+  const unsigned mask = rna_group_mask<G>(tid);
+  rna_ln_coef_load();
+  __syncthreads();
+  for (int e = tid; e < RNA_LEN_SIZE; e += blockDim.x) len[e] = LEN[e];
   const float* sc = scal + b * RNA_LOG_SCAL;
   const float ebp = sc[1], mbu = sc[2], mbbp = sc[3];
   const float glob = sc[RNA_LOG_GLOB];
   const int n = ns[b];
   const long long base = (long long)b * N * N;
-  rna_log_qone_mb<true>(QONE, mbu, base, i, N, qmb);
+  rna_log_qone_mb_t<true>(QONE, mbu, base, N, qmb);
   const float lt = EXTL[(long long)b * N + i];
   const float b0lo = B0LO[(long long)b * N + i];
+  if (n <= 0) return;
+  col_stage(tabs, EXTR, stage + ((n - 1) & 1) * COL_STAGED * N, base, b,
+            n - 1, n, N);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
   __syncthreads();
 
   for (int d = n - 1; d >= 0; --d) {
-    // phase A: bppo from the ring (spans > d + 1) and the histories of
-    // spans > d
-    const long long row = base + (long long)d * N + i;
-    const bool span_ok = d + 1 >= min_span;
-    const float c = CLOSE[row];
-    const float acc = radd(c, ACC[row]);
-    const float bse = radd(
-        rsub(radd(radd(lt, acc), EXTR[(long long)b * 2 * N + i + d + 1]),
-             glob),
-        ebp);
-    const float jrb = JB[row];
-    const float stk_js =
-        rsub(STKO[row], (d + 2 <= n - 1 && i >= 1)
-                            ? JS[base + (long long)(d + 2) * N + i - 1]
-                            : 0.0f);
-    const float b0ro = B0RO[row], i11o = I11O[row];
-    float two = RNA_NEG;
-    for (int a = 0; a < RNA_SHIFTS; ++a) {
-      const int live = RNA_SHIFTS - a;
-      const int lg = rna_log2_ceil(live);
-      const float* lane = ring + 32 + i - 1 - a;
-      RnaTree tr;
-      float tsum = RNA_NEG;
-      for (int m = 0; m < (1 << lg); ++m) {
-        const int bb = rna_leaf(m, lg);
-        float leaf = RNA_NEG;
-        if (bb < live) {
-          float body;
-          if (a == 0 && bb == 0) {
-            body = stk_js;
-          } else {
-            body = radd(jrb, len[bb * RNA_SHIFTS + a]);
-            if (a == 0 && bb == 1) body = radd(body, b0ro);
-            else if (a == 1 && bb == 0) body = radd(body, b0lo);
-            else if (a == 1 && bb == 1) body = radd(body, i11o);
-          }
-          leaf = radd(
-              radd(body, lane[((d + 2 + a + bb) & (RNA_WIN - 1)) * LW]), c);
+    if (d >= 1)
+      col_stage(tabs, EXTR, stage + ((d - 1) & 1) * COL_STAGED * N, base, b,
+                d - 1, n, N);
+    __pipeline_commit();
+    const int ri = n - 1 - d - i;  // live lanes: ri >= 0
+    if (ri >= 0) {
+      const float* st = stage + (d & 1) * COL_STAGED * N + i;
+      const float c = st[0];
+      const bool span_ok = d + 1 >= min_span;
+      const bool ok = c > RNA_NEG;
+      float bp = RNA_NEG, pm = RNA_NEG, pm2 = RNA_NEG;
+      if (span_ok) {
+        const float acc = radd(c, st[2 * N]);
+        const float ctx = rna_log_split_context<true, G>(
+            radd(acc, mbbp), mbu, base, d, i, n, N, r, mask, ok, ONEP, QONE,
+            g_t, pp, qmb, pm, pm2);
+        if (ok) {
+          const float bse = radd(
+              rsub(radd(radd(lt, acc), st[COL_EXTR * N]), glob), ebp);
+          const float jrb = st[6 * N];
+          const float stk_js = rsub(st[3 * N], st[COL_JS2 * N]);
+          const float b0ro = st[5 * N], i11o = st[4 * N];
+          const int slot0 = (d + 2) % RNA_OWIN;
+          const float two = rna_log_split_window<G>(
+              i, ri, r, mask, [&](int a, int bb) {
+                float body;
+                if (a == 0 && bb == 0) {
+                  body = stk_js;
+                } else {
+                  body = radd(jrb, len[bb * RNA_SHIFTS + a]);
+                  if (a == 0 && bb == 1) body = radd(body, b0ro);
+                  else if (a == 1 && bb == 0) body = radd(body, b0lo);
+                  else if (a == 1 && bb == 1) body = radd(body, i11o);
+                }
+                int s = slot0 + a + bb;
+                if (s >= RNA_OWIN) s -= RNA_OWIN;
+                return radd(radd(body, ring[s * N + i - 1 - a]), c);
+              });
+          bp = rna_lse_pair_s(rna_lse_pair_s(bse, two), ctx);
         }
-        tsum = tr.push(m, leaf);
       }
-      two = rna_lse_pair(two, tsum);
+      if (r == 0) {
+        const long long row = base + (long long)d * N + i;
+        bppo[row] = bp;
+        g_t[base + (long long)i * N + d] =
+            ok ? rsub(radd(bp, st[1 * N]), c) : RNA_NEG;
+        pp[base + (long long)(i + d) * N + i] = make_float2(pm2, pm);
+        ring[(d % RNA_OWIN) * N + i] =
+            ok ? radd(rsub(bp, c), st[7 * N]) : RNA_NEG;
+      }
     }
-    float pm, pm2;
-    const float ctx = rna_log_mb_context<true>(
-        radd(acc, mbbp), mbu, base, d, i, n - 1 - d, N, ONEP, QONE, g_hist,
-        pm_hist, pm2_hist, qmb, pm, pm2);
-    float bp = rna_lse_pair(rna_lse_pair(bse, two), ctx);
-    const bool ok = c > RNA_NEG;
-    if (!(ok && span_ok)) bp = RNA_NEG;
-    bppo[row] = bp;
-    g_hist[row] = ok ? rsub(radd(bp, MBC[row]), c) : RNA_NEG;
-    pm_hist[row] = span_ok ? pm : RNA_NEG;
-    pm2_hist[row] = span_ok ? pm2 : RNA_NEG;
-    const float g2 = ok ? radd(rsub(bp, c), JS[row]) : RNA_NEG;
-    __syncthreads();
-
-    // phase B: insert span d into the ring
-    ring[(d & (RNA_WIN - 1)) * LW + 32 + i] = g2;
+    __pipeline_wait_prior(0);
     __syncthreads();
   }
+}
+
+template <int G>
+static int col_launch(const ContraOutsideLogTables& tabs, const float* ONEP,
+                      const float* QONE, const float* B0LO, const float* EXTL,
+                      const float* EXTR, const float* LEN, const float* scal,
+                      const int* ns, float* bppo, float* g_t, float2* pp,
+                      float* qmb, int B, int N, int min_span, void* stream) {
+  const size_t shmem =
+      sizeof(float) * (RNA_OWIN * N + RNA_LEN_SIZE + 2 * COL_STAGED * N);
+  return rna_launch(contra_outside_log_kernel<G>, B, N * G, shmem, stream,
+                    tabs, ONEP, QONE, B0LO, EXTL, EXTR, LEN, scal, ns, bppo,
+                    g_t, pp, qmb, N, min_span);
+}
+
+// Threads a lane of K17 and K19 at N (0 if N is not a log shape).
+extern "C" int rna_outside_log_group(int N) {
+  return rna_log_shape_ok(N) ? rna_log_group(N) : 0;
 }
 
 extern "C" int rna_contra_outside_log(
     void** tables, const float* ONEP, const float* QONE, const float* B0LO,
     const float* EXTL, const float* EXTR, const float* LEN, const float* scal,
-    const int* ns, float* bppo, float* g_hist, float* pm_hist,
-    float* pm2_hist, float* qmb, int B, int N, int min_span, void* stream) {
+    const int* ns, float* bppo, float* g_t, float* pp, float* qmb, int B,
+    int N, int min_span, void* stream) {
   if (!rna_log_shape_ok(N)) return (int)cudaErrorInvalidValue;
   ContraOutsideLogTables tabs;
   for (int k = 0; k < 8; ++k) tabs.t[k] = (const float*)tables[k];
-  const size_t shmem = sizeof(float) * (RNA_WIN * (N + 32) + RNA_LEN_SIZE);
-  return rna_launch(contra_outside_log_kernel, B, N, shmem, stream, tabs,
-                    ONEP, QONE, B0LO, EXTL, EXTR, LEN, scal, ns, bppo, g_hist,
-                    pm_hist, pm2_hist, qmb, N, min_span);
+  float2* pp2 = (float2*)pp;
+#define COL_ARGS tabs, ONEP, QONE, B0LO, EXTL, EXTR, LEN, scal, ns, bppo, \
+                 g_t, pp2, qmb, B, N, min_span, stream
+  switch (rna_log_group(N)) {
+    case 4: return col_launch<4>(COL_ARGS);
+    case 8: return col_launch<8>(COL_ARGS);
+    case 16: return col_launch<16>(COL_ARGS);
+    case 32: return col_launch<32>(COL_ARGS);
+  }
+#undef COL_ARGS
+  return (int)cudaErrorInvalidValue;
 }

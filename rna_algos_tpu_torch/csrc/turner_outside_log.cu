@@ -14,7 +14,13 @@
 //   g2   = bppo - CLOSE + AUGT,  g = bppo + MBC - CLOSE
 //   pm2  = tree_s g(d+1+s, i), QONEMB = QONE (+) 0, acc_mb = acc + coeff.
 //
-// Bound and design as K17, with K18's four shared-memory rings.
+// Bound and design as K17: a group of G = 1024 / N threads a lane, the
+// trees split as the halving tree splits, live work only (no dead cell's
+// g, g2, pm, pm2 or TMo ring cell is read, so none is written), four
+// 33-slot rings in shared memory (g2 and TMo1..3), the span's 17 table
+// cells and EXTR a lane staged one span ahead with cp.async.
+
+#include <cuda_pipeline.h>
 
 #include "fold_log.cuh"
 
@@ -25,31 +31,51 @@ struct TurnerOutsideLogTables {
   const float* t[TOL_COUNT];
 };
 
+// Staged cells of a lane and span: the 17 tables at (d, i), EXTR(j+1).
+#define TOL_EXTR TOL_COUNT
+#define TOL_STAGED (TOL_COUNT + 1)
+
 #define TOL_PARAMS                                                           \
   TurnerOutsideLogTables tabs, const float *__restrict__ ONEP,               \
       const float *__restrict__ QONE, const float *__restrict__ EXTL,        \
       const float *__restrict__ EXTR, const float *__restrict__ LENB,        \
       const float *__restrict__ LENI, const float *__restrict__ scal,        \
-      const int *__restrict__ ns, float *bppo, float *g_hist,                \
-      float *pm_hist, float *pm2_hist, float *qmb, int N, int min_span
+      const int *__restrict__ ns, float *bppo, float *g_t, float2 *pp,       \
+      float *qmb, int N, int min_span
 
-__global__ void turner_outside_log_kernel(TOL_PARAMS) {
+// Stage span d's cells of lanes 0 .. n-1-d into `st` ([k][lane]).
+__device__ __forceinline__ void tol_stage(const TurnerOutsideLogTables& tabs,
+                                          const float* __restrict__ EXTR,
+                                          float* st, long long base, int b,
+                                          int d, int n, int N) {
+  const int nl = n - d;
+  for (int e = threadIdx.x; e < TOL_STAGED * nl; e += blockDim.x) {
+    const int k = e / nl, l = e - k * nl;
+    const float* src = k < TOL_COUNT
+                           ? tabs.t[k] + base + (long long)d * N + l
+                           : EXTR + (long long)b * 2 * N + l + d + 1;
+    __pipeline_memcpy_async(st + k * N + l, src, sizeof(float));
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(RNA_LOG_THREADS, 1)
+    turner_outside_log_kernel(TOL_PARAMS) {
   extern __shared__ float smem[];
-  const int LW = N + 32;
-  const int RING = RNA_WIN * LW;
+  const int RING = RNA_OWIN * N;
   float* og = smem;                      // bppo - close + AUGT
   float* tw = smem + RING;               // TMo1..3 rings, RING apart
   float* lenb = smem + 4 * RING;
   float* leni = lenb + RNA_LEN_SIZE;
-  const float* CLOSE = tabs.t[0];
-  const float* MBC = tabs.t[1];
-  const float* ACC = tabs.t[2];
-  const float* AUGT = tabs.t[13];
+  float* stage = leni + RNA_LEN_SIZE;    // 2 * TOL_STAGED * N
 
   const int b = blockIdx.x;
-  const int i = threadIdx.x;
-  for (int e = i; e < 4 * RING; e += N) smem[e] = RNA_NEG;
-  for (int e = i; e < RNA_LEN_SIZE; e += N) {
+  const int tid = threadIdx.x;
+  const int i = tid / G, r = tid % G;
+  const unsigned mask = rna_group_mask<G>(tid);
+  rna_ln_coef_load();
+  __syncthreads();
+  for (int e = tid; e < RNA_LEN_SIZE; e += blockDim.x) {
     lenb[e] = LENB[e];
     leni[e] = LENI[e];
   }
@@ -58,78 +84,103 @@ __global__ void turner_outside_log_kernel(TOL_PARAMS) {
   const float glob = sc[RNA_LOG_GLOB];
   const int n = ns[b];
   const long long base = (long long)b * N * N;
-  rna_log_qone_mb<false>(QONE, 0.0f, base, i, N, qmb);
+  rna_log_qone_mb_t<false>(QONE, 0.0f, base, N, qmb);
   const float lt = EXTL[(long long)b * N + i];
+  if (n <= 0) return;
+  tol_stage(tabs, EXTR, stage + ((n - 1) & 1) * TOL_STAGED * N, base, b,
+            n - 1, n, N);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
   __syncthreads();
 
   for (int d = n - 1; d >= 0; --d) {
-    const long long row = base + (long long)d * N + i;
-    const bool span_ok = d + 1 >= min_span;
-    const float c = CLOSE[row];
-    const float acc = radd(c, ACC[row]);
-    const float bse = rsub(
-        radd(radd(lt, acc), EXTR[(long long)b * 2 * N + i + d + 1]), glob);
-    float sp[7], tm[3];
+    if (d >= 1)
+      tol_stage(tabs, EXTR, stage + ((d - 1) & 1) * TOL_STAGED * N, base, b,
+                d - 1, n, N);
+    __pipeline_commit();
+    const int ri = n - 1 - d - i;  // live lanes: ri >= 0
+    if (ri >= 0) {
+      const float* st = stage + (d & 1) * TOL_STAGED * N + i;
+      const float c = st[0];
+      const bool span_ok = d + 1 >= min_span;
+      const bool ok = c > RNA_NEG;
+      float bp = RNA_NEG, pm = RNA_NEG, pm2 = RNA_NEG;
+      if (span_ok) {
+        const float acc = radd(c, st[2 * N]);
+        const float ctx = rna_log_split_context<false, G>(
+            radd(acc, coeff), 0.0f, base, d, i, n, N, r, mask, ok, ONEP,
+            QONE, g_t, pp, qmb, pm, pm2);
+        if (ok) {
+          const float bse = rsub(
+              radd(radd(lt, acc), st[TOL_EXTR * N]), glob);
+          float sp[7], tm[3];
 #pragma unroll
-    for (int k = 0; k < 7; ++k) sp[k] = tabs.t[3 + k][row];
+          for (int k = 0; k < 7; ++k) sp[k] = st[(3 + k) * N];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) tm[k] = tabs.t[14 + k][row];
-    const float aug = AUGT[row];
-    float two = RNA_NEG;
-    for (int a = 0; a < RNA_SHIFTS; ++a) {
-      const int live = RNA_SHIFTS - a;
-      const int lg = rna_log2_ceil(live);
-      const int lane = 32 + i - 1 - a;
-      RnaTree tr;
-      float tsum = RNA_NEG;
-      for (int m = 0; m < (1 << lg); ++m) {
-        const int bb = rna_leaf(m, lg);
-        float leaf = RNA_NEG;
-        if (bb < live) {
-          const int at = ((d + 2 + a + bb) & (RNA_WIN - 1)) * LW + lane;
-          leaf = radd(rna_turner_leaf(a, bb, lenb, leni, sp, tm, aug, og[at],
-                                      tw[at], tw[RING + at],
-                                      tw[2 * RING + at]),
-                      c);
+          for (int k = 0; k < 3; ++k) tm[k] = st[(14 + k) * N];
+          const float aug = st[13 * N];
+          const int slot0 = (d + 2) % RNA_OWIN;
+          const float two = rna_log_split_window<G>(
+              i, ri, r, mask, [&](int a, int bb) {
+                int s = slot0 + a + bb;
+                if (s >= RNA_OWIN) s -= RNA_OWIN;
+                const int at = s * N + i - 1 - a;
+                return radd(rna_turner_leaf(a, bb, lenb, leni, sp, tm, aug,
+                                            og[at], tw[at], tw[RING + at],
+                                            tw[2 * RING + at]),
+                            c);
+              });
+          bp = rna_lse_pair_s(rna_lse_pair_s(bse, two), ctx);
         }
-        tsum = tr.push(m, leaf);
       }
-      two = rna_lse_pair(two, tsum);
-    }
-    float pm, pm2;
-    const float ctx = rna_log_mb_context<false>(
-        radd(acc, coeff), 0.0f, base, d, i, n - 1 - d, N, ONEP, QONE, g_hist,
-        pm_hist, pm2_hist, qmb, pm, pm2);
-    float bp = rna_lse_pair(rna_lse_pair(bse, two), ctx);
-    const bool ok = c > RNA_NEG;
-    if (!(ok && span_ok)) bp = RNA_NEG;
-    bppo[row] = bp;
-    g_hist[row] = ok ? rsub(radd(bp, MBC[row]), c) : RNA_NEG;
-    pm_hist[row] = span_ok ? pm : RNA_NEG;
-    pm2_hist[row] = span_ok ? pm2 : RNA_NEG;
-    const float g2 = ok ? radd(rsub(bp, c), aug) : RNA_NEG;
-    __syncthreads();
-
-    const int slot = (d & (RNA_WIN - 1)) * LW + 32 + i;
-    og[slot] = g2;
+      if (r == 0) {
+        const long long row = base + (long long)d * N + i;
+        bppo[row] = bp;
+        g_t[base + (long long)i * N + d] =
+            ok ? rsub(radd(bp, st[1 * N]), c) : RNA_NEG;
+        pp[base + (long long)(i + d) * N + i] = make_float2(pm2, pm);
+        const int slot = (d % RNA_OWIN) * N + i;
+        og[slot] = ok ? radd(rsub(bp, c), st[13 * N]) : RNA_NEG;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) tw[k * RING + slot] = tabs.t[10 + k][row];
+        for (int k = 0; k < 3; ++k) tw[k * RING + slot] = st[(10 + k) * N];
+      }
+    }
+    __pipeline_wait_prior(0);
     __syncthreads();
   }
+}
+
+template <int G>
+static int tol_launch(const TurnerOutsideLogTables& tabs, const float* ONEP,
+                      const float* QONE, const float* EXTL, const float* EXTR,
+                      const float* LENB, const float* LENI, const float* scal,
+                      const int* ns, float* bppo, float* g_t, float2* pp,
+                      float* qmb, int B, int N, int min_span, void* stream) {
+  const size_t shmem = sizeof(float) * (4 * RNA_OWIN * N +
+                                        2 * RNA_LEN_SIZE +
+                                        2 * TOL_STAGED * N);
+  return rna_launch(turner_outside_log_kernel<G>, B, N * G, shmem, stream,
+                    tabs, ONEP, QONE, EXTL, EXTR, LENB, LENI, scal, ns, bppo,
+                    g_t, pp, qmb, N, min_span);
 }
 
 extern "C" int rna_turner_outside_log(
     void** tables, const float* ONEP, const float* QONE, const float* EXTL,
     const float* EXTR, const float* LENB, const float* LENI,
-    const float* scal, const int* ns, float* bppo, float* g_hist,
-    float* pm_hist, float* pm2_hist, float* qmb, int B, int N, int min_span,
-    void* stream) {
+    const float* scal, const int* ns, float* bppo, float* g_t, float* pp,
+    float* qmb, int B, int N, int min_span, void* stream) {
   if (!rna_log_shape_ok(N)) return (int)cudaErrorInvalidValue;
   TurnerOutsideLogTables tabs;
   for (int k = 0; k < TOL_COUNT; ++k) tabs.t[k] = (const float*)tables[k];
-  const size_t shmem =
-      sizeof(float) * (4 * RNA_WIN * (N + 32) + 2 * RNA_LEN_SIZE);
-  return rna_launch(turner_outside_log_kernel, B, N, shmem, stream, tabs,
-                    ONEP, QONE, EXTL, EXTR, LENB, LENI, scal, ns, bppo,
-                    g_hist, pm_hist, pm2_hist, qmb, N, min_span);
+  float2* pp2 = (float2*)pp;
+#define TOL_ARGS tabs, ONEP, QONE, EXTL, EXTR, LENB, LENI, scal, ns, bppo, \
+                 g_t, pp2, qmb, B, N, min_span, stream
+  switch (rna_log_group(N)) {
+    case 4: return tol_launch<4>(TOL_ARGS);
+    case 8: return tol_launch<8>(TOL_ARGS);
+    case 16: return tol_launch<16>(TOL_ARGS);
+    case 32: return tol_launch<32>(TOL_ARGS);
+  }
+#undef TOL_ARGS
+  return (int)cudaErrorInvalidValue;
 }

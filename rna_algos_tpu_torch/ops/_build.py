@@ -45,11 +45,12 @@ SIGNATURES = {
     "rna_pairhmm_prob": [_P] * 9 + [_I, _I, _I, _P],
     "rna_pairhmm_log": [_P] * 9 + [_I, _I, _I, _P],
     "rna_contra_inside_log": [ctypes.POINTER(_P)] + [_P] * 8 + [_I, _I, _P],
-    "rna_contra_outside_log": [ctypes.POINTER(_P)] + [_P] * 13
+    "rna_contra_outside_log": [ctypes.POINTER(_P)] + [_P] * 12
     + [_I, _I, _I, _P],
     "rna_turner_inside_log": [ctypes.POINTER(_P)] + [_P] * 8 + [_I, _I, _P],
-    "rna_turner_outside_log": [ctypes.POINTER(_P)] + [_P] * 13
+    "rna_turner_outside_log": [ctypes.POINTER(_P)] + [_P] * 12
     + [_I, _I, _I, _P],
+    "rna_outside_log_group": [_I],
 }
 
 

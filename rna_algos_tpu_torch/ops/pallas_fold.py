@@ -576,11 +576,11 @@ def _inside_log_plain(H, MBC, ACC, CANON, scal, ns, two_at, insert, contra):
 def _outside_log_plain(CLOSE, MBC, ACC, ONEP, QONE, EXTL, EXTR, scal, ns,
                        min_span, two_at, insert, contra):
     """The log-space outside pass for the whole batch: bppo (B, N, N)
-    [d, i], -inf where close is -inf, below ``min_span`` and at or past a
-    sequence's length.  ``two_at(d, close)`` is the 2-loop context of span
-    d (close added); ``insert(d, bppo, act)`` records span d in the
-    windows (-inf where ``act`` is False: spans a sequence never reaches
-    stay empty)."""
+    [d, i], -inf where close is -inf, below ``min_span`` and in every cell
+    past a sequence's end (i + d >= n).  ``two_at(d, close)`` is the 2-loop
+    context of span d (close added); ``insert(d, bppo, act)`` records span
+    d in the windows (-inf where ``act`` is False: the cells past the end
+    stay empty, as K17/K19, which never compute them, leave them)."""
     B, N, _ = CLOSE.shape
     dev = CLOSE.device
     neg = torch.full((), NEG_INF, device=dev)
@@ -600,7 +600,7 @@ def _outside_log_plain(CLOSE, MBC, ACC, ONEP, QONE, EXTL, EXTR, scal, ns,
     ns_d = ns.to(dev).view(-1, 1)
     n_max = int(ns.max())
     for d in range(n_max - 1, -1, -1):
-        act = d <= ns_d - 1
+        act = d + lanes[None, :] <= ns_d - 1     # live cells of span d
         span_ok = d + 1 >= min_span
         c = CLOSE[:, d]
         acc = c + ACC[:, d]
@@ -698,14 +698,17 @@ def contra_outside_log_plain(mo, ONEP, QONE, B0LO, EXTL, EXTR, LEN, scal, ns,
     live, _bulge = _window_grid(dev)
     len4 = _len4(LEN)
     ns_d = ns.to(dev).view(-1, 1)
+    lanes = torch.arange(N, device=dev)
 
     def two_at(d, c):
         body = _lanes4(JB[:, d]) + len4
         # the stack replaces jrb/jsn/len: subtract the js(d+2, i-1) that the
-        # window cell carries (0 where that span was not reached)
+        # window cell carries (0 where that cell is past the sequence's end,
+        # i + d + 1 >= n, and never read)
         jsr = torch.zeros((B, N), device=dev)
         if d + 2 <= N - 1:
-            jsr[:, 1:] = torch.where(d + 2 <= ns_d - 1, JS[:, d + 2, :N - 1],
+            jsr[:, 1:] = torch.where(lanes[None, 1:] + d + 1 <= ns_d - 1,
+                                     JS[:, d + 2, :N - 1],
                                      torch.zeros((), device=dev))
         body[:, 0, 0] = STKO[:, d] - jsr
         body[:, 0, 1] = body[:, 0, 1] + B0RO[:, d]
@@ -733,6 +736,23 @@ def _log_device(name, t):
         raise ValueError(f"{name}: N = {N} (need a power of two in "
                          f"[32, {MAX_N_LOG}])")
     return dev.type
+
+
+def _outside_log_scratch(B, N, dev):
+    """K17's and K19's scratch: g (B, N, N) transposed ([i][d]), (pm2, pm)
+    (B, N, N, 2) by pair end ([i + d][i]), QONEMB (B, N, N) transposed."""
+    return (torch.empty((B, N, N), device=dev),
+            torch.empty((B, N, N, 2), device=dev),
+            torch.empty((B, N, N), device=dev))
+
+
+def outside_log_group(N):
+    """Threads a lane of K17 and K19 at N: one block of 1,024 threads a
+    sequence, at most a warp a lane (csrc/fold_log.cuh ``rna_log_group``);
+    no cluster.  The batch does not enter: at the main shapes half as many
+    threads a lane ran K17/K19 1.4-1.6x slower (an H100 80GB HBM3 at
+    700 W, PERF.md section 6)."""
+    return _build.library().lib.rna_outside_log_group(N)
 
 
 def _check_log(entry, tables, names, extra, extra_shapes, B, N, dev):
@@ -793,9 +813,8 @@ def contra_outside_log(mo, ONEP, QONE, B0LO, EXTL, EXTR, LEN, scal, ns,
                     EXTL=(B, N), EXTR=(B, 2 * N), LEN=(W2, W),
                     scal=(B, N_SCAL), ns=(B,)), B, N, dev)
     bppo = torch.full((B, N, N), NEG_INF, device=dev)
-    g, pm, pm2, qmb = (torch.empty((B, N, N), device=dev) for _ in range(4))
-    args = [ONEP, QONE, B0LO, EXTL, EXTR, LEN, scal, ns, bppo, g, pm, pm2,
-            qmb]
+    g, pp, qmb = _outside_log_scratch(B, N, dev)
+    args = [ONEP, QONE, B0LO, EXTL, EXTR, LEN, scal, ns, bppo, g, pp, qmb]
     _build.library().call(
         "rna_contra_outside_log",
         _build.ptr_array(mo, CONTRA_OUTSIDE_LOG_TABLES),
@@ -990,9 +1009,8 @@ def turner_outside_log(mo, ONEP, QONE, EXTL, EXTR, LENB, LENI, scal, ns,
                     EXTR=(B, 2 * N), LENB=(W2, W), LENI=(W2, W),
                     scal=(B, N_SCAL), ns=(B,)), B, N, dev)
     bppo = torch.full((B, N, N), NEG_INF, device=dev)
-    g, pm, pm2, qmb = (torch.empty((B, N, N), device=dev) for _ in range(4))
-    args = [ONEP, QONE, EXTL, EXTR, LENB, LENI, scal, ns, bppo, g, pm, pm2,
-            qmb]
+    g, pp, qmb = _outside_log_scratch(B, N, dev)
+    args = [ONEP, QONE, EXTL, EXTR, LENB, LENI, scal, ns, bppo, g, pp, qmb]
     _build.library().call(
         "rna_turner_outside_log",
         _build.ptr_array(mo, TURNER_OUTSIDE_LOG_TABLES),

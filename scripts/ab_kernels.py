@@ -26,8 +26,17 @@ launch shape of chip_smoke.py (C that model's), each block looping over
 and nothing else.
 ``--pairhmm`` times the Durbin pair-HMM kernels K14 and K15 instead (a
 forward and a backward launch per timed call) on chip_smoke.py's two Durbin
-sets (630 tRNA pairs at N = 128, 2,016 random pairs at N = 256).  Entry
-points a build does not define are not bound.  Needs a GPU.
+sets (630 tRNA pairs at N = 128, 2,016 random pairs at N = 256).
+``--log`` times the parity tier's log-space kernels K16-K19 instead, on
+chip_smoke.py's log inputs (``log_inputs``: the arguments one parity fold
+hands its kernels) at N = 128, B = 192 and N = 256, B = 96, prints each
+build's registers, spills and stack frame for them, and whether the two
+builds' outputs are bitwise equal; then it times the parity main paths
+(``FoldEngine(numerics="parity")``, both models, chip_smoke.py's tRNA and
+random 150-200 nt batches) through each build in the same turns, with
+their seqs/s and peak memory.  A build whose K17/K19 entry points take the
+separate pm and pm2 scratches of before is handed them.
+Entry points a build does not define are not bound.  Needs a GPU.
 """
 
 import argparse
@@ -88,6 +97,30 @@ class RingBuild:
         return self.lib.call(name, *args)
 
 
+LOG_OUTSIDE = ("rna_contra_outside_log", "rna_turner_outside_log")
+
+
+class PmBuild:
+    """A build whose K17/K19 entry points take g, pm, pm2 and qmb (B, N, N)
+    scratches, called with today's g, (pm2, pm) and qmb."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.path = lib.path
+        self.compiler_output = lib.compiler_output
+
+    def call(self, name, *args):
+        if name in LOG_OUTSIDE:
+            k = next(j for j, a in enumerate(args) if isinstance(a, int))
+            B, N = args[k], args[k + 1]
+            pm, pm2 = (torch.empty((B, N, N), device="cuda")
+                       for _ in range(2))
+            self._keep = (pm, pm2)
+            args = (*args[:k - 2], ctypes.c_void_p(pm.data_ptr()),
+                    ctypes.c_void_p(pm2.data_ptr()), *args[k - 1:])
+        return self.lib.call(name, *args)
+
+
 class SplitBuild(RingBuild):
     """A build from before the merge, called with the merged entry points'
     arguments: past N = 256 the ``_long`` entry point is called, with its
@@ -124,6 +157,12 @@ def load(csrc, split):
         ringed = {k for k, m in decl.items() if "ring_g" in m.group(1)}
         sigs = {k: ring_signature(v) if k in ringed else v
                 for k, v in saved.items() if f'"C" int {k}(' in text}
+        log_decl = re.search(r'"C" int rna_contra_outside_log\(([^)]*)\)',
+                             text)
+        pm_split = bool(log_decl) and "pm2" in log_decl.group(1)
+        if pm_split:
+            sigs.update({k: [*saved[k][:13], _P, *saved[k][13:]]
+                         for k in LOG_OUTSIDE})
     _build.SIGNATURES = sigs
     try:
         lib = _build.library()
@@ -131,6 +170,8 @@ def load(csrc, split):
         _build.SIGNATURES = saved
     if split:
         return SplitBuild(lib, ringed)
+    if pm_split:
+        return PmBuild(lib)
     return RingBuild(lib, ringed) if ringed else lib
 
 
@@ -152,6 +193,8 @@ def main(argv=None):
                     help="only N = 128 and 256")
     ap.add_argument("--pairhmm", action="store_true",
                     help="the Durbin pair-HMM kernels K14 and K15 instead")
+    ap.add_argument("--log", action="store_true",
+                    help="the parity tier's kernels K16-K19 instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA GPU available", file=sys.stderr)
@@ -166,12 +209,14 @@ def main(argv=None):
     libs = {"A": load(args.a, args.a_split), "B": load(args.b, False)}
     for k, lib in libs.items():
         print(f"build {k}: {lib.path}")
-        for line in lib.compiler_output.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"  {k} ptxas: {line.strip()}")
+        for name, line in ptxas_lines(lib.compiler_output):
+            if not args.log or "_log_kernel" in name:
+                print(f"  {k} ptxas: {name}: {line}")
     use(libs["B"])
     if args.pairhmm:
         return ab_pairhmm(libs, dev, chip_smoke)
+    if args.log:
+        return ab_log(libs, dev, chip_smoke)
     cases = []   # (N, B, inputs)
     for N, B in chip_smoke.SHAPES_MAIN:
         cases.append((N, B, chip_smoke.kernel_inputs(N, B, seed=7 * N,
@@ -297,6 +342,85 @@ def barrier_probe(chip_smoke):
             print(f"barrier {model} N={N} B={B} C={C}: {ms:.4f} ms for "
                   f"{BARRIER_SPANS} spans, {1e3 * ms / BARRIER_SPANS:.4f} us "
                   "a span (cluster barrier + block barrier)")
+
+
+def ptxas_lines(output):
+    """(kernel, line) for each ptxas line on registers, spills or stack
+    frame in a build's compiler output."""
+    name = ""
+    for line in output.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+        elif "registers" in line or "spill" in line or "stack" in line:
+            yield name, line.strip()
+
+
+def ab_log(libs, dev, chip_smoke):
+    """K16-K19 of the two builds in turns A, B, B, A on the parity path's
+    arguments (3 launches after a warm-up each), and whether their outputs
+    are bitwise equal."""
+    from rna_algos_tpu_torch.ops import pallas_fold as PF
+
+    cases = []
+    for N, B in chip_smoke.SHAPES_MAIN:
+        for model in ("contra", "turner"):
+            cases.append((N, B, chip_smoke.log_inputs(
+                model, N, B, seed=11 * N + len(model), device=dev)))
+        print(f"N={N} B={B}: K17/K19 threads a lane "
+              f"{PF.outside_log_group(N)}, cluster size 1")
+    outs = {}
+    for turn, which in enumerate(("A", "B", "B", "A")):
+        use(libs[which])
+        for N, B, x in cases:
+            for kernel, a in zip(x["kernels"],
+                                 (x["inside_args"], x["outside_args"])):
+                fn = chip_smoke.wrappers(kernel)[0]
+                ms = chip_smoke.cuda_ms(lambda: fn(*a), 3)
+                out = fn(*a)
+                outs.setdefault((N, B, kernel), {})[which] = (
+                    out if isinstance(out, tuple) else (out,))
+                print(f"turn {turn} build {which} N={N} B={B} {kernel}: "
+                      f"{ms:.4f} ms")
+    for (N, B, kernel), got in outs.items():
+        same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(got["A"], got["B"]))
+        print(f"N={N} B={B} {kernel}: outputs of A and B bitwise equal: "
+              f"{same}")
+    ab_parity_paths(libs)
+    return 0
+
+
+def ab_parity_paths(libs):
+    """The parity main paths of chip_smoke.py (FoldEngine(numerics=
+    "parity"), both models, on the tRNA and the random 150-200 nt batches)
+    through each build in turns A, B, B, A: seqs/s (CUDA events around 3
+    batches after a warm-up, chip_smoke.cuda_ms) and the peak device memory
+    of one batch above what was held before it."""
+    import chip_smoke
+    from rna_algos_tpu_torch.parallel.runner import FoldEngine
+    from rna_algos_tpu_torch.utils.io import read_fasta
+
+    trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
+    batches = {"trna_N128_B192": trnas * 32,
+               "rfam_N256_B96": chip_smoke.random_batch(96, 150, 200,
+                                                        seed=2024)}
+    for turn, which in enumerate(("A", "B", "B", "A")):
+        use(libs[which])
+        for model in ("contra", "turner"):
+            engine = FoldEngine(uses_contra_model=model == "contra",
+                                device="cuda", numerics="parity")
+            for key, seqs in batches.items():
+                ms = chip_smoke.cuda_ms(lambda: engine.fold_batch(seqs), 3)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                engine.fold_batch(seqs)
+                peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+                print(f"turn {turn} build {which} {model}_parity_{key}: "
+                      f"{ms:.4f} ms a batch, {1e3 * len(seqs) / ms:.2f} "
+                      f"seqs/s, peak {peak:.3f} GiB above {held / 2**30:.3f}")
 
 
 def ab_pairhmm(libs, dev, chip_smoke):

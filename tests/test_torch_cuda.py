@@ -207,11 +207,40 @@ def log_inputs(device, request):
 @pytest.mark.parametrize("which", [0, 1], ids=["inside", "outside"])
 def test_log_kernel_matches_plain(log_inputs, which):
     """K16/K17 (CONTRA) and K18/K19 (Turner): the -inf pattern identical,
-    finite cells within 1e-4 * max(1, |x|) (bitwise in the chip runs)."""
+    finite cells within 1e-4 * max(1, |x|) (bitwise in the chip runs);
+    K17 and K19 bitwise (check_log raises otherwise)."""
     kernel = log_inputs["kernels"][which]
     args = (log_inputs["inside_args"], log_inputs["outside_args"])[which]
     _abs, rel, _bitwise, _ms = chip_smoke.check_log(log_inputs, kernel, args)
     assert rel <= chip_smoke.RTOL_LOG
+
+
+@pytest.mark.parametrize("model", ["contra", "turner"])
+@pytest.mark.parametrize("N", sorted(chip_smoke.LOG_EDGE))
+def test_log_outside_bitwise_on_edge_batches(device, model, N):
+    """K17 / K19 on chip_smoke.py's edge batches (n = 1, 2, 3, trees
+    smaller than a lane's thread group, all -inf context trees): bitwise
+    equal to the plain version (check_log raises otherwise)."""
+    lengths = chip_smoke.LOG_EDGE[N]
+    x = chip_smoke.log_inputs(model, N, len(lengths), seed=5 * N + len(model),
+                              device=device, lengths=lengths)
+    kernel = x["kernels"][1]
+    _abs, _rel, bitwise, _ms = chip_smoke.check_log(x, kernel,
+                                                    x["outside_args"])
+    assert bitwise
+
+
+@pytest.mark.parametrize("model", ["contra", "turner"])
+@pytest.mark.parametrize("N", sorted(chip_smoke.LOG_EDGE))
+def test_log_outside_kernel_never_reads_dead_cells(device, model, N):
+    """K17 / K19 themselves on the edge batches: NaN in every dead cell of
+    the tables they are handed and in their scratch leaves bppo bitwise
+    unchanged (check_log_dead_cells raises otherwise); the CPU test
+    test_torch_long_deadcells.py pins the plain version."""
+    lengths = chip_smoke.LOG_EDGE[N]
+    x = chip_smoke.log_inputs(model, N, len(lengths), seed=5 * N + len(model),
+                              device=device, lengths=lengths)
+    chip_smoke.check_log_dead_cells(x)
 
 
 @pytest.mark.parametrize("contra", [True, False], ids=["contra", "turner"])

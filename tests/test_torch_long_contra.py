@@ -10,7 +10,16 @@ one (JAX contracts the window in three bf16 passes, the port in FP32), and
 past the sequence's end (which no live cell reads) fall to ~1e-35, where
 XLA flushes subnormal intermediates to zero and torch keeps them, so the
 relative bound has chip_smoke.py's absolute floor of 1e-30 for that
-noise."""
+noise.
+
+The fixture builds the port's inputs before any JAX work and from tables
+of its own, built afresh from the parameters: the shared CONTRA tables
+alias the parameter arrays, and JAX zero-copies those of them the
+allocator happened to align, so the two sides shared memory in some
+processes.  In one such process the port's hairpin table moved by up to
+7.6e-5 relative at a few cells while the JAX reference stayed bitwise the
+same.  ``test_shared_tables_are_unchanged`` checks the shared tables
+against a fresh build, so a write into them shows where it happens."""
 
 import numpy as np
 import pytest
@@ -25,6 +34,9 @@ from rna_algos_tpu_torch.ops import pallas_fold as TPF
 from rna_algos_tpu_torch.ops import pallas_fold_long as TPL
 from rna_algos_tpu_torch.ops import pallas_fold_prob as TPP
 from rna_algos_tpu_torch.ops import pallas_fold_prob8 as TP8
+
+from rna_algos_tpu_torch.params import build_fold_score_sets
+from rna_algos_tpu_torch.weights import contra_tables
 
 from .test_torch_fold import CT, TT
 
@@ -51,6 +63,19 @@ def one_seq(n, N, seed):
 def case():
     seqs, ns = one_seq(n, N, 81)
     ls = np.float32([0.85])
+    # The port's inputs first, from tables built afresh that share no
+    # memory with the JAX side: the shared tables TT alias the parameter
+    # arrays, which the JAX tables CT zero-copy where the allocator aligned
+    # them.
+    tt = contra_tables(build_fold_score_sets(), "cpu")
+    ts = torch.as_tensor(seqs, dtype=torch.int64)
+    tn, tl = torch.tensor(ns), torch.tensor(ls)
+    port = dict(
+        tn=tn,
+        port=TP8.contra_prob_mats_merged(ts, tn, tt, tl, N),
+        KW=TPP._banded_window_kernel(TPP._contra_len_prob(tt, tl)),
+        scal=TPP._scal_rows(tt, tl),
+    )
     js, jn, jl = jnp.asarray(seqs), jnp.asarray(ns), jnp.asarray(ls)
     pm = PP.contra_prob_mats(js, jn, CT, jl, N)
     LENp = PP._contra_len_prob(CT, jl)
@@ -62,15 +87,19 @@ def case():
         pm, inside[0], ONEP, QONE, extL, extR, LENp,
         PP._scal_rows(CT, jl, jn, glob=glob), 1, N, R, 5, True)
     live = np.arange(N)[None, :, None] < ns[:, None, None]
-    ts = torch.as_tensor(seqs, dtype=torch.int64)
-    tn, tl = torch.as_tensor(ns), torch.as_tensor(ls)
     return dict(
-        tn=tn, glob=np.asarray(glob), bppo=np.asarray(bppo),
+        port, glob=np.asarray(glob), bppo=np.asarray(bppo),
         inside=[np.where(live, np.asarray(x), np.float32(0)) for x in inside],
-        port=TP8.contra_prob_mats_merged(ts, tn, TT, tl, N),
-        KW=TPP._banded_window_kernel(TPP._contra_len_prob(TT, tl)),
-        scal=TPP._scal_rows(TT, tl),
     )
+
+
+def test_shared_tables_are_unchanged(case):
+    """After this file's JAX work, the shared tables TT (which the JAX
+    tables may alias) still equal a fresh build, bit for bit."""
+    fresh = contra_tables(build_fold_score_sets(), "cpu")
+    assert TT.keys() == fresh.keys()
+    for k, v in fresh.items():
+        assert torch.equal(TT[k].view(torch.int32), v.view(torch.int32)), k
 
 
 @pytest.mark.parametrize("k,name", [(0, "close"), (1, "ext"), (2, "one")])

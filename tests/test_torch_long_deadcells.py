@@ -74,3 +74,66 @@ def test_dead_cells_are_never_read(model):
     assert torch.equal(bpp.view(torch.int32), bpp_ref.view(torch.int32))
     assert torch.equal(pres, pres_ref)
     assert int(pres.sum()) > 0
+
+
+LOG_N = 32
+LOG_LENGTHS = (32, 19, 7, 3)
+
+
+@pytest.mark.parametrize("model", ["contra", "turner"])
+def test_log_outside_never_reads_dead_cells(model):
+    """The plain version of the parity tier's outside pass computes no dead
+    cell and reads none of its own: with NaN written into every dead cell of
+    the close it is handed (ext and one feed the outside auxiliaries, which
+    sum over the whole sequence), its bppo is bitwise that of the untouched
+    run, and -inf in every dead cell.  This pins the plain version only;
+    K17 and K19 are held to the same on the card
+    (test_torch_cuda.py::test_log_outside_kernel_never_reads_dead_cells,
+    chip_smoke.check_log_dead_cells) and bitwise to this plain version."""
+    from rna_algos_tpu_torch.ops import pallas_fold as PF
+
+    gen = torch.Generator().manual_seed(23)
+    seqs = [torch.randint(0, 4, (n,), generator=gen).tolist()
+            for n in LOG_LENGTHS]
+    arr, ns = chip_smoke.padded(seqs, LOG_N, "cpu")
+    mask = dead_cells(ns, LOG_N)
+    if model == "contra":
+        fold, tbl = (PF.mccaskill_contra_pallas,
+                     contra_tables(build_fold_score_sets(), "cpu"))
+    else:
+        fold, tbl = PF.mccaskill_turner_pallas, turner_tables("cpu")
+    inside = getattr(PF, f"{model}_inside_log")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        bppo_ref = fold(arr, ns, tbl, LOG_N)[0]
+        def close_poisoned(*args):
+            close, ext, one = inside(*args)
+            return (torch.where(mask, torch.full((), float("nan")), close),
+                    ext, one)
+
+        setattr(PF, f"{model}_inside_log", close_poisoned)
+        bppo = fold(arr, ns, tbl, LOG_N)[0]
+    finally:
+        setattr(PF, f"{model}_inside_log", inside)
+        torch.set_num_threads(threads)
+    assert torch.equal(bppo.view(torch.int32), bppo_ref.view(torch.int32))
+    assert bool((bppo[mask] == float("-inf")).all())
+    assert int(torch.isfinite(bppo).sum()) > 0
+
+
+@pytest.mark.parametrize("model", ["contra", "turner"])
+def test_log_outside_lets_no_dead_table_cell_through(model):
+    """The plain outside log pass through ``chip_smoke.check_log_dead_cells``
+    (the check K17/K19 meet on the card), on chip_smoke.py's N = 32 edge
+    batch: NaN in every dead cell of each [d, i] table it is handed leaves
+    its bppo bitwise unchanged."""
+    lengths = chip_smoke.LOG_EDGE[LOG_N]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        x = chip_smoke.log_inputs(model, LOG_N, len(lengths), seed=7,
+                                  device="cpu", lengths=lengths)
+        chip_smoke.check_log_dead_cells(x)
+    finally:
+        torch.set_num_threads(threads)

@@ -5,7 +5,9 @@ tables on live cells only (i + d < n), so ``chip_smoke.work`` must charge
 them those cells' bytes and no more, and ``chip_smoke.reread_ms`` must give
 each its own pass's HBM re-read floor: an inside kernel re-reads 16 B a
 bifurcation term t >= 1 of each live cell (rm, rmmb, ext, one), an outside
-kernel 8 B a pm term and 12 B an sa/sbc term.  Counted here by brute force
+kernel 8 B a pm term and 12 B an sa/sbc term.  The parity outside kernels
+K17/K19 are charged the terms and the input cells this run's data needs
+(``log_outside_terms``, ``log_outside_bytes``).  Counted here by brute force
 over the cells of a tiny ragged batch."""
 
 import pytest
@@ -81,3 +83,75 @@ def test_turner_long_shapes_cover_the_main_paths_and_waves():
     assert set(chip_smoke.LONG_MAIN["turner"]) <= checked
     assert (512, chip_smoke.LONG_BATCHES[1024][0]) in checked
     assert (512, 80) in checked
+
+
+def outside_batch(seed=5, min_span=5):
+    """A ragged batch with -inf CLOSE cells, as an outside log call sees it."""
+    gen = torch.Generator().manual_seed(seed)
+    close = torch.where(torch.rand((len(LENGTHS), N, N), generator=gen) < 0.6,
+                        float("-inf"), 0.0)
+    return close, dict(batch(), outside_args=({"CLOSE": close}, min_span))
+
+
+def test_log_outside_terms_count_what_the_data_needs():
+    """``chip_smoke.log_outside_terms`` (the bound of K17/K19): r = n-1-d-i
+    pm terms at every live cell; where CLOSE is finite and d + 1 >= min_span
+    also the window leaves (a < min(i, 31), b < min(31 - a, r)) and min(i, k)
+    context terms; by brute force on a batch with -inf CLOSE cells."""
+    close, inp = outside_batch()
+    min_span = inp["outside_args"][-1]
+    want = [0, 0, 0, 0]
+    for b, n in enumerate(LENGTHS):
+        for d in range(n):
+            for i in range(n - d):
+                r, k = n - 1 - d - i, n - 1 - d
+                want[0] += 1
+                want[2] += r
+                if close[b, d, i] > float("-inf") and d + 1 >= min_span:
+                    want[1] += sum(min(31 - a, r) for a in range(min(i, 31)))
+                    want[3] += min(i, k)
+    assert list(chip_smoke.log_outside_terms(inp)) == want
+
+
+@pytest.mark.parametrize("kernel,others,vectors,lens", [
+    ("contra_outside_log", 7, 2, 1), ("turner_outside_log", 16, 1, 2)])
+def test_log_outside_bytes_count_what_the_data_needs(kernel, others, vectors,
+                                                     lens):
+    """``chip_smoke.log_outside_bytes`` (the bytes of K17/K19's bound): the
+    distinct input cells the terms read, by brute force.  CLOSE at every
+    live cell; the other [d, i] tables (7 CONTRA, 16 Turner) at the full
+    cells (CLOSE finite, d + 1 >= min_span); ONEP at (s, i + d + 1), s < r,
+    of every live cell of a span reaching min_span; QONE at (t, i), 1 <= t
+    <= min(i, k), of the full cells; the lane vectors (EXTL, and B0LO for
+    CONTRA) at the full cells' lanes, EXTR at their j + 1; the (32, 31)
+    length tables, scal (B, 8) and ns whole; bppo written whole."""
+    close, inp = outside_batch()
+    min_span = inp["outside_args"][-1]
+    live = full = 0
+    onep, qone, lanes, extr = set(), set(), set(), set()
+    for b, n in enumerate(LENGTHS):
+        for d in range(n):
+            for i in range(n - d):
+                r, k = n - 1 - d - i, n - 1 - d
+                live += 1
+                if d + 1 >= min_span:
+                    onep.update((b, s, i + d + 1) for s in range(r))
+                if close[b, d, i] > float("-inf") and d + 1 >= min_span:
+                    full += 1
+                    qone.update((b, t, i) for t in range(1, min(i, k) + 1))
+                    lanes.add((b, i))
+                    extr.add((b, i + d + 1))
+    B = len(LENGTHS)
+    cells = (live + others * full + len(onep) + len(qone)
+             + vectors * len(lanes) + len(extr)
+             + lens * 32 * 31 + B * 8 + B + B * N * N)
+    assert chip_smoke.log_outside_bytes(kernel, inp) == 4.0 * cells
+    assert chip_smoke.log_work(kernel, inp)[0] == 4.0 * cells
+
+
+def test_log_checks_reach_every_thread_group():
+    """K17/K19 give a lane G = min(32, 1024 / N) threads (4, 8, 16, 32 at
+    N = 256, 128, 64, 32), one kernel instantiation each; the main shapes
+    and LOG_EDGE hold every one of them against the plain version."""
+    shapes = {N for N, _B in chip_smoke.SHAPES_MAIN} | set(chip_smoke.LOG_EDGE)
+    assert {min(32, 1024 // n) for n in shapes} == {4, 8, 16, 32}
