@@ -22,10 +22,11 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    630 tRNA pairs at N = 128 and 2,016 random pairs at N = 256, at each
    pair's settled ln_sigma; the parity tier's log-space K16, K17 (CONTRA)
    and K18, K19 (Turner) at N = 128, B = 192 and N = 256, B = 96 on random
-   sequences, the -inf pattern identical and bitwise equality stated, K17
-   and K19 bitwise equal there and on edge batches at N = 32 and N = 256
-   (n = 1, 2, 3 and lengths around powers of two), each launch's threads a
-   lane printed), and
+   sequences, each bitwise equal there and on edge batches at N = 32, 64
+   and 256 (n = 1, 2, 3 and lengths around powers of two), K16/K18 on the
+   live cells (i + d < n) with the fills in the dead ones, and with NaN in
+   every dead input cell and scratch word, each launch's threads a lane
+   printed), and
    each one's time beside the plain version's, its bound and, for K3, the
    time of one torch.gather computing the same skew, at the main paths'
    shapes;
@@ -149,38 +150,48 @@ DURBIN_RFAM = (64, 150, 200, 2016)   # count, shortest, longest, seed
 PAIRHMM_CELL_OPS = {"pairhmm_prob": (13, 17), "pairhmm_log": (42, 61)}
 # The parity tier's log kernels K16-K19 vs their plain versions on the card:
 # both round every add and multiply on its own (the kernels through _rn
-# intrinsics) and sum in the same tree order, so bitwise is expected; the
-# budget is the CPU tests' against JAX: the -inf pattern identical, finite
-# cells within RTOL_LOG * max(1, |x|).  A parity main path vs its plain
-# path: the same presence, BPP within TOL_PARITY_MAIN.
+# intrinsics) and sum in the same tree order, so bitwise is required (and
+# the CPU tests' budget against JAX stated: the -inf pattern identical,
+# finite cells within RTOL_LOG * max(1, |x|)).  The inside kernels compute
+# live cells only (i + d < n): the dead ones keep the wrappers' fills
+# (LOG_INSIDE_FILLS), which nothing downstream reads, so they are compared
+# on the live cells.  A parity main path vs its plain path: the
+# same presence, BPP within TOL_PARITY_MAIN.
 RTOL_LOG = 1e-4
 TOL_PARITY_MAIN = 1e-5
 LOG_KERNELS = ("contra_inside_log", "contra_outside_log", "turner_inside_log",
                "turner_outside_log")
-# K17 and K19 split every tree exactly as the halving tree splits, so they
-# must be bitwise equal to their plain versions, also on batches that reach
+# K16-K19 split every tree exactly as the halving tree splits, so they
+# are held bitwise to their plain versions also on batches that reach
 # the split's edges: n = 1, 2, 3 (k = 0 at every first span), trees smaller
 # than a lane's thread group, lanes whose context trees are all -inf (i = 0,
 # or k = 0), lengths just past a power of two.  With the main shapes they
 # reach every group size (G = 32, 16, 8, 4 at N = 32, 64, 128, 256; N = 64
 # is the parity path's smallest bucket).
-LOG_BITWISE = ("contra_outside_log", "turner_outside_log")
+# The wrappers' fills of the inside kernels' (close, ext, one) dead cells.
+LOG_INSIDE_FILLS = (float("-inf"), 0.0, float("-inf"))
 LOG_EDGE = {32: (1, 2, 3, 4, 5, 7, 9, 16, 31, 32),
             64: (1, 2, 3, 16, 17, 33, 63, 64),
             256: (1, 2, 3, 5, 30, 33, 64, 129, 200, 256)}
 # Float operations of the log kernels (the bound): a cubic lse_pair counts
-# 8 (sub, 3 mul, 3 add, add), an add or a multiply 1.  Per live cell:
-# inside, 10 per 2-loop window cell (2 adds, 1 log-add), 28 per bifurcation
-# term t < d (ext: add + log-add; s1: mul + add + log-add; s2: add +
-# log-add) and 65 for close, rm/rmmb and the finishing log-adds; outside,
-# 11 per window cell (3 adds, 1 log-add), 19 per pm/pm2 term, 20 per
-# multibranch term and 40 for the rest, plus 9 a cell for the QONEMB column,
-# counted as this run's data needs them (log_outside_terms).  Bytes: inside,
-# each [d, i] table read once whole, the outputs written once; outside, each
-# input where this run's data needs it (log_outside_bytes), bppo written
-# once whole.
-LOG_OPS = {"inside": (10, 28, 65), "outside": (11, 19, 20, 40, 9)}
-LOG_TABLES = {"contra_inside_log": 10 + 3, "turner_inside_log": 18 + 3}
+# 8 (sub, 3 mul, 3 add, add), an add or a multiply 1, as this run's data
+# needs them.  Inside (log_inside_terms): 10 per 2-loop window leaf (2 adds,
+# 1 log-add) and 18 for close (2 log-adds, 2 adds) at the cells that can
+# close (live, CANON finite, from span MIN_SPAN_HAIRPIN_CLOSE on); 9 per ext
+# term t < d (add + log-add) and 19 per s1/s2 term 1 <= t < d (mul + add +
+# log-add; add + log-add) and 47 for rm/rmmb, ext's base and the finishing
+# log-adds at every live cell.  Outside (log_outside_terms): 11 per window
+# cell (3 adds, 1 log-add), 19 per pm/pm2 term, 20 per multibranch term and
+# 40 for the rest, plus 9 a cell for the QONEMB column.  Bytes: each input
+# where this run's data needs it (log_inside_bytes, log_outside_bytes), the
+# outputs written once whole.
+LOG_OPS = {"inside": (10, 18, 9, 19, 47), "outside": (11, 19, 20, 40, 9)}
+# Inside inputs besides CANON: the [d, i] tables read at the cells that can
+# close, those read there and at their (d - 2, i + 1) (CONTRA's JB: the
+# window ring's row and the stack's inner pair), and the (32, 31) length
+# tables.
+LOG_INSIDE_INPUTS = {"contra_inside_log": (8, 1, 1),
+                     "turner_inside_log": (17, 0, 2)}
 # Outside inputs besides CLOSE, ONEP and QONE: the other [d, i] tables, the
 # per-lane vectors (EXTR besides) and the (32, 31) length tables.
 LOG_OUTSIDE_INPUTS = {"contra_outside_log": (7, 2, 1),
@@ -459,11 +470,9 @@ def work(kernel, inp):
 
 
 def log_work(kernel, inp):
-    """(bytes, FLOPs) of one call of a log kernel (K16-K19) on ``inp``.
-    Inside: LOG_TABLES and LOG_OPS on the live cells of this run's lengths,
-    window cells whose inner pair exists, bifurcation terms up to the span.
-    Outside, what this run's data needs (``log_outside_bytes``,
-    ``log_outside_terms``)."""
+    """(bytes, FLOPs) of one call of a log kernel (K16-K19) on ``inp``:
+    what this run's data needs (``log_inside_terms``, ``log_inside_bytes``,
+    ``log_outside_terms``, ``log_outside_bytes``)."""
     B, N = inp["seqs"].shape
     if kernel.endswith("outside_log"):
         win, per_s, per_t, cell, qmb = LOG_OPS["outside"]
@@ -471,14 +480,63 @@ def log_work(kernel, inp):
         return (log_outside_bytes(kernel, inp),
                 float(qmb * B * N * N + cell * cells + win * wins
                       + per_s * pms + per_t * ctxs))
-    nbytes = LOG_TABLES[kernel] * 4.0 * B * N * N
-    win, per_t, cell = LOG_OPS["inside"]
-    ops = 0.0
-    for n, d, lanes in _live_cells(inp["ns"].tolist()):
-        m = np.minimum(d - 2, 30)
-        cells = np.where(m >= 0, (m + 1) * (m + 2) / 2, 0)
-        ops += float((lanes * (win * cells + per_t * d + cell)).sum())
-    return nbytes, ops
+    win, full_op, ext_op, s12_op, cell = LOG_OPS["inside"]
+    cells, full, wins, exts, s12 = log_inside_terms(inp)
+    return (log_inside_bytes(kernel, inp),
+            float(cell * cells + full_op * full + win * wins + ext_op * exts
+                  + s12_op * s12))
+
+
+def _inside_cells(inp):
+    """Per sequence of an inside log call: (n, D, I, live, full), the
+    [d, i] grids, the live cells (i + d < n) and the full ones (live, CANON
+    finite, d + 1 >= MIN_SPAN_HAIRPIN_CLOSE: the only cells whose close is
+    not -inf)."""
+    from rna_algos_tpu_torch.constants import MIN_SPAN_HAIRPIN_CLOSE
+
+    canon = torch.isfinite(inp["inside_args"][0]["CANON"]).cpu().numpy()
+    N = canon.shape[1]
+    D, I = np.meshgrid(np.arange(N), np.arange(N), indexing="ij")
+    for b, n in enumerate(inp["ns"].tolist()):
+        live = D + I <= n - 1
+        yield (n, D, I, live,
+               live & canon[b] & (D + 1 >= MIN_SPAN_HAIRPIN_CLOSE))
+
+
+def log_inside_terms(inp):
+    """The terms an inside log call (K16, K18) needs on this run's data:
+    (live cells, full cells, window leaves, ext terms, s1/s2 terms).  At a
+    full cell of span d, the window leaves (a, b) with a + b <= min(d - 2,
+    30) (the inner pair at span d - 2 - a - b >= 0); at every live cell d
+    ext terms (t < d) and d - 1 s1/s2 terms (1 <= t < d)."""
+    totals = np.zeros(5)
+    for n, D, I, live, full in _inside_cells(inp):
+        m = np.minimum(D - 2, 30)
+        win = np.where(m >= 0, (m + 1) * (m + 2) // 2, 0)
+        totals += (live.sum(), full.sum(), win[full].sum(), D[live].sum(),
+                   np.maximum(D - 1, 0)[live].sum())
+    return totals
+
+
+def log_inside_bytes(kernel, inp):
+    """The bytes an inside log call (K16, K18) must move on this run's
+    data, each input cell read once where some term needs it and the
+    outputs (close, ext, one) written once whole: CANON at every live cell;
+    the other [d, i] tables at the full cells (elsewhere close is -inf
+    whatever they hold), CONTRA's JB also at each full cell's (d - 2,
+    i + 1) (the stack's inner pair); the length tables, scal and ns
+    whole."""
+    from rna_algos_tpu_torch.ops.pallas_fold import N_SCAL, W, W2
+
+    others, shifted, lens = LOG_INSIDE_INPUTS[kernel]
+    B, N = inp["seqs"].shape
+    cells = 0.0
+    for n, D, I, live, full in _inside_cells(inp):
+        inner = np.zeros_like(full)
+        inner[:-2, 1:] = full[2:, :-1]      # (d - 2, i + 1) of a full cell
+        cells += (live.sum() + others * full.sum()
+                  + shifted * (full | inner).sum())
+    return 4.0 * (cells + lens * W2 * W + B * N_SCAL + B + 3 * B * N * N)
 
 
 def _outside_cells(inp):
@@ -630,12 +688,22 @@ def log_inputs(model, N, B, seed, device, lengths=None):
                 inside_args=seen[kernels[0]], outside_args=seen[kernels[1]])
 
 
+def log_live(x, like):
+    """(B, N, N) [d, i] mask of x's live cells (i + d < n) on ``like``'s
+    device."""
+    N = like.shape[-1]
+    r = torch.arange(N, device=like.device)
+    return ((r[None, :, None] + r[None, None, :])
+            < x["ns"].to(like.device).view(-1, 1, 1))
+
+
 def check_log(x, kernel, args):
     """A log kernel (K16-K19) against its plain version on the card: the
     -inf pattern identical, no NaN, finite cells within RTOL_LOG *
-    max(1, |x|); K17 and K19 bitwise equal (LOG_BITWISE).  Returns (max
-    abs error, max relative error, bitwise, the plain version's ms: CUDA
-    events around its one call)."""
+    max(1, |x|), and bitwise equal; K16/K18 on the live cells, every dead
+    one holding its fill (LOG_INSIDE_FILLS).  Returns (max abs error,
+    max relative error, bitwise, the plain version's ms: CUDA events around
+    its one call)."""
     kern, plain = wrappers(kernel)
     label = LABELS[kernel]
     got = kern(*args)
@@ -649,6 +717,15 @@ def check_log(x, kernel, args):
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     names = ("close", "ext", "one") if len(got) == 3 else ("bppo",)
+    if kernel.endswith("_inside_log"):
+        live = log_live(x, got[0])
+        for name, g, fill in zip(names, got, LOG_INSIDE_FILLS):
+            if not bool((g[~live] == fill).all()):
+                raise AssertionError(f"{label} {name}: a dead cell lost "
+                                     "its fill")
+        got = tuple(g[live] for g in got)
+        want = tuple(w[live] for w in want)
+        names = tuple(f"{nm} (live cells)" for nm in names)
     worst_abs = worst_rel = 0.0
     bitwise = True
     for name, g, w in zip(names, got, want):
@@ -667,70 +744,80 @@ def check_log(x, kernel, args):
               f"-inf pattern identical, bitwise equal: {exact}")
         if not r <= RTOL_LOG:
             raise AssertionError(f"{label} {name} differs from plain: {r}")
-        if kernel in LOG_BITWISE and not exact:
+        if not exact:
             raise AssertionError(f"{label} {name} is not bitwise equal to "
                                  "its plain version")
         worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
     return worst_abs, worst_rel, bitwise, t0.elapsed_time(t1)
 
 
-def check_log_dead_cells(x):
-    """K17 or K19 (x's outside kernel) lets no dead cell through: with NaN
-    in every dead cell (i + d >= n) of each [d, i] table it is handed and
-    in all of its scratch, its bppo is bitwise that of the call on the
-    untouched inputs, and -inf in every dead cell.  Two kernel launches,
-    no plain version (on CPU tensors, two calls of the plain version)."""
+def check_log_dead_cells(x, which=1):
+    """A log kernel lets no dead cell through: x's inside (``which`` = 0,
+    K16 or K18) or outside kernel (1, K17 or K19), with NaN in every dead
+    cell (i + d >= n) of each (B, N, N) [d, i] table it is handed and in
+    all of its scratch, gives bitwise the outputs of the call on the
+    untouched inputs, with the fills in every dead cell (bppo's -inf;
+    LOG_INSIDE_FILLS).  Two kernel launches, no plain version (on CPU
+    tensors, two calls of the plain version: the outside's only, whose dead
+    cells hold -inf too)."""
     from rna_algos_tpu_torch.ops import pallas_fold as PF
 
-    kernel = x["kernels"][1]
+    kernel = x["kernels"][which]
     kern = wrappers(kernel)[0]
-    args = x["outside_args"]
+    args = (x["inside_args"], x["outside_args"])[which]
     want = kern(*args)
-    N = want.shape[1]
-    r = torch.arange(N, device=want.device)
-    dead = (r[None, :, None] + r[None, None, :]) >= x["ns"].view(-1, 1, 1)
-    nan = torch.full((), float("nan"), device=want.device)
-    mo = {k: torch.where(dead, nan, v) for k, v in args[0].items()}
-    scratch = PF._outside_log_scratch
-    PF._outside_log_scratch = lambda *a: tuple(
-        t.fill_(float("nan")) for t in scratch(*a))
+    want = want if isinstance(want, tuple) else (want,)
+    fills = LOG_INSIDE_FILLS if which == 0 else (float("-inf"),)
+    dead = ~log_live(x, want[0])
+    nan = torch.full((), float("nan"), device=want[0].device)
+    mats = {k: torch.where(dead, nan, v) if v.shape == dead.shape else v
+            for k, v in args[0].items()}
+    name = ("_inside_log_scratch", "_outside_log_scratch")[which]
+    scratch = getattr(PF, name)
+    setattr(PF, name, lambda *a, **kw: tuple(
+        t.fill_(float("nan")) for t in scratch(*a, **kw)))
     try:
-        got = kern(mo, *args[1:])
+        got = kern(mats, *args[1:])
     finally:
-        PF._outside_log_scratch = scratch
-    if not (torch.equal(got.view(torch.int32), want.view(torch.int32))
-            and bool((got[dead] == float("-inf")).all())):
-        raise AssertionError(f"{LABELS[kernel]}: a dead cell or the scratch "
-                             "reached bppo")
+        setattr(PF, name, scratch)
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w, fill in zip(got, want, fills):
+        if not (torch.equal(g.view(torch.int32), w.view(torch.int32))
+                and bool((g[dead] == fill).all())):
+            raise AssertionError(f"{LABELS[kernel]}: a dead cell or the "
+                                 "scratch reached its outputs")
     print(f"  {LABELS[kernel]}: NaN in every dead table cell and the "
-          "scratch, bppo bitwise unchanged")
+          "scratch, outputs bitwise unchanged, dead cells their fills")
 
 
 def log_groups(N):
-    """K17's and K19's launch layout at N, for the log."""
+    """K16-K19's launch layout at N, for the log."""
     from rna_algos_tpu_torch.ops import pallas_fold as PF
 
-    g = PF.outside_log_group(N)
-    return (f"K17/K19 {g} threads a lane, {N * g} threads a sequence, "
-            "cluster size 1")
+    g = PF.log_group(N)
+    return (f"K17/K19 {g} threads a lane; K16/K18 a span's live lanes and "
+            f"its cells that can close {g} to 32 threads each (the most that "
+            f"fit); {N * g} threads a sequence, cluster size 1")
 
 
 def log_checks(device, err, rel, times, smi):
     """Phase 2 for K16-K19: each against its plain version at the main
     paths' shapes, its ms per launch (3 after a warm-up) beside the plain
     version's and the bound, into ``err``, ``rel`` and
-    ``times[kernel][shape]``; before that K17 and K19 alone, bitwise, on
-    the edge batches of LOG_EDGE, and with their dead cells poisoned."""
+    ``times[kernel][shape]``; before that each alone, bitwise, on the edge
+    batches of LOG_EDGE, and with their dead cells poisoned."""
     for N, lengths in LOG_EDGE.items():
         for model in ("contra", "turner"):
             x = log_inputs(model, N, len(lengths), seed=5 * N + len(model),
                            device=device, lengths=lengths)
             print(f"check {model} log edge N={N} n={lengths}, "
                   f"{log_groups(N)}")
-            kernel = x["kernels"][1]
-            a, _r, _exact, _pms = check_log(x, kernel, x["outside_args"])
-            err[kernel] = max(err[kernel], a)
-            check_log_dead_cells(x)
+            for which, args in enumerate((x["inside_args"],
+                                          x["outside_args"])):
+                kernel = x["kernels"][which]
+                a, _r, _exact, _pms = check_log(x, kernel, args)
+                err[kernel] = max(err[kernel], a)
+                check_log_dead_cells(x, which)
     for N, B in SHAPES_MAIN:
         for model in ("contra", "turner"):
             x = log_inputs(model, N, B, seed=11 * N + len(model), device=device)

@@ -34,14 +34,13 @@
 // window's lanes left of 0, are skipped; the context reads (d+t, i-t),
 // live), so those cells are never written.  The window rows sit in a
 // 33-slot ring in shared memory (RNA_OWIN: one barrier a span); a span's
-// ten table cells a lane are staged one span ahead with cp.async; g
+// ten table cells a lane are staged one span ahead with cp.async (the span
+// loop K16-K19 share, fold_log.cuh rna_log_spans); g
 // (transposed), (pm2, pm) (by pair end j) and QONEMB (transposed, computed
 // by the whole block first) live in the wrapper's scratch, laid out so a
 // group's leaves read neighbouring words.  Every log-add takes its cubic's
 // coefficients from shared memory by index (rna_lse_pair_s), the same bits
 // as rna_lse_pair in fewer instructions.
-
-#include <cuda_pipeline.h>
 
 #include "fold_log.cuh"
 
@@ -62,31 +61,6 @@ struct ContraOutsideLogTables {
       const float *__restrict__ LEN, const float *__restrict__ scal,         \
       const int *__restrict__ ns, float *bppo, float *g_t, float2 *pp,       \
       float *qmb, int N, int min_span
-
-// Stage span d's cells of lanes 0 .. n-1-d into `st` ([k][lane]).
-__device__ __forceinline__ void col_stage(const ContraOutsideLogTables& tabs,
-                                          const float* __restrict__ EXTR,
-                                          float* st, long long base, int b,
-                                          int d, int n, int N) {
-  const int nl = n - d;
-  for (int e = threadIdx.x; e < COL_STAGED * nl; e += blockDim.x) {
-    const int k = e / nl, l = e - k * nl;
-    float* dst = st + k * N + l;
-    if (k < COL_JS2) {
-      __pipeline_memcpy_async(dst, tabs.t[k] + base + (long long)d * N + l,
-                              sizeof(float));
-    } else if (k == COL_EXTR) {
-      __pipeline_memcpy_async(dst, EXTR + (long long)b * 2 * N + l + d + 1,
-                              sizeof(float));
-    } else if (d + 2 <= n - 1 && l >= 1) {
-      __pipeline_memcpy_async(
-          dst, tabs.t[7] + base + (long long)(d + 2) * N + l - 1,
-          sizeof(float));
-    } else {
-      *dst = 0.0f;
-    }
-  }
-}
 
 template <int G>
 __global__ void __launch_bounds__(RNA_LOG_THREADS, 1)
@@ -111,85 +85,68 @@ __global__ void __launch_bounds__(RNA_LOG_THREADS, 1)
   rna_log_qone_mb_t<true>(QONE, mbu, base, N, qmb);
   const float lt = EXTL[(long long)b * N + i];
   const float b0lo = B0LO[(long long)b * N + i];
-  if (n <= 0) return;
-  col_stage(tabs, EXTR, stage + ((n - 1) & 1) * COL_STAGED * N, base, b,
-            n - 1, n, N);
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
 
-  for (int d = n - 1; d >= 0; --d) {
-    if (d >= 1)
-      col_stage(tabs, EXTR, stage + ((d - 1) & 1) * COL_STAGED * N, base, b,
-                d - 1, n, N);
-    __pipeline_commit();
-    const int ri = n - 1 - d - i;  // live lanes: ri >= 0
-    if (ri >= 0) {
-      const float* st = stage + (d & 1) * COL_STAGED * N + i;
-      const float c = st[0];
-      const bool span_ok = d + 1 >= min_span;
-      const bool ok = c > RNA_NEG;
-      float bp = RNA_NEG, pm = RNA_NEG, pm2 = RNA_NEG;
-      if (span_ok) {
-        const float acc = radd(c, st[2 * N]);
-        const float ctx = rna_log_split_context<true, G>(
-            radd(acc, mbbp), mbu, base, d, i, n, N, r, mask, ok, ONEP, QONE,
-            g_t, pp, qmb, pm, pm2);
-        if (ok) {
-          const float bse = radd(
-              rsub(radd(radd(lt, acc), st[COL_EXTR * N]), glob), ebp);
-          const float jrb = st[6 * N];
-          const float stk_js = rsub(st[3 * N], st[COL_JS2 * N]);
-          const float b0ro = st[5 * N], i11o = st[4 * N];
-          const int slot0 = (d + 2) % RNA_OWIN;
-          const float two = rna_log_split_window<G>(
-              i, ri, r, mask, [&](int a, int bb) {
-                float body;
-                if (a == 0 && bb == 0) {
-                  body = stk_js;
-                } else {
-                  body = radd(jrb, len[bb * RNA_SHIFTS + a]);
-                  if (a == 0 && bb == 1) body = radd(body, b0ro);
-                  else if (a == 1 && bb == 0) body = radd(body, b0lo);
-                  else if (a == 1 && bb == 1) body = radd(body, i11o);
-                }
-                int s = slot0 + a + bb;
-                if (s >= RNA_OWIN) s -= RNA_OWIN;
-                return radd(radd(body, ring[s * N + i - 1 - a]), c);
-              });
-          bp = rna_lse_pair_s(rna_lse_pair_s(bse, two), ctx);
+  rna_log_spans<false, COL_STAGED>(
+      stage, n, N,
+      [&](int k, int d, int l) -> const float* {
+        if (k < COL_JS2) return tabs.t[k] + base + (long long)d * N + l;
+        if (k == COL_EXTR) return EXTR + (long long)b * 2 * N + l + d + 1;
+        return d + 2 <= n - 1 && l >= 1
+                   ? tabs.t[7] + base + (long long)(d + 2) * N + l - 1
+                   : nullptr;
+      },
+      RnaNoPass{}, rna_log_lanes<G>(n, [&](int d, int ri, const float* st) {
+        const float c = st[0];
+        const bool span_ok = d + 1 >= min_span;
+        const bool ok = c > RNA_NEG;
+        float bp = RNA_NEG, pm = RNA_NEG, pm2 = RNA_NEG;
+        if (span_ok) {
+          const float acc = radd(c, st[2 * N]);
+          const float ctx = rna_log_split_context<true, G>(
+              radd(acc, mbbp), mbu, base, d, i, n, N, r, mask, ok, ONEP,
+              QONE, g_t, pp, qmb, pm, pm2);
+          if (ok) {
+            const float bse = radd(
+                rsub(radd(radd(lt, acc), st[COL_EXTR * N]), glob), ebp);
+            const float jrb = st[6 * N];
+            const float stk_js = rsub(st[3 * N], st[COL_JS2 * N]);
+            const float b0ro = st[5 * N], i11o = st[4 * N];
+            const int slot0 = (d + 2) % RNA_OWIN;
+            const float two = rna_log_split_window<G>(
+                rna_log_out_trees(i, ri), r, mask,
+                [&](int a) { return rna_log_out_leaves(a, ri); },
+                [&](int a, int bb) {
+                  float body;
+                  if (a == 0 && bb == 0) {
+                    body = stk_js;
+                  } else {
+                    body = radd(jrb, len[bb * RNA_SHIFTS + a]);
+                    if (a == 0 && bb == 1) body = radd(body, b0ro);
+                    else if (a == 1 && bb == 0) body = radd(body, b0lo);
+                    else if (a == 1 && bb == 1) body = radd(body, i11o);
+                  }
+                  int s = slot0 + a + bb;
+                  if (s >= RNA_OWIN) s -= RNA_OWIN;
+                  return radd(radd(body, ring[s * N + i - 1 - a]), c);
+                });
+            bp = rna_lse_pair_s(rna_lse_pair_s(bse, two), ctx);
+          }
         }
-      }
-      if (r == 0) {
-        const long long row = base + (long long)d * N + i;
-        bppo[row] = bp;
-        g_t[base + (long long)i * N + d] =
-            ok ? rsub(radd(bp, st[1 * N]), c) : RNA_NEG;
-        pp[base + (long long)(i + d) * N + i] = make_float2(pm2, pm);
-        ring[(d % RNA_OWIN) * N + i] =
-            ok ? radd(rsub(bp, c), st[7 * N]) : RNA_NEG;
-      }
-    }
-    __pipeline_wait_prior(0);
-    __syncthreads();
-  }
+        if (r == 0) {
+          const long long row = base + (long long)d * N + i;
+          bppo[row] = bp;
+          g_t[base + (long long)i * N + d] =
+              ok ? rsub(radd(bp, st[1 * N]), c) : RNA_NEG;
+          pp[base + (long long)(i + d) * N + i] = make_float2(pm2, pm);
+          ring[(d % RNA_OWIN) * N + i] =
+              ok ? radd(rsub(bp, c), st[7 * N]) : RNA_NEG;
+        }
+      }));
 }
 
-template <int G>
-static int col_launch(const ContraOutsideLogTables& tabs, const float* ONEP,
-                      const float* QONE, const float* B0LO, const float* EXTL,
-                      const float* EXTR, const float* LEN, const float* scal,
-                      const int* ns, float* bppo, float* g_t, float2* pp,
-                      float* qmb, int B, int N, int min_span, void* stream) {
-  const size_t shmem =
-      sizeof(float) * (RNA_OWIN * N + RNA_LEN_SIZE + 2 * COL_STAGED * N);
-  return rna_launch(contra_outside_log_kernel<G>, B, N * G, shmem, stream,
-                    tabs, ONEP, QONE, B0LO, EXTL, EXTR, LEN, scal, ns, bppo,
-                    g_t, pp, qmb, N, min_span);
-}
-
-// Threads a lane of K17 and K19 at N (0 if N is not a log shape).
-extern "C" int rna_outside_log_group(int N) {
+// Threads a lane of K17 and K19 at N, the fewest K16 and K18 give a lane
+// (0 if N is not a log shape).
+extern "C" int rna_log_group_of(int N) {
   return rna_log_shape_ok(N) ? rna_log_group(N) : 0;
 }
 
@@ -198,18 +155,14 @@ extern "C" int rna_contra_outside_log(
     const float* EXTL, const float* EXTR, const float* LEN, const float* scal,
     const int* ns, float* bppo, float* g_t, float* pp, float* qmb, int B,
     int N, int min_span, void* stream) {
-  if (!rna_log_shape_ok(N)) return (int)cudaErrorInvalidValue;
   ContraOutsideLogTables tabs;
   for (int k = 0; k < 8; ++k) tabs.t[k] = (const float*)tables[k];
-  float2* pp2 = (float2*)pp;
-#define COL_ARGS tabs, ONEP, QONE, B0LO, EXTL, EXTR, LEN, scal, ns, bppo, \
-                 g_t, pp2, qmb, B, N, min_span, stream
-  switch (rna_log_group(N)) {
-    case 4: return col_launch<4>(COL_ARGS);
-    case 8: return col_launch<8>(COL_ARGS);
-    case 16: return col_launch<16>(COL_ARGS);
-    case 32: return col_launch<32>(COL_ARGS);
-  }
-#undef COL_ARGS
-  return (int)cudaErrorInvalidValue;
+  const size_t shmem =
+      sizeof(float) * (RNA_OWIN * N + RNA_LEN_SIZE + 2 * COL_STAGED * N);
+  return rna_log_launch(N, [&](auto g) {
+    return rna_launch(contra_outside_log_kernel<decltype(g)::value>, B,
+                      N * decltype(g)::value, shmem, stream, tabs, ONEP, QONE,
+                      B0LO, EXTL, EXTR, LEN, scal, ns, bppo, g_t, (float2*)pp,
+                      qmb, N, min_span);
+  });
 }

@@ -8,17 +8,25 @@
 // -inf past the live rows are identities and the least power of two
 // covering the live rows gives the bits of the JAX kernels' taller trees.
 //
-// The inside kernels K16/K18 run one block per sequence, one thread per
-// lane i, and build each tree on the fly with RnaTree: visiting leaf
-// t = bitreverse(m) for m = 0, 1, ... and keeping one partial sum per
-// level, like a binary counter, pairs the leaves exactly as the halving
-// tree does.  The outside kernels K17/K19 run a group of G threads a lane
-// and split each tree by residue (the split-tree helpers below): the same
-// tree, its partial sums in registers, its top levels across the group.
+// All four run one block of RNA_LOG_THREADS threads per sequence, a group
+// of threads a lane, and split each tree by residue (the split-tree
+// helpers below): the same tree, its partial sums in registers, its top
+// levels across the group.  They share one skeleton (rna_log_spans): the
+// spans in order (inside 0 .. n-1, outside n-1 .. 0), a span's table cells
+// staged one span ahead with cp.async, live lanes only (i + d < n), one
+// barrier a span (two inside).  The outside kernels give a lane
+// G = 1024 / N threads (rna_log_lanes, one instantiation per G through
+// rna_log_launch); the inside kernels give each span's live lanes as many
+// threads as the block holds (rna_log_lanes_by_span), and first, in a pass
+// of their own, each cell that can close its window (rna_log_window_pass).
 //
 // Every add and multiply is a round-to-nearest intrinsic, so nvcc contracts
 // nothing: the kernels compute what their plain PyTorch versions compute.
 #pragma once
+
+#include <cuda_pipeline.h>
+
+#include <type_traits>
 
 #include "launch.cuh"
 #include "cubic.cuh"
@@ -33,8 +41,6 @@
 #define RNA_SHIFTS 31
 #define RNA_MAX_LOOP 30
 #define RNA_LEN_SIZE (32 * RNA_SHIFTS)
-// partial sums of a tree over at most RNA_LOG_MAX_N leaves
-#define RNA_TREE_LEVELS 9
 #define RNA_NEG (-INFINITY)
 
 __device__ __forceinline__ float radd(float a, float b) {
@@ -54,74 +60,7 @@ __device__ __forceinline__ int rna_log2_ceil(int m) {
   return k;
 }
 
-// Leaf index of step m of a tree over 2^lg leaves.
-__device__ __forceinline__ int rna_leaf(int m, int lg) {
-  return lg ? (int)(__brev((unsigned)m) >> (32 - lg)) : 0;
-}
-
-// One tree's partial sums.  push(m, x) adds leaf rna_leaf(m, lg) and
-// returns the running carry, which after the last step (m = 2^lg - 1) is
-// the tree's sum.
-struct RnaTree {
-  float s[RNA_TREE_LEVELS];
-
-  __device__ __forceinline__ float push(int m, float x) {
-#pragma unroll
-    for (int l = 0; l < RNA_TREE_LEVELS; ++l) {
-      if (!((m >> l) & 1)) {
-        s[l] = x;
-        break;
-      }
-      x = rna_lse_pair(s[l], x);
-    }
-    return x;
-  }
-};
-
-// The inside pass's span-d bifurcation sums at lane i (JAX kernels' tail):
-//   ext = lse(base, tree_t [t <= d-1] rm(d-t, i+t) + ext(t-1, i))
-//   x_t = [1 <= t <= d-1] (CONTRA: rmmb(d-t, i+t); Turner: rm(...) + coeff)
-//   s1  = lse(s1_head, tree_t (CONTRA: x_t + mbu * t; Turner: x_t))
-//   s2  = tree_t one(t-1, i) + x_t
-//   one = lse(s1, s2)
-// ext(-1) is 0 and one(-1) is -inf; rows are [d, i], N floats from `base`.
-// Writes ext and one at `row`; returns s2.
-template <bool CONTRA>
-__device__ __forceinline__ float rna_log_bifurcation(
-    float ext_base, float s1_head, float w, long long base, long long row,
-    int d, int i, int N, const float* rm_hist, const float* rmm_hist,
-    float* ext, float* one) {
-  const int lg = rna_log2_ceil(d);
-  RnaTree te, t1, t2;
-  float re = RNA_NEG, r1 = RNA_NEG, r2 = RNA_NEG;
-  for (int m = 0; m < (1 << lg); ++m) {
-    const int t = rna_leaf(m, lg);
-    float e_leaf = RNA_NEG, x = RNA_NEG, one_t = RNA_NEG;
-    if (t <= d - 1) {
-      float fq = RNA_NEG, fqm = RNA_NEG;
-      if (i + t < N) {
-        const long long src = base + (long long)(d - t) * N + i + t;
-        fq = rm_hist[src];
-        fqm = CONTRA ? rmm_hist[src] : fq;
-      }
-      const float e = t == 0 ? 0.0f : ext[base + (long long)(t - 1) * N + i];
-      e_leaf = radd(fq, e);
-      if (t >= 1) {
-        x = CONTRA ? fqm : radd(fq, w);
-        one_t = one[base + (long long)(t - 1) * N + i];
-      }
-    }
-    const float s1_leaf = CONTRA ? radd(x, rmul(w, (float)t)) : x;
-    re = te.push(m, e_leaf);
-    r1 = t1.push(m, s1_leaf);
-    r2 = t2.push(m, radd(one_t, x));
-  }
-  ext[row] = rna_lse_pair(ext_base, re);
-  one[row] = rna_lse_pair(rna_lse_pair(s1_head, r1), r2);
-  return r2;
-}
-
-// The outside kernels' log-add: rna_lse_pair (cubic.cuh) with the
+// The log kernels' log-add: rna_lse_pair (cubic.cuh) with the
 // segment's coefficients read by index from a copy in shared memory, in
 // place of the seven compare-and-select steps: the same coefficients and
 // Horner steps, so the same bits, in fewer instructions.  A kernel that
@@ -152,8 +91,8 @@ __device__ __forceinline__ float rna_lse_pair_s(float a, float b) {
 }
 
 // ---------------------------------------------------------------------------
-// Split trees (the outside kernels K17, K19): a lane's sums over a group of
-// G threads (a power of two <= 32, inside one warp).
+// Split trees: a lane's sums over a group of G threads (a power of two
+// <= 32, inside one warp).
 //
 // The halving tree over 2^h leaves splits by residue: its last level pairs
 // the tree of the even leaves with the tree of the odd ones, the level
@@ -168,9 +107,12 @@ __device__ __forceinline__ float rna_lse_pair_s(float a, float b) {
 // skipped: the bits are those of the full tree.
 
 #define RNA_LOG_THREADS 1024
+static_assert(RNA_LOG_THREADS >= 4 * RNA_LOG_MAX_N,
+              "rna_log_by_count gives each lane at least 4 threads");
 
-// Threads a lane at N: a block of RNA_LOG_THREADS (the most the card runs
-// in one block) holds the sequence, at most a warp a lane.
+// Threads a lane of the outside kernels at N, the fewest the inside kernels
+// give one: a block of RNA_LOG_THREADS (the most the card runs in one block)
+// holds the sequence, at most a warp a lane.
 static inline int rna_log_group(int N) {
   const int g = RNA_LOG_THREADS / N;
   return g > 32 ? 32 : g;
@@ -316,29 +258,27 @@ __device__ __forceinline__ float rna_log_split_context(
   return rna_lse_pair_s(ab[0], ab[1]);
 }
 
-// The 2-loop window of a live lane i (31 trees a = 0..30 over b, folded in
+// The 2-loop window of a live lane (31 trees a = 0..30 over b, folded in
 // order a = 0..30), the trees dealt whole to the group's threads in a snake
 // (tree a to thread a % G on even rounds, G - 1 - a % G on odd ones, so the
-// long trees of small a spread).  Trees a >= i read lanes left of 0 and
-// leaves b >= n - 1 - d - i cells past the sequence's end: -inf, skipped.
-// leaf(a, b) is the window leaf; the sum reaches every thread.
-template <int G, typename Leaf>
-__device__ __forceinline__ float rna_log_split_window(int i, int ri, int r,
+// long trees of small a spread).  Only the trees a < A have live leaves,
+// tree a its first live(a): past them every leaf reads a cell outside the
+// sequence or before span 0, -inf, so they are skipped.  leaf(a, b) is the
+// window leaf; the sum reaches every thread.
+template <int G, typename Live, typename Leaf>
+__device__ __forceinline__ float rna_log_split_window(int A, int r,
                                                       unsigned mask,
-                                                      Leaf leaf) {
+                                                      Live live, Leaf leaf) {
   constexpr int NQ = (RNA_SHIFTS + G - 1) / G;
-  const int A = ri > 0 ? (i < RNA_SHIFTS ? i : RNA_SHIFTS) : 0;
   float tsum[NQ];
 #pragma unroll
   for (int q = 0; q < NQ; ++q) tsum[q] = RNA_NEG;
   for (int q = 0; q < NQ; ++q) {
     const int a = q * G + ((q & 1) ? G - 1 - r : r);
     if (a >= A) continue;
-    const int live = RNA_SHIFTS - a;
     float s[1];
     rna_thread_tree<4, 1>(
-        live < ri ? live : ri, [&](int bb, float (&v)[1]) { v[0] = leaf(a, bb); },
-        s);
+        live(a), [&](int bb, float (&v)[1]) { v[0] = leaf(a, bb); }, s);
 #pragma unroll
     for (int qq = 0; qq < NQ; ++qq)
       if (qq == q) tsum[qq] = s[0];
@@ -356,6 +296,68 @@ __device__ __forceinline__ float rna_log_split_window(int i, int ri, int r,
   return two;
 }
 
+// The outside pass's window limits at a live lane i with r = n - 1 - d - i
+// cells to its pair's end: trees a < min(i, 31) (the outer pair's left end
+// i - 1 - a >= 0), tree a over min(31 - a, r) leaves (its right end
+// j + 1 + b < n).
+__device__ __forceinline__ int rna_log_out_trees(int i, int ri) {
+  return ri > 0 ? (i < RNA_SHIFTS ? i : RNA_SHIFTS) : 0;
+}
+__device__ __forceinline__ int rna_log_out_leaves(int a, int ri) {
+  const int live = RNA_SHIFTS - a;
+  return live < ri ? live : ri;
+}
+
+// The inside pass's window limits at span d: the inner pair's span
+// d - 2 - a - b >= 0, so trees a <= min(30, d - 2), tree a over
+// min(31 - a, d - 1 - a) leaves.
+__device__ __forceinline__ int rna_log_in_trees(int d) {
+  return d - 1 < RNA_SHIFTS ? d - 1 : RNA_SHIFTS;
+}
+__device__ __forceinline__ int rna_log_in_leaves(int a, int d) {
+  return (d - 1 < RNA_SHIFTS ? d - 1 : RNA_SHIFTS) - a;
+}
+
+// The inside pass's span-d bifurcation sums of a live lane i, its three
+// trees over t < d reduced together and split over the group
+// (rna_split_tree<G, 3>), leaf t:
+//   ext: rm(d-t, i+t) + ext(t-1, i)            (ext(-1) = 0)
+//   x_t = [t >= 1] (CONTRA: rmmb(d-t, i+t); Turner: rm(d-t, i+t) + w)
+//   s1:  CONTRA x_t + w t; Turner x_t
+//   s2:  one(t-1, i) + x_t
+// `rmp` holds rm (Turner) or (rm, rmmb) (CONTRA) by pair end, [i + d][i]
+// (a lane's leaves (d-t, i+t) neighbouring words), `eo` (ext, one)
+// transposed, [i][d]; leaf 0's rm is the lane's own of span d, passed in.
+// The sums reach thread 0 of the group.
+__device__ __forceinline__ float2 rna_rm_pair(const float2* p) { return *p; }
+__device__ __forceinline__ float2 rna_rm_pair(const float* p) {
+  const float v = *p;
+  return make_float2(v, v);
+}
+
+template <bool CONTRA, int G, typename RmT>
+__device__ __forceinline__ void rna_log_split_bifurcation(
+    float rm, float w, long long base, int d, int i, int N, int r,
+    unsigned mask, const RmT* rmp, const float2* eo, float (&sum)[3]) {
+  const RmT* rl = rmp + base + (long long)(i + d) * N + i;
+  const float2* el = eo + base + (long long)i * N - 1;
+  rna_split_tree<G, 3>(
+      d, r, mask,
+      [&](int t, float (&v)[3]) {
+        if (t == 0) {
+          v[0] = radd(rm, 0.0f);
+          return;
+        }
+        const float2 q = rna_rm_pair(rl + t);
+        const float2 e = el[t];
+        v[0] = radd(q.x, e.x);
+        const float x = CONTRA ? q.y : radd(q.x, w);
+        v[1] = CONTRA ? radd(x, rmul(w, (float)t)) : x;
+        v[2] = radd(e.y, x);
+      },
+      sum);
+}
+
 // QONEMB(t, i) of the whole sequence, spread over the block, transposed
 // into `qmb` ([i][t]).
 template <bool CONTRA>
@@ -369,10 +371,13 @@ __device__ __forceinline__ void rna_log_qone_mb_t(
   }
 }
 
-// The outside kernels' ring of window rows: span s at slot s % RNA_OWIN.
-// Span d reads spans d + 2 .. d + 32 and writes its own slot, which held
-// span d + 33: one barrier a span.
+// The ring of window rows: span s at slot s % RNA_OWIN.  Span d reads
+// spans d + 2 .. d + 32 (outside) or d - 32 .. d - 2 (inside) and writes its
+// own slot, which held span d +- 33, so no barrier parts the reads from the
+// write.  The inside's s2 rows sit in a ring of RNA_S2_SLOTS likewise: span
+// d reads s2(d - 2) and writes s2(d).
 #define RNA_OWIN 33
+#define RNA_S2_SLOTS 3
 
 // Turner 2-loop window terms (K18, K19; ops/pallas_fold.py _turner_window).
 
@@ -416,4 +421,137 @@ __device__ __forceinline__ float rna_turner_leaf(
 
 static inline bool rna_log_shape_ok(int N) {
   return N >= 32 && N <= RNA_LOG_MAX_N && (N & (N - 1)) == 0;
+}
+
+// ---------------------------------------------------------------------------
+// The skeleton of the four kernels.
+
+// Stage span d's K cells a lane of lanes 0 .. n-1-d into `st` ([k][lane]):
+// src(k, d, l) is cell k's address, or nullptr for a 0.
+template <int K, typename Src>
+__device__ __forceinline__ void rna_log_stage(float* st, int d, int n, int N,
+                                              Src src) {
+  const int nl = n - d;
+  for (int e = threadIdx.x; e < K * nl; e += blockDim.x) {
+    const int k = e / nl, l = e - k * nl;
+    float* dst = st + k * N + l;
+    const float* p = src(k, d, l);
+    if (p) {
+      __pipeline_memcpy_async(dst, p, sizeof(float));
+    } else {
+      *dst = 0.0f;
+    }
+  }
+}
+
+// No block-wide pass before a span's cells (the outside kernels).
+struct RnaNoPass {};
+
+// The span loop: spans d = 0 .. n-1 (INSIDE) or n-1 .. 0, span d's K cells
+// a lane (src, as rna_log_stage) staged during the span before it into a
+// double buffer `stage` (2 K N floats); pass(d) on every thread, followed
+// by a barrier (unless Pass is RnaNoPass); then lanes(d, st) on every
+// thread, `st` span d's staged cells (cell k of lane l at st[k * N + l]).
+// One barrier a span (two with a pass): a span reads only what spans
+// before it, and its pass, wrote.
+template <bool INSIDE, int K, typename Src, typename Pass, typename Lanes>
+__device__ __forceinline__ void rna_log_spans(float* stage, int n, int N,
+                                              Src src, Pass pass,
+                                              Lanes lanes) {
+  if (n <= 0) return;
+  const int first = INSIDE ? 0 : n - 1;
+  rna_log_stage<K>(stage + (first & 1) * K * N, first, n, N, src);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  for (int s = 0; s < n; ++s) {
+    const int d = INSIDE ? s : n - 1 - s;
+    if (s + 1 < n) {
+      const int dn = INSIDE ? d + 1 : d - 1;
+      rna_log_stage<K>(stage + (dn & 1) * K * N, dn, n, N, src);
+    }
+    __pipeline_commit();
+    if constexpr (!std::is_same_v<Pass, RnaNoPass>) {
+      pass(d);
+      __syncthreads();
+    }
+    lanes(d, stage + (d & 1) * K * N);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+}
+
+// The lanes of a span with G threads each, lane tid / G: where lane i is
+// live at span d (ri = n - 1 - d - i >= 0), cell(d, ri, st) with `st` its
+// staged cells (cell k at st[k * N]).
+template <int G, typename Cell>
+__device__ __forceinline__ auto rna_log_lanes(int n, Cell cell) {
+  return [=](int d, const float* st) {
+    const int i = threadIdx.x / G;
+    const int ri = n - 1 - d - i;
+    if (ri >= 0) cell(d, ri, st + i);
+  };
+}
+
+// fn(std::integral_constant<int, G>{}) with G the largest power of two
+// <= 32 that gives each of `count` <= RNA_LOG_MAX_N items G threads of the
+// block (4 at most items).
+template <typename Fn>
+__device__ __forceinline__ void rna_log_by_count(int count, Fn fn) {
+  if (count <= RNA_LOG_THREADS / 32) {
+    fn(std::integral_constant<int, 32>{});
+  } else if (count <= RNA_LOG_THREADS / 16) {
+    fn(std::integral_constant<int, 16>{});
+  } else if (count <= RNA_LOG_THREADS / 8) {
+    fn(std::integral_constant<int, 8>{});
+  } else {
+    fn(std::integral_constant<int, 4>{});
+  }
+}
+
+// The live lanes of span d (i < n - d) with as many threads each as the
+// block holds (rna_log_by_count over the n - d lanes): however few lanes
+// are live, every thread works.  cell(gc, d, i, r, ri, st) on thread r of
+// lane i's group, the group's size decltype(gc)::value.
+template <typename Cell>
+__device__ __forceinline__ auto rna_log_lanes_by_span(int n, Cell cell) {
+  return [=](int d, const float* st) {
+    rna_log_by_count(n - d, [&](auto gc) {
+      constexpr int GC = decltype(gc)::value;
+      const int i = threadIdx.x / GC;
+      const int ri = n - 1 - d - i;
+      if (ri >= 0) cell(gc, d, i, (int)threadIdx.x % GC, ri, st + i);
+    });
+  };
+}
+
+// The inside kernels' window pass: the span's K cells that can close (live,
+// CANON finite, from span 5 on), listed by lane in `cells`, each get a group of
+// the block's threads (rna_log_by_count); win(gw, i, r, mask) computes
+// lane i's window on thread r of its group, of decltype(gw)::value threads.
+// The window's shape depends on the span only, so the groups' work is
+// equal, and the cells that cannot close cost nothing.
+template <typename Win>
+__device__ __forceinline__ void rna_log_window_pass(const int* cells, int K,
+                                                    Win win) {
+  rna_log_by_count(K, [&](auto gw) {
+    constexpr int GW = decltype(gw)::value;
+    const int tid = threadIdx.x;
+    const int k = tid / GW;
+    if (k < K) win(gw, cells[k], tid % GW, rna_group_mask<GW>(tid));
+  });
+}
+
+// launch(std::integral_constant<int, G>{}) for N's group size G: one
+// kernel instantiation per G, the launch's return value (a CUDA error).
+template <typename Launch>
+static int rna_log_launch(int N, Launch launch) {
+  if (!rna_log_shape_ok(N)) return (int)cudaErrorInvalidValue;
+  switch (rna_log_group(N)) {
+    case 4: return launch(std::integral_constant<int, 4>{});
+    case 8: return launch(std::integral_constant<int, 8>{});
+    case 16: return launch(std::integral_constant<int, 16>{});
+    case 32: return launch(std::integral_constant<int, 32>{});
+  }
+  return (int)cudaErrorInvalidValue;
 }

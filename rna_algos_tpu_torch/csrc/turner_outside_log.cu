@@ -18,9 +18,8 @@
 // trees split as the halving tree splits, live work only (no dead cell's
 // g, g2, pm, pm2 or TMo ring cell is read, so none is written), four
 // 33-slot rings in shared memory (g2 and TMo1..3), the span's 17 table
-// cells and EXTR a lane staged one span ahead with cp.async.
-
-#include <cuda_pipeline.h>
+// cells and EXTR a lane staged one span ahead with cp.async (the span loop
+// K16-K19 share, fold_log.cuh rna_log_spans).
 
 #include "fold_log.cuh"
 
@@ -42,21 +41,6 @@ struct TurnerOutsideLogTables {
       const float *__restrict__ LENI, const float *__restrict__ scal,        \
       const int *__restrict__ ns, float *bppo, float *g_t, float2 *pp,       \
       float *qmb, int N, int min_span
-
-// Stage span d's cells of lanes 0 .. n-1-d into `st` ([k][lane]).
-__device__ __forceinline__ void tol_stage(const TurnerOutsideLogTables& tabs,
-                                          const float* __restrict__ EXTR,
-                                          float* st, long long base, int b,
-                                          int d, int n, int N) {
-  const int nl = n - d;
-  for (int e = threadIdx.x; e < TOL_STAGED * nl; e += blockDim.x) {
-    const int k = e / nl, l = e - k * nl;
-    const float* src = k < TOL_COUNT
-                           ? tabs.t[k] + base + (long long)d * N + l
-                           : EXTR + (long long)b * 2 * N + l + d + 1;
-    __pipeline_memcpy_async(st + k * N + l, src, sizeof(float));
-  }
-}
 
 template <int G>
 __global__ void __launch_bounds__(RNA_LOG_THREADS, 1)
@@ -86,82 +70,60 @@ __global__ void __launch_bounds__(RNA_LOG_THREADS, 1)
   const long long base = (long long)b * N * N;
   rna_log_qone_mb_t<false>(QONE, 0.0f, base, N, qmb);
   const float lt = EXTL[(long long)b * N + i];
-  if (n <= 0) return;
-  tol_stage(tabs, EXTR, stage + ((n - 1) & 1) * TOL_STAGED * N, base, b,
-            n - 1, n, N);
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
 
-  for (int d = n - 1; d >= 0; --d) {
-    if (d >= 1)
-      tol_stage(tabs, EXTR, stage + ((d - 1) & 1) * TOL_STAGED * N, base, b,
-                d - 1, n, N);
-    __pipeline_commit();
-    const int ri = n - 1 - d - i;  // live lanes: ri >= 0
-    if (ri >= 0) {
-      const float* st = stage + (d & 1) * TOL_STAGED * N + i;
-      const float c = st[0];
-      const bool span_ok = d + 1 >= min_span;
-      const bool ok = c > RNA_NEG;
-      float bp = RNA_NEG, pm = RNA_NEG, pm2 = RNA_NEG;
-      if (span_ok) {
-        const float acc = radd(c, st[2 * N]);
-        const float ctx = rna_log_split_context<false, G>(
-            radd(acc, coeff), 0.0f, base, d, i, n, N, r, mask, ok, ONEP,
-            QONE, g_t, pp, qmb, pm, pm2);
-        if (ok) {
-          const float bse = rsub(
-              radd(radd(lt, acc), st[TOL_EXTR * N]), glob);
-          float sp[7], tm[3];
+  rna_log_spans<false, TOL_STAGED>(
+      stage, n, N,
+      [&](int k, int d, int l) -> const float* {
+        return k < TOL_COUNT ? tabs.t[k] + base + (long long)d * N + l
+                             : EXTR + (long long)b * 2 * N + l + d + 1;
+      },
+      RnaNoPass{}, rna_log_lanes<G>(n, [&](int d, int ri, const float* st) {
+        const float c = st[0];
+        const bool span_ok = d + 1 >= min_span;
+        const bool ok = c > RNA_NEG;
+        float bp = RNA_NEG, pm = RNA_NEG, pm2 = RNA_NEG;
+        if (span_ok) {
+          const float acc = radd(c, st[2 * N]);
+          const float ctx = rna_log_split_context<false, G>(
+              radd(acc, coeff), 0.0f, base, d, i, n, N, r, mask, ok, ONEP,
+              QONE, g_t, pp, qmb, pm, pm2);
+          if (ok) {
+            const float bse =
+                rsub(radd(radd(lt, acc), st[TOL_EXTR * N]), glob);
+            float sp[7], tm[3];
 #pragma unroll
-          for (int k = 0; k < 7; ++k) sp[k] = st[(3 + k) * N];
+            for (int k = 0; k < 7; ++k) sp[k] = st[(3 + k) * N];
 #pragma unroll
-          for (int k = 0; k < 3; ++k) tm[k] = st[(14 + k) * N];
-          const float aug = st[13 * N];
-          const int slot0 = (d + 2) % RNA_OWIN;
-          const float two = rna_log_split_window<G>(
-              i, ri, r, mask, [&](int a, int bb) {
-                int s = slot0 + a + bb;
-                if (s >= RNA_OWIN) s -= RNA_OWIN;
-                const int at = s * N + i - 1 - a;
-                return radd(rna_turner_leaf(a, bb, lenb, leni, sp, tm, aug,
-                                            og[at], tw[at], tw[RING + at],
-                                            tw[2 * RING + at]),
-                            c);
-              });
-          bp = rna_lse_pair_s(rna_lse_pair_s(bse, two), ctx);
+            for (int k = 0; k < 3; ++k) tm[k] = st[(14 + k) * N];
+            const float aug = st[13 * N];
+            const int slot0 = (d + 2) % RNA_OWIN;
+            const float two = rna_log_split_window<G>(
+                rna_log_out_trees(i, ri), r, mask,
+                [&](int a) { return rna_log_out_leaves(a, ri); },
+                [&](int a, int bb) {
+                  int s = slot0 + a + bb;
+                  if (s >= RNA_OWIN) s -= RNA_OWIN;
+                  const int at = s * N + i - 1 - a;
+                  return radd(rna_turner_leaf(a, bb, lenb, leni, sp, tm, aug,
+                                              og[at], tw[at], tw[RING + at],
+                                              tw[2 * RING + at]),
+                              c);
+                });
+            bp = rna_lse_pair_s(rna_lse_pair_s(bse, two), ctx);
+          }
         }
-      }
-      if (r == 0) {
-        const long long row = base + (long long)d * N + i;
-        bppo[row] = bp;
-        g_t[base + (long long)i * N + d] =
-            ok ? rsub(radd(bp, st[1 * N]), c) : RNA_NEG;
-        pp[base + (long long)(i + d) * N + i] = make_float2(pm2, pm);
-        const int slot = (d % RNA_OWIN) * N + i;
-        og[slot] = ok ? radd(rsub(bp, c), st[13 * N]) : RNA_NEG;
+        if (r == 0) {
+          const long long row = base + (long long)d * N + i;
+          bppo[row] = bp;
+          g_t[base + (long long)i * N + d] =
+              ok ? rsub(radd(bp, st[1 * N]), c) : RNA_NEG;
+          pp[base + (long long)(i + d) * N + i] = make_float2(pm2, pm);
+          const int slot = (d % RNA_OWIN) * N + i;
+          og[slot] = ok ? radd(rsub(bp, c), st[13 * N]) : RNA_NEG;
 #pragma unroll
-        for (int k = 0; k < 3; ++k) tw[k * RING + slot] = st[(10 + k) * N];
-      }
-    }
-    __pipeline_wait_prior(0);
-    __syncthreads();
-  }
-}
-
-template <int G>
-static int tol_launch(const TurnerOutsideLogTables& tabs, const float* ONEP,
-                      const float* QONE, const float* EXTL, const float* EXTR,
-                      const float* LENB, const float* LENI, const float* scal,
-                      const int* ns, float* bppo, float* g_t, float2* pp,
-                      float* qmb, int B, int N, int min_span, void* stream) {
-  const size_t shmem = sizeof(float) * (4 * RNA_OWIN * N +
-                                        2 * RNA_LEN_SIZE +
-                                        2 * TOL_STAGED * N);
-  return rna_launch(turner_outside_log_kernel<G>, B, N * G, shmem, stream,
-                    tabs, ONEP, QONE, EXTL, EXTR, LENB, LENI, scal, ns, bppo,
-                    g_t, pp, qmb, N, min_span);
+          for (int k = 0; k < 3; ++k) tw[k * RING + slot] = st[(10 + k) * N];
+        }
+      }));
 }
 
 extern "C" int rna_turner_outside_log(
@@ -169,18 +131,15 @@ extern "C" int rna_turner_outside_log(
     const float* EXTR, const float* LENB, const float* LENI,
     const float* scal, const int* ns, float* bppo, float* g_t, float* pp,
     float* qmb, int B, int N, int min_span, void* stream) {
-  if (!rna_log_shape_ok(N)) return (int)cudaErrorInvalidValue;
   TurnerOutsideLogTables tabs;
   for (int k = 0; k < TOL_COUNT; ++k) tabs.t[k] = (const float*)tables[k];
-  float2* pp2 = (float2*)pp;
-#define TOL_ARGS tabs, ONEP, QONE, EXTL, EXTR, LENB, LENI, scal, ns, bppo, \
-                 g_t, pp2, qmb, B, N, min_span, stream
-  switch (rna_log_group(N)) {
-    case 4: return tol_launch<4>(TOL_ARGS);
-    case 8: return tol_launch<8>(TOL_ARGS);
-    case 16: return tol_launch<16>(TOL_ARGS);
-    case 32: return tol_launch<32>(TOL_ARGS);
-  }
-#undef TOL_ARGS
-  return (int)cudaErrorInvalidValue;
+  const size_t shmem = sizeof(float) * (4 * RNA_OWIN * N +
+                                        2 * RNA_LEN_SIZE +
+                                        2 * TOL_STAGED * N);
+  return rna_log_launch(N, [&](auto g) {
+    return rna_launch(turner_outside_log_kernel<decltype(g)::value>, B,
+                      N * decltype(g)::value, shmem, stream, tabs, ONEP, QONE,
+                      EXTL, EXTR, LENB, LENI, scal, ns, bppo, g_t,
+                      (float2*)pp, qmb, N, min_span);
+  });
 }

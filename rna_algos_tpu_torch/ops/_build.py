@@ -47,10 +47,10 @@ SIGNATURES = {
     "rna_contra_inside_log": [ctypes.POINTER(_P)] + [_P] * 8 + [_I, _I, _P],
     "rna_contra_outside_log": [ctypes.POINTER(_P)] + [_P] * 12
     + [_I, _I, _I, _P],
-    "rna_turner_inside_log": [ctypes.POINTER(_P)] + [_P] * 8 + [_I, _I, _P],
+    "rna_turner_inside_log": [ctypes.POINTER(_P)] + [_P] * 9 + [_I, _I, _P],
     "rna_turner_outside_log": [ctypes.POINTER(_P)] + [_P] * 12
     + [_I, _I, _I, _P],
-    "rna_outside_log_group": [_I],
+    "rna_log_group_of": [_I],
 }
 
 

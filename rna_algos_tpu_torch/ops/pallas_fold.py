@@ -613,8 +613,12 @@ def _outside_log_plain(CLOSE, MBC, ACC, ONEP, QONE, EXTL, EXTR, scal, ns,
         # sequence's step n - 1 - d
         s = t = torch.arange(_live_height(N, n_max - 1 - d), device=dev)
         g = G[:, (d + 1 + s).clamp(max=N)]                      # (B, P, N)
+        # the live terms only, s < n - 1 - d - i: past them g is -inf and
+        # ONEP holds the inside pass's dead cells
+        live_s = (s[None, :, None] + d + lanes[None, None, :]
+                  < ns_d[:, :, None] - 1)
         one_s = ONEP[:, s, d + 1:d + 1 + N]
-        pm = _lse_rows((g + one_s).transpose(0, 1))
+        pm = _lse_rows(torch.where(live_s, g + one_s, neg).transpose(0, 1))
         if contra:
             pm2 = _lse_rows((g + s2_[:, :, None]
                              * s.to(torch.float32)[None, :, None])
@@ -746,13 +750,20 @@ def _outside_log_scratch(B, N, dev):
             torch.empty((B, N, N), device=dev))
 
 
-def outside_log_group(N):
-    """Threads a lane of K17 and K19 at N: one block of 1,024 threads a
-    sequence, at most a warp a lane (csrc/fold_log.cuh ``rna_log_group``);
-    no cluster.  The batch does not enter: at the main shapes half as many
-    threads a lane ran K17/K19 1.4-1.6x slower (an H100 80GB HBM3 at
-    700 W, PERF.md section 6)."""
-    return _build.library().lib.rna_outside_log_group(N)
+def _inside_log_scratch(B, N, dev, contra):
+    """K16's and K18's scratch: rm (Turner) or (rm, rmmb) (CONTRA) by pair
+    end ([i + d][i]), (ext, one) transposed ([i][d], (B, N, N, 2))."""
+    rm = torch.empty((B, N, N, 2) if contra else (B, N, N), device=dev)
+    return rm, torch.empty((B, N, N, 2), device=dev)
+
+
+def log_group(N):
+    """Threads a lane of K17 and K19 at N, and the fewest K16 and K18 give
+    a lane: one block of 1,024 threads a sequence, at most a warp a lane
+    (csrc/fold_log.cuh ``rna_log_group``); no cluster.  The batch does not
+    enter: at the main shapes half as many threads a lane ran K17/K19
+    1.4-1.6x slower (an H100 80GB HBM3 at 700 W, PERF.md section 6)."""
+    return _build.library().lib.rna_log_group_of(N)
 
 
 def _check_log(entry, tables, names, extra, extra_shapes, B, N, dev):
@@ -768,7 +779,9 @@ def contra_inside_log(mats, LEN, scal, ns):
     plain version for CPU tensors.  ``mats``: the (B, N, N) [d, i] tables
     of ``contra_precompute_di`` (CONTRA_INSIDE_LOG_TABLES); ``LEN`` (32, 31)
     ``_contra_len_di``; ``scal`` (B, 8) ``_contra_scal``; ``ns`` (B,) int32.
-    Returns (close, ext, one), each (B, N, N) [d, i]."""
+    Returns (close, ext, one), each (B, N, N) [d, i]; the kernel leaves
+    the cells past a sequence's end (i + d >= n) their fills (-inf, 0,
+    -inf), which nothing downstream reads."""
     H = mats["H"]
     if _log_device("contra_inside_log", H) == "cpu":
         return contra_inside_log_plain(mats, LEN, scal, ns)
@@ -780,8 +793,8 @@ def contra_inside_log(mats, LEN, scal, ns):
     close = torch.full((B, N, N), NEG_INF, device=dev)
     ext = torch.zeros((B, N, N), device=dev)
     one = torch.full((B, N, N), NEG_INF, device=dev)
-    rm, rmm = (torch.empty((B, N, N), device=dev) for _ in range(2))
-    args = [LEN, scal, ns, close, ext, one, rm, rmm]
+    rmp, eo = _inside_log_scratch(B, N, dev, contra=True)
+    args = [LEN, scal, ns, close, ext, one, rmp, eo]
     _build.library().call(
         "rna_contra_inside_log",
         _build.ptr_array(mats, CONTRA_INSIDE_LOG_TABLES),
@@ -966,7 +979,8 @@ def turner_inside_log(mats, LENB, LENI, scal, ns):
     plain version for CPU tensors.  ``mats``: the (B, N, N) [d, i] tables
     of ``turner_precompute_di`` (TURNER_INSIDE_LOG_TABLES); ``LENB``,
     ``LENI`` (32, 31) ``_turner_len_di``; ``scal`` (B, 8)
-    ``_turner_scal``; ``ns`` (B,) int32.  Returns (close, ext, one)."""
+    ``_turner_scal``; ``ns`` (B,) int32.  Returns (close, ext, one), the
+    cells past a sequence's end left their fills as K16 leaves them."""
     H = mats["H"]
     if _log_device("turner_inside_log", H) == "cpu":
         return turner_inside_log_plain(mats, LENB, LENI, scal, ns)
@@ -979,8 +993,8 @@ def turner_inside_log(mats, LENB, LENI, scal, ns):
     close = torch.full((B, N, N), NEG_INF, device=dev)
     ext = torch.zeros((B, N, N), device=dev)
     one = torch.full((B, N, N), NEG_INF, device=dev)
-    rm = torch.empty((B, N, N), device=dev)
-    args = [LENB, LENI, scal, ns, close, ext, one, rm]
+    rmp, eo = _inside_log_scratch(B, N, dev, contra=False)
+    args = [LENB, LENI, scal, ns, close, ext, one, rmp, eo]
     _build.library().call(
         "rna_turner_inside_log",
         _build.ptr_array(mats, TURNER_INSIDE_LOG_TABLES),

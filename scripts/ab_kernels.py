@@ -31,11 +31,14 @@ sets (630 tRNA pairs at N = 128, 2,016 random pairs at N = 256).
 chip_smoke.py's log inputs (``log_inputs``: the arguments one parity fold
 hands its kernels) at N = 128, B = 192 and N = 256, B = 96, prints each
 build's registers, spills and stack frame for them, and whether the two
-builds' outputs are bitwise equal; then it times the parity main paths
-(``FoldEngine(numerics="parity")``, both models, chip_smoke.py's tRNA and
-random 150-200 nt batches) through each build in the same turns, with
-their seqs/s and peak memory.  A build whose K17/K19 entry points take the
-separate pm and pm2 scratches of before is handed them.
+builds' outputs are bitwise equal (K16/K18 on the live cells, i + d < n:
+a build before their redesign computes the dead ones too); then it times
+the parity main paths (``FoldEngine(numerics="parity")``, both models,
+chip_smoke.py's tRNA and random 150-200 nt batches) through each build in
+the same turns, with their seqs/s and peak memory.  A build whose K17/K19
+entry points take the separate pm and pm2 scratches of before is handed
+them; one whose K18 entry point takes no (ext, one) scratch is not handed
+it (K16's two scratches fit the rm and rmmb histories it took before).
 Entry points a build does not define are not bound.  Needs a GPU.
 """
 
@@ -121,6 +124,22 @@ class PmBuild:
         return self.lib.call(name, *args)
 
 
+class NoEoBuild:
+    """A build whose K18 entry point takes no (ext, one) scratch (from
+    before K16/K18's redesign), called with today's arguments."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.path = lib.path
+        self.compiler_output = lib.compiler_output
+
+    def call(self, name, *args):
+        if name == "rna_turner_inside_log":
+            k = next(j for j, a in enumerate(args) if isinstance(a, int))
+            args = (*args[:k - 1], *args[k:])
+        return self.lib.call(name, *args)
+
+
 class SplitBuild(RingBuild):
     """A build from before the merge, called with the merged entry points'
     arguments: past N = 256 the ``_long`` entry point is called, with its
@@ -163,6 +182,12 @@ def load(csrc, split):
         if pm_split:
             sigs.update({k: [*saved[k][:13], _P, *saved[k][13:]]
                          for k in LOG_OUTSIDE})
+        k18 = "rna_turner_inside_log"
+        k18_decl = re.search(rf'"C" int {k18}\(([^)]*)\)', text)
+        no_eo = bool(k18_decl) and not re.search(r"\beo\b",
+                                                  k18_decl.group(1))
+        if no_eo:
+            sigs[k18] = [*saved[k18][:9], *saved[k18][10:]]
     _build.SIGNATURES = sigs
     try:
         lib = _build.library()
@@ -171,7 +196,9 @@ def load(csrc, split):
     if split:
         return SplitBuild(lib, ringed)
     if pm_split:
-        return PmBuild(lib)
+        lib = PmBuild(lib)
+    if no_eo:
+        lib = NoEoBuild(lib)
     return RingBuild(lib, ringed) if ringed else lib
 
 
@@ -361,15 +388,12 @@ def ab_log(libs, dev, chip_smoke):
     """K16-K19 of the two builds in turns A, B, B, A on the parity path's
     arguments (3 launches after a warm-up each), and whether their outputs
     are bitwise equal."""
-    from rna_algos_tpu_torch.ops import pallas_fold as PF
-
     cases = []
     for N, B in chip_smoke.SHAPES_MAIN:
         for model in ("contra", "turner"):
             cases.append((N, B, chip_smoke.log_inputs(
                 model, N, B, seed=11 * N + len(model), device=dev)))
-        print(f"N={N} B={B}: K17/K19 threads a lane "
-              f"{PF.outside_log_group(N)}, cluster size 1")
+        print(f"N={N} B={B}: {chip_smoke.log_groups(N)}")
     outs = {}
     for turn, which in enumerate(("A", "B", "B", "A")):
         use(libs[which])
@@ -384,10 +408,17 @@ def ab_log(libs, dev, chip_smoke):
                 print(f"turn {turn} build {which} N={N} B={B} {kernel}: "
                       f"{ms:.4f} ms")
     for (N, B, kernel), got in outs.items():
+        a, b, note = got["A"], got["B"], ""
+        if kernel.endswith("_inside_log"):
+            x = next(c for n_, b_, c in cases
+                     if (n_, b_) == (N, B) and kernel in c["kernels"])
+            live = chip_smoke.log_live(x, a[0])
+            a, b = [t[live] for t in a], [t[live] for t in b]
+            note = " on live cells"
         same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
-                   for x, y in zip(got["A"], got["B"]))
-        print(f"N={N} B={B} {kernel}: outputs of A and B bitwise equal: "
-              f"{same}")
+                   for x, y in zip(a, b))
+        print(f"N={N} B={B} {kernel}: outputs of A and B bitwise equal"
+              f"{note}: {same}")
     ab_parity_paths(libs)
     return 0
 

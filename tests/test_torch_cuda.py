@@ -207,8 +207,9 @@ def log_inputs(device, request):
 @pytest.mark.parametrize("which", [0, 1], ids=["inside", "outside"])
 def test_log_kernel_matches_plain(log_inputs, which):
     """K16/K17 (CONTRA) and K18/K19 (Turner): the -inf pattern identical,
-    finite cells within 1e-4 * max(1, |x|) (bitwise in the chip runs);
-    K17 and K19 bitwise (check_log raises otherwise)."""
+    finite cells within 1e-4 * max(1, |x|), and bitwise (check_log raises
+    otherwise); K16/K18 on the live cells, their dead cells holding the
+    wrappers' fills."""
     kernel = log_inputs["kernels"][which]
     args = (log_inputs["inside_args"], log_inputs["outside_args"])[which]
     _abs, rel, _bitwise, _ms = chip_smoke.check_log(log_inputs, kernel, args)
@@ -228,6 +229,35 @@ def test_log_outside_bitwise_on_edge_batches(device, model, N):
     _abs, _rel, bitwise, _ms = chip_smoke.check_log(x, kernel,
                                                     x["outside_args"])
     assert bitwise
+
+
+@pytest.mark.parametrize("model", ["contra", "turner"])
+@pytest.mark.parametrize("N", sorted(chip_smoke.LOG_EDGE))
+def test_log_inside_bitwise_on_edge_batches(device, model, N):
+    """K16 / K18 on chip_smoke.py's edge batches (n = 1, 2, 3, spans below
+    the window's and the bifurcation trees' group sizes): bitwise equal to
+    the plain version on every live cell, the fills in every dead one
+    (check_log raises otherwise)."""
+    lengths = chip_smoke.LOG_EDGE[N]
+    x = chip_smoke.log_inputs(model, N, len(lengths), seed=5 * N + len(model),
+                              device=device, lengths=lengths)
+    kernel = x["kernels"][0]
+    _abs, _rel, bitwise, _ms = chip_smoke.check_log(x, kernel,
+                                                    x["inside_args"])
+    assert bitwise
+
+
+@pytest.mark.parametrize("model", ["contra", "turner"])
+@pytest.mark.parametrize("N", sorted(chip_smoke.LOG_EDGE))
+def test_log_inside_kernel_never_reads_dead_cells(device, model, N):
+    """K16 / K18 on the edge batches: NaN in every dead cell of the tables
+    they are handed and in their scratch leaves close, ext and one bitwise
+    unchanged, the fills in every dead cell (check_log_dead_cells raises
+    otherwise)."""
+    lengths = chip_smoke.LOG_EDGE[N]
+    x = chip_smoke.log_inputs(model, N, len(lengths), seed=5 * N + len(model),
+                              device=device, lengths=lengths)
+    chip_smoke.check_log_dead_cells(x, which=0)
 
 
 @pytest.mark.parametrize("model", ["contra", "turner"])

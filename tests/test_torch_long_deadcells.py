@@ -9,7 +9,10 @@ outside auxiliaries, and bppo set to NaN there before the finish: the
 settled ln_sigma, the live BPPs and the presence must be bitwise those of
 the untouched path.  The plain outside's pm sum runs over its live terms
 only (t < n - 2 - d - i): it was the one reader of a dead `one` cell,
-which it multiplied by a g of 0."""
+which it multiplied by a g of 0.  The parity tier's inside kernels K16 and
+K18 leave their dead cells the wrappers' fills too: the same contract,
+held on the plain log path below (its outside pass sums pm over its live
+terms only, for the same reason)."""
 
 import pytest
 import torch
@@ -120,6 +123,45 @@ def test_log_outside_never_reads_dead_cells(model):
     assert torch.equal(bppo.view(torch.int32), bppo_ref.view(torch.int32))
     assert bool((bppo[mask] == float("-inf")).all())
     assert int(torch.isfinite(bppo).sum()) > 0
+
+
+@pytest.mark.parametrize("model", ["contra", "turner"])
+def test_log_inside_dead_cells_never_read(model):
+    """K16 and K18 compute live cells only and leave the dead ones their
+    fills, so nothing after the parity tier's inside pass may read a dead
+    cell: with NaN written into every dead cell of the close, ext and one
+    of the plain inside pass, the rest of the parity path (the outside
+    auxiliaries, ``onep``, the plain outside pass, the finish) gives
+    bitwise the bppo, BPPs and presence of the untouched run."""
+    from rna_algos_tpu_torch.ops import pallas_fold as PF
+
+    gen = torch.Generator().manual_seed(29)
+    seqs = [torch.randint(0, 4, (n,), generator=gen).tolist()
+            for n in LOG_LENGTHS]
+    arr, ns = chip_smoke.padded(seqs, LOG_N, "cpu")
+    mask = dead_cells(ns, LOG_N)
+    if model == "contra":
+        fold, tbl = (PF.mccaskill_contra_pallas,
+                     contra_tables(build_fold_score_sets(), "cpu"))
+    else:
+        fold, tbl = PF.mccaskill_turner_pallas, turner_tables("cpu")
+    name = f"{model}_inside_log"
+    inside = getattr(PF, name)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        bppo_ref = fold(arr, ns, tbl, LOG_N)[0]
+        setattr(PF, name, poisoned(inside, mask))
+        bppo = fold(arr, ns, tbl, LOG_N)[0]
+    finally:
+        setattr(PF, name, inside)
+        torch.set_num_threads(threads)
+    assert torch.equal(bppo.view(torch.int32), bppo_ref.view(torch.int32))
+    bpp_ref, pres_ref = M._log_finish(bppo_ref, ns, LOG_N)
+    bpp, pres = M._log_finish(bppo, ns, LOG_N)
+    assert torch.equal(bpp.view(torch.int32), bpp_ref.view(torch.int32))
+    assert torch.equal(pres, pres_ref)
+    assert int(pres.sum()) > 0
 
 
 @pytest.mark.parametrize("model", ["contra", "turner"])

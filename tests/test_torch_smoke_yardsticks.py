@@ -5,9 +5,10 @@ tables on live cells only (i + d < n), so ``chip_smoke.work`` must charge
 them those cells' bytes and no more, and ``chip_smoke.reread_ms`` must give
 each its own pass's HBM re-read floor: an inside kernel re-reads 16 B a
 bifurcation term t >= 1 of each live cell (rm, rmmb, ext, one), an outside
-kernel 8 B a pm term and 12 B an sa/sbc term.  The parity outside kernels
-K17/K19 are charged the terms and the input cells this run's data needs
-(``log_outside_terms``, ``log_outside_bytes``).  Counted here by brute force
+kernel 8 B a pm term and 12 B an sa/sbc term.  The parity kernels K16-K19
+are charged the terms and the input cells this run's data needs
+(``log_inside_terms``, ``log_inside_bytes``, ``log_outside_terms``,
+``log_outside_bytes``).  Counted here by brute force
 over the cells of a tiny ragged batch."""
 
 import pytest
@@ -149,8 +150,61 @@ def test_log_outside_bytes_count_what_the_data_needs(kernel, others, vectors,
     assert chip_smoke.log_work(kernel, inp)[0] == 4.0 * cells
 
 
+def inside_batch(seed=5):
+    """A ragged batch whose CANON is -inf at ~60% of the cells."""
+    gen = torch.Generator().manual_seed(seed)
+    canon = torch.where(torch.rand((len(LENGTHS), N, N), generator=gen) < 0.6,
+                        float("-inf"), 0.0)
+    return canon, dict(batch(), inside_args=({"CANON": canon},))
+
+
+def full_cells(canon):
+    """Every live cell (b, d, i) whose close the inside kernels compute:
+    CANON finite from span MIN_SPAN_HAIRPIN_CLOSE on."""
+    return {(b, d, i) for b, n in enumerate(LENGTHS) for d in range(n)
+            for i in range(n - d)
+            if canon[b, d, i] > float("-inf") and d + 1 >= 5}
+
+
+def test_log_inside_terms_count_what_the_data_needs():
+    """``chip_smoke.log_inside_terms`` (the bound of K16/K18): at every live
+    cell d ext terms and d - 1 s1/s2 terms; at the full cells (CANON finite,
+    d + 1 >= 5) the window leaves (a, b) with a + b <= min(d - 2, 30); by
+    brute force on a batch with -inf CANON cells."""
+    canon, inp = inside_batch()
+    full = full_cells(canon)
+    want = [0, len(full), 0, 0, 0]
+    for n, d, i in live_cells():
+        want[0] += 1
+        want[3] += d
+        want[4] += max(d - 1, 0)
+    for _b, d, _i in full:
+        want[2] += sum(1 for a in range(31) for bb in range(32)
+                       if a + bb <= min(d - 2, 30))
+    assert list(chip_smoke.log_inside_terms(inp)) == want
+
+
+@pytest.mark.parametrize("kernel,others,shifted,lens", [
+    ("contra_inside_log", 8, 1, 1), ("turner_inside_log", 17, 0, 2)])
+def test_log_inside_bytes_count_what_the_data_needs(kernel, others, shifted,
+                                                    lens):
+    """``chip_smoke.log_inside_bytes`` (the bytes of K16/K18's bound), by
+    brute force: CANON at every live cell, the other [d, i] tables at the
+    full cells, CONTRA's JB at the full cells and their (d - 2, i + 1), the
+    (32, 31) length tables, scal (B, 8) and ns whole; close, ext and one
+    written whole."""
+    canon, inp = inside_batch(seed=9)
+    full = full_cells(canon)
+    jb = full | {(b, d - 2, i + 1) for b, d, i in full}
+    B = len(LENGTHS)
+    cells = (len(live_cells()) + others * len(full) + shifted * len(jb)
+             + lens * 32 * 31 + B * 8 + B + 3 * B * N * N)
+    assert chip_smoke.log_inside_bytes(kernel, inp) == 4.0 * cells
+    assert chip_smoke.log_work(kernel, inp)[0] == 4.0 * cells
+
+
 def test_log_checks_reach_every_thread_group():
-    """K17/K19 give a lane G = min(32, 1024 / N) threads (4, 8, 16, 32 at
+    """K16-K19 give a lane G = min(32, 1024 / N) threads (4, 8, 16, 32 at
     N = 256, 128, 64, 32), one kernel instantiation each; the main shapes
     and LOG_EDGE hold every one of them against the plain version."""
     shapes = {N for N, _B in chip_smoke.SHAPES_MAIN} | set(chip_smoke.LOG_EDGE)
