@@ -9,7 +9,11 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
 2. each kernel against its plain PyTorch version on the card (K3 bitwise in
    both directions, also on the Turner precompute's 18 tables at once; K1,
    K2 (CONTRA) and K4, K5 (Turner) within stated tolerances at N = 128,
-   B = 64 and N = 256, B = 32; the long tier's K8, K9 (CONTRA) and K12, K13
+   B = 64 and N = 256, B = 32, K1/K2 on the live cells (i + d < n) with
+   their dead cells exactly 0, also on edge batches at each bucket <= 256
+   of the probability path (n = 1-5, just past a power of two, n = N) and
+   with NaN in every dead input cell and scratch word, each launch's block
+   size printed; the long tier's K8, K9 (CONTRA) and K12, K13
    (Turner), the same four sources launched past N = 256 as a cluster of
    blocks per sequence, at N = 512, B = 8 and N = 1024, B = 4, and K8, K9
    also at N = 2048, B = 2, the main paths' N = 512, B = 32, N = 1024,
@@ -92,10 +96,18 @@ LONG_CHECK = {"contra": ((512, 8), (1024, 4), (2048, 2), (512, 32),
               "turner": ((512, 8), (1024, 4), (512, 32), (1024, 16),
                          (512, 16), (512, 80))}
 # The kernels that compute live cells only (i + d < n) and leave the dead
-# ones the zeros their wrappers pass: the cluster kernels K8, K9, K12 and
-# K13, compared with their plain versions on the live cells.
-LIVE_ONLY = ("contra_inside_long", "contra_outside_long",
+# ones the zeros their wrappers pass: K1 and K2 (CONTRA, N <= 256) and the
+# cluster kernels K8, K9, K12 and K13, compared with their plain versions on
+# the live cells.
+LIVE_ONLY = ("contra_inside", "contra_outside",
+             "contra_inside_long", "contra_outside_long",
              "turner_inside_long", "turner_outside_long")
+# K1/K2 on batches that reach the edges of their layout, at each bucket the
+# probability path takes at N <= 256 (parallel.runner.kernel_bucket): no
+# span that can close (n < 5), lengths just past a power of two and n = N.
+PROB_EDGE = {64: (1, 2, 3, 4, 5, 33, 63, 64),
+             128: (1, 2, 3, 4, 5, 65, 127, 128),
+             256: (1, 2, 3, 4, 5, 129, 255, 256)}
 LONG_MAIN = {"contra": ((512, 32), (1024, 16), (2048, 8)),
              "turner": ((512, 32), (1024, 16))}
 # bucket -> (batch, shortest, longest) of the long main-path batches
@@ -240,10 +252,12 @@ def centred_ln_sigma(glob_at, ns, ls0):
     return ls + torch.log(glob_at(ls)) / ns.to(torch.float32)
 
 
-def kernel_inputs(N, B, seed, device):
+def kernel_inputs(N, B, seed, device, lengths=None):
     """The inputs the CONTRA main path hands its inside and outside kernels
     (K1/K2 at N <= 256, K8/K9 past it) and K3: at ln_sigma = 0.9 for
-    N <= 256, at a centred per-sequence ln_sigma past it."""
+    N <= 256, at a centred per-sequence ln_sigma past it.  Random sequences
+    of N/2 + 10 (at least 30) to N nt, or of ``lengths`` (then B is
+    len(lengths))."""
     from rna_algos_tpu_torch.ops import pallas_fold as PF
     from rna_algos_tpu_torch.ops import pallas_fold_prob as PP
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
@@ -253,8 +267,14 @@ def kernel_inputs(N, B, seed, device):
     names = (("contra_inside_long", "contra_outside_long") if long
              else ("contra_inside", "contra_outside"))
     inside = wrappers(names[0])[0]
-    lo = max(30, N // 2 + 10)
-    seqs, ns = padded(random_batch(B, lo, N, seed), N, device)
+    if lengths is None:
+        lo = max(30, N // 2 + 10)
+        batch = random_batch(B, lo, N, seed)
+    else:
+        rng = np.random.default_rng(seed)
+        batch = [list(rng.integers(0, 4, size=n)) for n in lengths]
+        B = len(lengths)
+    seqs, ns = padded(batch, N, device)
     ct = FoldEngine(uses_contra_model=True, device=device).tbl
 
     def prep(ls):
@@ -347,6 +367,55 @@ def check_skew(inp):
                     f"K3 skew of {len(got)} tables inv={inv} differs from plain"
                 )
     return 0.0
+
+
+def block_threads(N, B, threads):
+    """K1's and K2's block sizes (threads a sequence) for a launch over B
+    sequences at N <= 256, recorded in ``threads[kernel][shape]``; a note
+    for the log."""
+    from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
+
+    sizes = P8.contra_block_threads(B, N)
+    for k, c in zip(("contra_inside", "contra_outside"), sizes):
+        threads.setdefault(k, {})[f"N{N}_B{B}"] = c
+    return f"block size K1 {sizes[0]}, K2 {sizes[1]} threads a sequence"
+
+
+def check_prob_dead_cells(x, which):
+    """K1 (``which`` = 0) or K2 (1) lets no dead cell through: with NaN in
+    every dead cell (i + d >= n) of each (B, N, N) [d, i] table it is handed
+    (the merged tables, and K2's inside table ``one``) and in all of its
+    scratch, it gives bitwise the outputs of the call on the untouched
+    inputs, every dead cell 0.  Two kernel launches, no plain version (the
+    plain versions compute the dead cells)."""
+    from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
+
+    kernel = x["kernels"][which]
+    kern = wrappers(kernel)[0]
+    args = (x["inside_args"], x["outside_args"])[which]
+    want = kern(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    dead = ~log_live(x, want[0])
+    nan = torch.full((), float("nan"), device=want[0].device)
+    mats = {k: torch.where(dead, nan, v) for k, v in args[0].items()}
+    rest = list(args[1:])
+    if which == 1:
+        rest[0] = torch.where(dead, nan, rest[0])
+    scratch = P8._prob_scratch
+    P8._prob_scratch = lambda *a: tuple(t.fill_(float("nan"))
+                                        for t in scratch(*a))
+    try:
+        got = kern(mats, *rest)
+    finally:
+        P8._prob_scratch = scratch
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w in zip(got, want):
+        if not (torch.equal(g.view(torch.int32), w.view(torch.int32))
+                and bool((g[dead] == 0).all())):
+            raise AssertionError(f"{LABELS[kernel]}: a dead cell or the "
+                                 "scratch reached its outputs")
+    print(f"  {LABELS[kernel]}: NaN in every dead table cell and the "
+          "scratch, outputs bitwise unchanged, dead cells 0")
 
 
 def cluster_sizes(model, N, B, clusters):
@@ -443,7 +512,8 @@ def work(kernel, inp):
     input table read once (LIVE_ONLY kernels: on the live cells, i + d < n,
     the only ones they read) and each output written once (whole: the wrappers
     zero-fill them); the FLOPs of the recurrences on the live cells of
-    this run's lengths."""
+    this run's lengths, K1/K2's 2-loop window only at the cells that can
+    close (``prob_window_terms``: elsewhere it is multiplied by 0)."""
     if kernel.endswith("_log"):
         return log_work(kernel, inp)
     key = kernel.replace("_long", "")
@@ -452,21 +522,58 @@ def work(kernel, inp):
     if key == "skew":
         return 2 * len(inp["pq"]) * nn, 0.0
     model = key.split("_")[0]
-    win = 2 * WINDOW_FMAS[model] + CELL_FLOPS
-    flops = live = 0.0
+    narrow = kernel in ("contra_inside", "contra_outside")
+    cell = CELL_FLOPS + (0 if narrow else 2 * WINDOW_FMAS[model])
+    flops = 2.0 * prob_window_terms(kernel, inp) if narrow else 0.0
+    live = 0.0
     for n, d, lanes in _live_cells(inp["ns"].tolist()):
         live += 4.0 * float(lanes.sum())
         if key.endswith("inside"):
             # ext: d + 1 FMAs, s2: d - 1, per cell
-            flops += float((lanes * (win + 4.0 * d)).sum())
+            flops += float((lanes * (cell + 4.0 * d)).sum())
         else:
             # pm: n - 2 - d - i FMAs at lane i; sa, sbc: i terms at lane i
-            flops += float((lanes * win
+            flops += float((lanes * cell
                             + (lanes - 1) * np.maximum(lanes - 2, 0)
                             + 2.0 * lanes * (lanes - 1)).sum())
     ins, outs = {"contra_inside": (9, 3), "contra_outside": (11, 1),
                  "turner_inside": (18, 3), "turner_outside": (20, 1)}[key]
     return ins * (live if kernel in LIVE_ONLY else nn) + outs * nn, flops
+
+
+def prob_window_terms(kernel, inp):
+    """The 2-loop window terms K1 (``kernel`` = "contra_inside") or K2
+    ("contra_outside") needs on this run's data: at a cell that can close
+    (live; inside JS != 0 from span MIN_SPAN_HAIRPIN_CLOSE on, outside
+    CLOSE a positive normal float and the span reaching min_span), inside
+    the terms (a, b) with a + b <= min(d - 2, 30) (the inner pair at span
+    d - 2 - a - b >= 0), outside sum_{a < min(i, 31)} min(31 - a, r), r =
+    n - 1 - d - i (the outer pair inside the sequence)."""
+    from rna_algos_tpu_torch.constants import MIN_SPAN_HAIRPIN_CLOSE
+    from rna_algos_tpu_torch.ops import pallas_fold_prob as PP
+
+    if kernel == "contra_inside":
+        can = (inp["inside_args"][0]["JS"] != 0).cpu().numpy()
+    else:
+        mo, min_span = inp["outside_args"][0], int(inp["outside_args"][-1])
+        can = (mo["CLOSE"] >= PP.FLT_MIN).cpu().numpy()
+    N = can.shape[1]
+    D, I = np.meshgrid(np.arange(N), np.arange(N), indexing="ij")
+    total = 0
+    for b, n in enumerate(inp["ns"].tolist()):
+        live = D + I <= n - 1
+        if kernel == "contra_inside":
+            m = np.minimum(D - 2, 30)
+            terms = np.where(m >= 0, (m + 1) * (m + 2) // 2, 0)
+            full = live & can[b] & (D + 1 >= MIN_SPAN_HAIRPIN_CLOSE)
+        else:
+            r = n - 1 - D - I
+            A = np.minimum(I, 31)
+            terms = sum(np.where(a < A, np.minimum(31 - a, r), 0)
+                        for a in range(31))
+            full = live & can[b] & (D + 1 >= min_span)
+        total += int(terms[full].sum())
+    return total
 
 
 def log_work(kernel, inp):
@@ -1458,10 +1565,22 @@ def main():
         rel[ik] = max(rel[ik], r)
         err[ok] = max(err[ok], check_outside(x, LABELS[ok], ok))
 
+    threads = {}    # K1/K2 -> shape -> threads a sequence
     for N, B in SHAPES_CHECK:
-        print(f"check N={N} B={B}")
-        check_model(kernel_inputs(N, B, seed=N + B, device=dev))
+        print(f"check N={N} B={B}, {block_threads(N, B, threads)}")
+        x = kernel_inputs(N, B, seed=N + B, device=dev)
+        check_model(x)
+        for which in (0, 1):
+            check_prob_dead_cells(x, which)
         check_model(turner_inputs(N, B, seed=N + B + 1, device=dev))
+    for N, lengths in PROB_EDGE.items():
+        B = len(lengths)
+        print(f"check contra edge N={N} n={lengths}, "
+              f"{block_threads(N, B, threads)}")
+        x = kernel_inputs(N, B, seed=3 * N, device=dev, lengths=lengths)
+        check_model(x)
+        for which in (0, 1):
+            check_prob_dead_cells(x, which)
     builders = {"contra": kernel_inputs, "turner": turner_inputs}
     clusters = {}   # K8/K9/K12/K13 -> shape -> blocks per sequence
     for model, shapes in LONG_CHECK.items():
@@ -1485,9 +1604,11 @@ def main():
         bms, by = bound(kernel, x)
         times[key or kernel][f"N{N}_B{B}"] = (ms, pms, bms, by, None)
         note = ""
-        if kernel in LIVE_ONLY:
+        if kernel.endswith("_long"):
             note = (f", HBM re-read floor {reread_ms(kernel, x):.4f} ms, "
                     f"{cluster_sizes(kernel.split('_')[0], N, B, clusters)}")
+        elif kernel in threads:
+            note = f", {block_threads(N, B, threads)}"
         print(f"time N={N} B={B} {kernel}: kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms, bound {bms:.4f} ms ({by}){note}")
 
@@ -1782,6 +1903,8 @@ def main():
             entry["max_rel_err"] = rel[k]
         if k in clusters:
             entry["cluster_by_shape"] = clusters[k]
+        if k in threads:
+            entry["threads_by_shape"] = threads[k]
         if k == "skew":
             entry["library_ms_by_shape"] = {s: v[4]
                                             for s, v in by_shape.items()}

@@ -24,22 +24,30 @@
 //   one  = rmmb + s1 + s2
 //
 // with c(s, l) = close*JB of span s at lane l, the window-buffer rows.
-// The window loop, the rm/rmmb update and K1's bifurcation sums are the
-// helpers of common.cuh that K4/K12 (turner_inside.cu) share; K8's close
-// and its share of the sums are cluster.cuh's.
+// K4/K12 (turner_inside.cu) share common.cuh's window loop, rm/rmmb update
+// and bifurcation sums; K8's close and its share of the sums are
+// cluster.cuh's, K1's narrow.cuh's.
 //
-// K1 (N <= 256): one block per sequence, one thread per lane, the whole
-// span loop inside the block (launch.cuh's narrow entry), bound by the
-// latency of n dependent spans, each ending in __syncthreads because span
-// d reads lanes of earlier spans.  The 2-loop window is a 32-slot ring of
-// inserted rows c(s, .) (slot s & 31) in shared memory, contracted in FP32
-// with FMA against the per-sequence 32 x 32 banded matrix in shared
-// memory; the TPU's SIGL aging pass is unnecessary because the matrix
-// already carries each cell's sigma power.  The rm/rmmb histories and the
-// ext/one tables stay in global memory and are read coalesced along
-// anti-diagonals.  Buffers this kernel writes are never read through the
-// read-only path.  Rows at or past n are never written: the wrapper passes
-// zeroed outputs.
+// K1 (N <= 256): one block of T = 256-1,024 threads per sequence, T from
+// the batch and the card (narrow.cuh), thread i owning lane i; live cells
+// only (i + d < n), a dead cell stays the zero the wrapper passes.  What
+// bounds it: the latency of n dependent spans.  One thread a lane walking
+// its 496-term window (a chain of shared-memory loads) and its O(d)
+// bifurcation terms (four loads each, one in flight) took ~33 us a span at
+// N = 256 on an H100 (PERF.md, PR 10: without the window 0.46 / 0.67 of the
+// time at N = 128 / 256, without the sums 0.64 / 0.34).  So each span is
+// two phases of the whole block: (1) the owners compute close from their
+// table cells and the window sum of the phase before and insert close*JB
+// into the 32-slot ring (slot d & 31 held span d - 32, which no lane reads
+// any more), while every thread takes a part of the live lanes' terms
+// t >= 1; (2) the owners add their parts and finish ext, one, s1 and s2,
+// while the block computes the next span's windows, only at the cells
+// that can close (d >= 4, merged JS != 0: CANON zeroes H, JS, STK, I11,
+// B0R, B0L and MBC elsewhere, so close is the same without the window),
+// listed by the owners in phase 1.  Two barriers a span.  The 32 x 32
+// banded matrix carries each cell's sigma power, so the TPU's SIGL aging
+// pass is unnecessary; the histories rm, rmmb, ext and one stay in global
+// memory (L2), read coalesced along anti-diagonals and columns.
 //
 // K8 (N = 512, 1024, 2048): a cluster of C blocks per sequence
 // (cluster.cuh; C = 16 at N = 2048 B = 8).  What bounds it: each span's
@@ -64,6 +72,7 @@
 
 #include "cluster.cuh"
 #include "launch.cuh"
+#include "narrow.cuh"
 
 #define CONTRA_INSIDE_PARAMS                                                \
   const float *__restrict__ H, const float *__restrict__ MBC,               \
@@ -78,57 +87,120 @@
   H, MBC, ACC, JS, STK, I11, B0R, B0L, JB, KW, scal, ns, close, ext, one,   \
       rm_hist, rmm_hist, N
 
-__global__ void contra_inside_kernel(CONTRA_INSIDE_PARAMS) {
+// K1's shared memory at N lanes and T threads: kw | ring, 32 rows of N + 32
+// lanes | s2r, s1r, 2 rows of N + 1 each | win, N | the es and s2 parts, T
+// each | the closable lists, 2 spans of N ints, and their two counts.
+static size_t contra_inside_smem(int N, int T) {
+  return sizeof(float) * (RNA_WIN * RNA_WIN + RNA_WIN * (N + 32) +
+                          4 * (N + 1) + N + 2 * T) +
+         sizeof(int) * (2 * N + 2 + N + 32);
+}
+
+__global__ void __launch_bounds__(RNA_NW_MAX_THREADS)
+    contra_inside_kernel(CONTRA_INSIDE_PARAMS) {
   extern __shared__ float smem[];
-  const int LW = N + 33;                  // ring row: N lanes + window pad
-  const int b = blockIdx.x;
-  // ring | kw | s2r | s1r
-  float* kw = smem + RNA_WIN * LW;        // 32 * 32
-  float* s2r = kw + RNA_WIN * RNA_WIN;    // 2 * (N + 1), by span parity
+  const int T = blockDim.x, tid = threadIdx.x, b = blockIdx.x;
+  // ring row: N lanes + 32 zero pad lanes (lane i + 1 + a <= N + 30); rows
+  // a multiple of 32 floats apart, so the threads of a window group, each
+  // on its own row a of one cell, read distinct banks
+  const int LW = N + 32;
+  float* kw = smem;                       // 32 * 32
+  float* ring = kw + RNA_WIN * RNA_WIN;   // RNA_WIN * LW, slot s & 31
+  float* s2r = ring + RNA_WIN * LW;       // 2 * (N + 1), by span parity
   float* s1r = s2r + 2 * (N + 1);         // 2 * (N + 1), by span parity
-  float* ring = smem;                     // RNA_WIN * LW
+  float* win = s1r + 2 * (N + 1);         // N: the span's windows
+  float* part = win + N;                  // es | s2, T each
+  int* list = (int*)(part + 2 * T);       // 2 * N
+  int* count = list + 2 * N;              // 2
+  unsigned* nz = (unsigned*)(count + 2);  // N + 32: a lane's nonzero slots
 
-  const int tid = threadIdx.x;
-  const int T = N;                        // one thread per lane
   const long long base = (long long)b * N * N;
-
-  for (int e = tid; e < RNA_WIN * LW; e += T) ring[e] = 0.0f;
+  for (int e = tid; e < RNA_WIN * LW + 4 * (N + 1); e += T)
+    ring[e] = 0.0f;                       // ring, s2r and s1r
+  for (int e = tid; e < N + 32; e += T) nz[e] = 0u;
   for (int e = tid; e < RNA_WIN * RNA_WIN; e += T)
     kw[e] = KW[(long long)b * RNA_WIN * RNA_WIN + e];
-  for (int e = tid; e < 2 * (N + 1); e += T) {
-    s2r[e] = 0.0f;
-    s1r[e] = 0.0f;
-  }
+  if (tid < 2) count[tid] = 0;
   const RnaScalars s = rna_scalars(scal + b * RNA_SCAL);
   const int n = ns[b];
+  const float* rmb = rm_hist + base;
+  const float* rmmb = rmm_hist + base;
+  const float* extb = ext + base;
+  const float* oneb = one + base;
   __syncthreads();
 
-  RnaInsideLane st;
-  float c;
+  // thread i owns lane i
   const int i = tid;
+  RnaInsideLane st;
   for (int d = 0; d < n; ++d) {
-    // phase A: close from the window ring and the s2 ring (spans < d)
-    {
-      const long long row = base + (long long)d * N + i;
-      const float win = rna_window_inside(ring, kw, 0, d, i, LW);
-      float two = JS[row] * win;
+    const int m = n - d;                  // live lanes 0 .. m-1
+    const long long row = base + (long long)d * N + i;
+    // phase 1: list span d + 1's cells that can close
+    if (i < m - 1 && d + 2 >= RNA_MIN_SPAN_HAIRPIN_CLOSE &&
+        JS[row + N] != 0.0f)
+      list[((d + 1) & 1) * N + atomicAdd(&count[(d + 1) & 1], 1)] = i;
+    // the owners' close of span d from its window (where the cell can
+    // close; elsewhere JS and every term that pairs are 0), the ring rows
+    // of spans < d and s2(d-2, i+1); and rmmb(d-1, i+1) for phase 2
+    float rmm_nb = 0.0f;
+    if (i < m) {
+      const float js = JS[row];
+      const float w = d + 1 >= RNA_MIN_SPAN_HAIRPIN_CLOSE && js != 0.0f
+                          ? win[i] : 0.0f;
+      float two = js * w;
       two = two + STK[row] * ring[((d - 2) & (RNA_WIN - 1)) * LW + i + 1];
       two = two + B0R[row] * ring[((d - 3) & (RNA_WIN - 1)) * LW + i + 1];
       two = two + B0L[row] * ring[((d - 3) & (RNA_WIN - 1)) * LW + i + 2];
       two = two + I11[row] * ring[((d - 4) & (RNA_WIN - 1)) * LW + i + 2];
-      c = rna_inside_close(H[row] + two, MBC, ACC, s2r, s, row, d, i, N, st,
-                           close, rm_hist, rmm_hist);
+      const float mb_term =
+          d >= 2 ? s2r[(d & 1) * (N + 1) + i + 1] * MBC[row] : 0.0f;
+      float c = H[row] + two + mb_term;
+      if (d + 1 < RNA_MIN_SPAN_HAIRPIN_CLOSE) c = 0.0f;
+      close[row] = c;
+      const float ca = c * ACC[row];
+      st.rm = st.rm * s.eu1 + ca * s.ebp;
+      st.rmmb = st.rmmb * s.mbu1 + ca * s.mbbp;
+      st.epow = st.epow * s.eu1;
+      rm_hist[row] = st.rm;
+      rmm_hist[row] = st.rmmb;
+      // span d's row, read from span d + 2 on (its slot held span d - 32)
+      const float x = c * JB[row];
+      const unsigned bit = 1u << (d & (RNA_WIN - 1));
+      ring[(d & (RNA_WIN - 1)) * LW + i] = x;
+      nz[i] = x != 0.0f ? nz[i] | bit : nz[i] & ~bit;
+      if (d >= 1) rmm_nb = rmm_hist[row - N + 1];
+    }
+    // every thread: a part of the live lanes' sums, terms t >= 1
+    const RnaNwPart pt = rna_nw_part(m, tid, T);
+    if (pt.p < pt.k) {
+      float es = 0.0f, s2 = 0.0f;
+      if (pt.l < m)
+        rna_nw_inside_part(d, pt.l, N, 1 + pt.p, pt.k, extb, oneb, rmb,
+                           rmmb, es, s2);
+      part[tid] = es;
+      part[T + tid] = s2;
     }
     __syncthreads();
 
-    // phase B: insert this span into the ring; bifurcation sums over the
-    // rm/rmmb rows of spans <= d (all lanes now visible)
-    {
-      const long long row = base + (long long)d * N + i;
-      ring[(d & (RNA_WIN - 1)) * LW + i] = c * JB[row];
-      rna_inside_bifurcation(st, s.mbu1, base, row, d, i, N, ext, one,
-                             rm_hist, rmm_hist, s1r, s2r);
+    // phase 2: the owners finish span d (the parts in order p = 0 .. k-1)
+    if (i < m) {
+      float es = st.rm, s2 = 0.0f;    // term t = 0: rm(d, i) * ext(-1, i)
+      for (int k = 0; k < pt.k; ++k) {
+        es += part[k * pt.m32 + i];
+        s2 += part[T + k * pt.m32 + i];
+      }
+      const float s1v =
+          s.mbu1 * (rmm_nb + s1r[((d - 1) & 1) * (N + 1) + i + 1]);
+      s1r[(d & 1) * (N + 1) + i] = s1v;
+      s2r[(d & 1) * (N + 1) + i] = s2;
+      ext[row] = st.epow + es;
+      one[row] = st.rmmb + s1v + s2;
     }
+    // every thread: span d + 1's windows (ring rows of spans <= d - 1)
+    if (d + 1 < n)
+      rna_nw_window_pass<true>(ring, LW, nz, kw, list + ((d + 1) & 1) * N,
+                               count[(d + 1) & 1], d + 1, T, win);
+    if (tid == 0) count[d & 1] = 0;       // span d's list, read at d - 1
     __syncthreads();
   }
 }
@@ -245,10 +317,11 @@ extern "C" int rna_contra_inside(
     int B, int N, void* stream) {
   if (!rna_shape_ok(N)) return (int)cudaErrorInvalidValue;
   if (N <= RNA_NARROW) {
-    const size_t shmem = sizeof(float) * (RNA_WIN * RNA_WIN + 4 * (N + 1) +
-                                          RNA_WIN * (N + 33));
-    return rna_launch(contra_inside_kernel, B, N, shmem, stream,
-                      CONTRA_INSIDE_ARGS);
+    const int T = rna_nw_threads(contra_inside_kernel, contra_inside_smem, B,
+                                 N);
+    if (!T) return (int)cudaErrorInvalidConfiguration;
+    return rna_launch(contra_inside_kernel, B, T, contra_inside_smem(N, T),
+                      stream, CONTRA_INSIDE_ARGS);
   }
   const int C = rna_cl_size(contra_inside_cluster_kernel,
                             contra_inside_cl_smem, B, N);
@@ -261,4 +334,9 @@ extern "C" int rna_contra_inside(
 extern "C" int rna_contra_inside_cluster(int B, int N) {
   return rna_cl_size(contra_inside_cluster_kernel, contra_inside_cl_smem, B,
                      N);
+}
+
+// The block size K1 takes for B sequences at N <= 256 (0: none launches).
+extern "C" int rna_contra_inside_threads(int B, int N) {
+  return rna_nw_threads(contra_inside_kernel, contra_inside_smem, B, N);
 }

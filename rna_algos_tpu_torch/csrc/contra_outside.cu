@@ -26,18 +26,23 @@
 // because Mosaic cannot slice lanes dynamically, and its chunked kernel
 // adds row chunks, SONEF delivery and a live-height ladder because of
 // VMEM; here one(t-1, j+1) and ext(j+1, n-1) are indexed directly in the
-// inside outputs.  The window loop, base, pm, pm2, qa and the multibranch
-// context are the helpers of common.cuh that K5/K13 (turner_outside.cu)
-// share; K9's share of the sums and its bppo are cluster.cuh's.
+// inside outputs.  K5/K13 (turner_outside.cu) share common.cuh's window
+// loop and multibranch context; K9's share of the sums and its bppo are
+// cluster.cuh's, K2's narrow.cuh's and its own.
 //
-// K2 (N <= 256): bound and design as K1 (contra_inside.cu): the latency of
-// n dependent spans and each lane's serial O(n) multibranch sums (pm over
-// one column, sa/sbc over one anti-diagonal: five loads a term); one block
-// per sequence, one thread per lane, the g2 window as a 32-slot ring
-// (lanes offset by 32 so i-1-a never goes negative) in shared memory,
-// contracted in FP32 against the per-sequence banded matrix, the pm/pm2/g
-// histories in global memory.  Rows at or past n stay the zeros the
-// wrapper passes.
+// K2 (N <= 256): K1's layout (contra_inside.cu, narrow.cuh): one block of
+// T = 256-1,024 threads per sequence, thread i owning lane i, live cells
+// only (a dead cell's bppo stays 0; its g, pm and pm2 are never read), two
+// phases a span: (1) the owners compute the pair, base and 2-loop context
+// from their table cells and the window of the phase before, while every
+// thread takes a part of the live lanes' pm, sa and sbc terms (five loads
+// a term, both walks together); (2) the owners add their parts and finish
+// bppo, g, pm, pm2, qa and the g2 ring row (its slot held span d + 32,
+// which no lane reads any more), while the block computes the next span's
+// windows at the cells where bppo can be nonzero (CLOSE a positive normal
+// float, the span reaching min_span).  The g2 ring keeps 32 slots, lanes
+// offset by 32 so i-1-a never goes negative; the pm/pm2/g histories stay
+// in global memory (L2).
 //
 // K9 (N = 512, 1024, 2048): a cluster of C blocks per sequence, as K8
 // (cluster.cuh, contra_inside.cu): each block owns N / C lanes in chunks
@@ -53,6 +58,7 @@
 
 #include "cluster.cuh"
 #include "launch.cuh"
+#include "narrow.cuh"
 
 #define CONTRA_OUTSIDE_PARAMS                                               \
   const float *__restrict__ CLOSE, const float *__restrict__ MBC,           \
@@ -69,53 +75,125 @@
   CLOSE, MBC, ACCB, ACCMB, STKO, I11O, B0RO, JRB, JSN, ONE, QONE, EXTR,     \
       B0LO, KW, scal, ns, bppo, pm_hist, pm2_hist, g_hist, N, min_span
 
-__global__ void contra_outside_kernel(CONTRA_OUTSIDE_PARAMS) {
+// K2's shared memory at N lanes and T threads: kw | ring, 32 rows of 32 pad
+// lanes + N | qab, 2 rows of N | win, N | the pm, sa and sbc parts, T
+// each | the closable lists, 2 spans of N ints, and their two counts.
+static size_t contra_outside_smem(int N, int T) {
+  return sizeof(float) * (RNA_WIN * RNA_WIN + RNA_WIN * (N + 32) + 2 * N +
+                          N + 3 * T) +
+         sizeof(int) * (2 * N + 2 + 32 + N);
+}
+
+__global__ void __launch_bounds__(RNA_NW_MAX_THREADS)
+    contra_outside_kernel(CONTRA_OUTSIDE_PARAMS) {
   extern __shared__ float smem[];
+  const int T = blockDim.x, tid = threadIdx.x, b = blockIdx.x;
   const int LW = N + 32;                  // ring row: 32 pad lanes + N
-  const int b = blockIdx.x;
-  // ring | kw | qab
-  float* kw = smem + RNA_WIN * LW;        // 32 * 32
-  float* qab = kw + RNA_WIN * RNA_WIN;    // 2 * N, by span parity
-  float* ring = smem;                     // RNA_WIN * LW
+  float* kw = smem;                       // 32 * 32
+  float* ring = kw + RNA_WIN * RNA_WIN;   // RNA_WIN * LW, slot s & 31
+  float* qab = ring + RNA_WIN * LW;       // 2 * N, by span parity
+  float* win = qab + 2 * N;               // N: the span's windows
+  float* part = win + N;                  // pm | sa | sbc, T each
+  int* list = (int*)(part + 3 * T);       // 2 * N
+  int* count = list + 2 * N;              // 2
+  unsigned* nz = (unsigned*)(count + 2);  // 32 + N: a lane's nonzero slots
 
-  const int tid = threadIdx.x;
-  const int T = N;                        // one thread per lane
   const long long base = (long long)b * N * N;
-
-  for (int e = tid; e < RNA_WIN * LW; e += T) ring[e] = 0.0f;
+  for (int e = tid; e < RNA_WIN * LW + 3 * N; e += T)
+    ring[e] = 0.0f;                       // ring, qab and win
+  for (int e = tid; e < 32 + N; e += T) nz[e] = 0u;
   for (int e = tid; e < RNA_WIN * RNA_WIN; e += T)
     kw[e] = KW[(long long)b * RNA_WIN * RNA_WIN + e];
-  for (int e = tid; e < 2 * N; e += T) qab[e] = 0.0f;
+  if (tid < 2) count[tid] = 0;
   const float mbu1 = scal[b * RNA_SCAL + 2];
   const int n = ns[b];
-  const int i = tid;
-  const float b0lo = B0LO[(long long)b * N + i];
-  float p2prev = 0.0f, g2;
+  const float* gb = g_hist + base;
+  const float* pmb = pm_hist + base;
+  const float* pm2b = pm2_hist + base;
+  const float* oneb = ONE + base;
+  const float* qoneb = QONE + base;
   __syncthreads();
 
+  // thread i owns lane i; lane i lives from span n - 1 - i down
+  const int i = tid;
+  const float b0lo = i < N ? B0LO[(long long)b * N + i] : 0.0f;
+  float p2prev = 0.0f, g_prev = 0.0f;   // pm2(d+1, i), g(d+1, i)
   for (int d = n - 1; d >= 0; --d) {
+    const int m = n - d;                  // live lanes 0 .. m-1
     const bool span_ok = d + 1 >= min_span;
-
-    // phase A: everything but the ring insert (reads spans > d only)
-    {
-      const long long row = base + (long long)d * N + i;
-      const RnaOutsidePair p =
-          rna_outside_pair(CLOSE, ACCB, EXTR, row, b, i, d, N);
-      const float win = rna_window_outside(ring, kw, 0, d, i, LW);
+    const long long row = base + (long long)d * N + i;
+    // phase 1: list span d - 1's cells that can close
+    if (d >= 1 && d >= min_span && i < m + 1 &&
+        CLOSE[row - N] >= RNA_FLT_MIN)
+      list[((d - 1) & 1) * N + atomicAdd(&count[(d - 1) & 1], 1)] = i;
+    // the owners' pair and 2-loop context of span d, from its window (where
+    // bppo can be nonzero) and the ring rows of spans > d; and the cells
+    // phase 2 reads
+    RnaOutsidePair pr = {};
+    float two = 0.0f, accmb = 0.0f, jsn = 0.0f, mbc = 0.0f, pm_nb = 0.0f;
+    if (i < m) {
+      pr = rna_outside_pair(CLOSE, ACCB, EXTR, row, b, i, d, N);
+      const float w = pr.pos && span_ok ? win[i] : 0.0f;
       const float jrb = JRB[row];
-      float two = jrb * win;
+      two = jrb * w;
       two = two + STKO[row] * ring[((d + 2) & (RNA_WIN - 1)) * LW + 31 + i];
       two = two + B0RO[row] * ring[((d + 3) & (RNA_WIN - 1)) * LW + 31 + i];
       two = two + jrb * b0lo * ring[((d + 3) & (RNA_WIN - 1)) * LW + 30 + i];
       two = two + I11O[row] * ring[((d + 4) & (RNA_WIN - 1)) * LW + 30 + i];
-      g2 = rna_outside_bppo(p, two * p.c, span_ok, mbu1, p2prev, ACCMB, MBC,
-                            JSN, ONE, QONE, base, row, d, i, n, N, bppo,
-                            pm_hist, pm2_hist, g_hist, qab);
+      two = two * pr.c;
+      accmb = ACCMB[row];
+      jsn = JSN[row];
+      mbc = MBC[row];
+      if (i >= 1) pm_nb = pmb[(d + 1) * N + i - 1];   // pm(d+1, i-1)
+    }
+    // every thread: a part of the live lanes' sums
+    const RnaNwPart pt = rna_nw_part(m, tid, T);
+    if (pt.p < pt.k) {
+      float pm = 0.0f, sa = 0.0f, sbc = 0.0f;
+      if (pt.l < m)
+        rna_nw_outside_part(d, pt.l, n, N, pt.p, pt.k, oneb, qoneb, gb, pmb,
+                            pm2b, pm, sa, sbc);
+      part[tid] = pm;
+      part[T + tid] = sa;
+      part[2 * T + tid] = sbc;
     }
     __syncthreads();
 
-    // phase B: insert g2 (its slot held span d + 32, read above)
-    ring[(d & (RNA_WIN - 1)) * LW + 32 + i] = g2;
+    // phase 2: the owners finish span d (the parts in order p = 0 .. k-1)
+    if (i < m) {
+      float pm = 0.0f, sa = 0.0f, sbc = 0.0f;
+      for (int k = 0; k < pt.k; ++k) {
+        pm += part[k * pt.m32 + i];
+        sa += part[T + k * pt.m32 + i];
+        sbc += part[2 * T + k * pt.m32 + i];
+      }
+      const float pm_new = span_ok ? pm : 0.0f;
+      const float pm2_raw = g_prev + mbu1 * p2prev;
+      p2prev = pm2_raw;
+      const float pm2_new = span_ok ? pm2_raw : 0.0f;
+      float qa = 0.0f;
+      if (i >= 1)   // pm(d+1, i-1) + mbu1 * qa(d+1, i-1)
+        qa = pm_nb + mbu1 * qab[((d + 1) & 1) * N + i - 1];
+      const float acc_mb = pr.c * accmb;
+      float bp = pr.base + two + acc_mb * (sa + sbc + qa);
+      if (!(pr.pos && span_ok)) bp = 0.0f;
+      bppo[row] = bp;
+      // span d's g2 row, read from span d - 2 on (its slot held d + 32)
+      const float x = bp * jsn * pr.inv_close;
+      const unsigned bit = 1u << (d & (RNA_WIN - 1));
+      ring[(d & (RNA_WIN - 1)) * LW + 32 + i] = x;
+      nz[32 + i] = x != 0.0f ? nz[32 + i] | bit : nz[32 + i] & ~bit;
+      g_prev = bp * mbc * pr.inv_close;
+      g_hist[row] = g_prev;
+      pm_hist[row] = pm_new;
+      pm2_hist[row] = pm2_new;
+      qab[(d & 1) * N + i] = qa;
+    }
+    // every thread: span d - 1's windows (ring rows of spans >= d + 1)
+    if (d >= 1)
+      rna_nw_window_pass<false>(ring, LW, nz, kw, list + ((d - 1) & 1) * N,
+                                count[(d - 1) & 1], d - 1, T, win);
+    if (tid == 0) count[d & 1] = 0;       // span d's list, read at d + 1
     __syncthreads();
   }
 }
@@ -232,10 +310,11 @@ extern "C" int rna_contra_outside(
     void* stream) {
   if (!rna_shape_ok(N)) return (int)cudaErrorInvalidValue;
   if (N <= RNA_NARROW) {
-    const size_t shmem = sizeof(float) * (RNA_WIN * RNA_WIN + 2 * N +
-                                          RNA_WIN * (N + 32));
-    return rna_launch(contra_outside_kernel, B, N, shmem, stream,
-                      CONTRA_OUTSIDE_ARGS);
+    const int T = rna_nw_threads(contra_outside_kernel, contra_outside_smem,
+                                 B, N);
+    if (!T) return (int)cudaErrorInvalidConfiguration;
+    return rna_launch(contra_outside_kernel, B, T, contra_outside_smem(N, T),
+                      stream, CONTRA_OUTSIDE_ARGS);
   }
   const int C = rna_cl_size(contra_outside_cluster_kernel,
                             contra_outside_cl_smem, B, N);
@@ -248,4 +327,9 @@ extern "C" int rna_contra_outside(
 extern "C" int rna_contra_outside_cluster(int B, int N) {
   return rna_cl_size(contra_outside_cluster_kernel, contra_outside_cl_smem,
                      B, N);
+}
+
+// The block size K2 takes for B sequences at N <= 256 (0: none launches).
+extern "C" int rna_contra_outside_threads(int B, int N) {
+  return rna_nw_threads(contra_outside_kernel, contra_outside_smem, B, N);
 }

@@ -1,15 +1,17 @@
-// Launch shape of the narrow wavefront kernels (inside and outside, both
-// models) at N = 32-256 in steps of 32: one block per sequence.  Past N =
-// 256 every wavefront (K8/K9 for CONTRA, K12/K13 for Turner) runs a
-// cluster of blocks per sequence instead (cluster.cuh).
+// Launch shape of the narrow wavefront kernels K4/K5 (Turner inside and
+// outside) at N = 32-256 in steps of 32: one block per sequence.  K1/K2
+// (CONTRA) take narrow.cuh's block of 256-1,024 threads a sequence instead,
+// and past N = 256 every wavefront (K8/K9 for CONTRA, K12/K13 for Turner)
+// runs a cluster of blocks per sequence (cluster.cuh).
 //
 // A narrow block has T = N threads, one a lane, no launch bound, so a
 // thread keeps every register the body wants (Turner's take 80-96), and
 // the window rings first in dynamic shared memory.  A narrow body strides
 // by N, as the stacked kernels did, not by blockDim.x (which cost K2 4% at
-// N = 256): ptxas allocates and schedules these bodies very differently
-// for edits that keep their output bitwise equal (PERF.md: up to 1.4x on
-// an H100 80GB HBM3 at 700 W), so their code is kept as it was measured.
+// N = 256 in its one-thread-a-lane form): ptxas allocates and schedules
+// these bodies very differently for edits that keep their output bitwise
+// equal (PERF.md: up to 1.4x on an H100 80GB HBM3 at 700 W), so their code
+// is kept as it was measured.
 #pragma once
 
 #include "common.cuh"

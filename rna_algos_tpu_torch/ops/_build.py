@@ -38,6 +38,8 @@ SIGNATURES = {
     "rna_contra_outside": [_P] * 20 + [_I, _I, _I, _P],
     "rna_contra_inside_cluster": [_I, _I],
     "rna_contra_outside_cluster": [_I, _I],
+    "rna_contra_inside_threads": [_I, _I],
+    "rna_contra_outside_threads": [_I, _I],
     "rna_turner_inside": [ctypes.POINTER(_P)] + [_P] * 8 + [_I, _I, _P],
     "rna_turner_outside": [ctypes.POINTER(_P)] + [_P] * 10 + [_I, _I, _I, _P],
     "rna_turner_inside_cluster": [_I, _I],

@@ -6,7 +6,9 @@ and the fixed-scale runs wrapped in the rescale-retry loop.
 The TPU stacked G sequences along sublanes and aged a lane-major window;
 none of that layout is carried over.  Here each kernel runs one CUDA block
 per sequence (``csrc/contra_inside.cu``, ``csrc/contra_outside.cu``,
-``csrc/turner_inside.cu``, ``csrc/turner_outside.cu``; the long tier's K8,
+``csrc/turner_inside.cu``, ``csrc/turner_outside.cu``; K1/K2's block size
+comes from the batch and the card, ``contra_block_threads``, and they
+compute live cells only, i + d < n; the long tier's K8,
 K9, K12 and K13, a cluster of blocks per sequence, are entries of the same
 sources past N = 256, launched through the helpers below by
 ``pallas_fold_long``).  The plain versions
@@ -249,6 +251,16 @@ def contra_inside_plain(mi, KW, scal, ns):
     return _inside_plain(H, MBC, ACC, scal, ns, two_at, insert)
 
 
+def contra_block_threads(B, N):
+    """(K1's, K2's) block size, the threads a sequence runs on, for a launch
+    over B sequences at N <= 256 on the current CUDA device: of 1,024, 512
+    and 256, the one that runs the batch in the fewest waves of resident
+    blocks (``csrc/narrow.cuh`` ``rna_nw_threads``)."""
+    lib = _build.library().lib
+    return (lib.rna_contra_inside_threads(B, N),
+            lib.rna_contra_outside_threads(B, N))
+
+
 def contra_inside(mi, KW, scal, ns):
     """Kernel K1 (``csrc/contra_inside.cu``) for CUDA tensors, its plain
     version for CPU tensors.  ``mi``: the 9 merged (B, N, N) [d, i] inside
@@ -266,10 +278,17 @@ def contra_inside(mi, KW, scal, ns):
     return out
 
 
+def _prob_scratch(B, N, dev, count):
+    """``count`` (B, N, N) history scratches of a CONTRA wavefront kernel
+    (rm and rmmb inside; pm, pm2 and g outside): the kernels write each
+    cell they read before reading it, live cells only."""
+    return tuple(torch.empty((B, N, N), device=dev) for _ in range(count))
+
+
 def _contra_inside_cuda(mi, KW, scal, ns):
     """Check the inputs of the CONTRA inside kernel (K1 at N <= 256, K8
-    past it) and launch it: (close, ext, one), zero where K8 skips a dead
-    cell (i + d >= n)."""
+    past it) and launch it: (close, ext, one), zero at every dead cell
+    (i + d >= n), which both skip."""
     entry = "rna_contra_inside"
     dev = mi["H"].device
     B, N, _ = mi["H"].shape
@@ -279,7 +298,7 @@ def _contra_inside_cuda(mi, KW, scal, ns):
     shapes.update(KW=(B, 32, 32), scal=(B, 4), ns=(B,))
     _build.check_cuda(entry, ins, shapes, dev)
     close, ext, one = (torch.zeros((B, N, N), device=dev) for _ in range(3))
-    rm, rmm = torch.empty((B, N, N), device=dev), torch.empty((B, N, N), device=dev)
+    rm, rmm = _prob_scratch(B, N, dev, 2)
     args = [ins[k] for k in INSIDE_TABLES] + [
         KW, scal, ns, close, ext, one, rm, rmm]
     _build.library().call(
@@ -445,7 +464,7 @@ def _contra_outside_cuda(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
                   ns=(B,))
     _build.check_cuda(entry, ins, shapes, dev)
     bppo = torch.zeros((B, N, N), device=dev)
-    pm, pm2, g = (torch.empty((B, N, N), device=dev) for _ in range(3))
+    pm, pm2, g = _prob_scratch(B, N, dev, 3)
     args = [ins[k] for k in OUTSIDE_TABLES] + [
         one, QONE, extR, b0lo, KW, scal, ns, bppo, pm, pm2, g]
     _build.library().call(

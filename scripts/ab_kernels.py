@@ -2,13 +2,14 @@
 a CUDA GPU, in turns (A, B, B, A), on the same inputs.
 
     python scripts/ab_kernels.py --a OLD_CSRC_DIR [--b NEW_CSRC_DIR]
-        [--a-split] [--short-only | --pairhmm]
+        [--a-split] [--short-only | --pairhmm | --log] [--paths]
 
 ``--b`` defaults to the package's own ``csrc/``.  Each build goes into the
 ``_build`` directory beside its sources.  A build from before the cluster
 kernels (K8/K9 for CONTRA, K12/K13 for Turner) is handed the ring scratch
 its entry points take (``ring_g``, a global one past N = 256), and the
-cluster kernels' outputs are compared on live cells (i + d < n) only.
+cluster kernels' and K1/K2's outputs are compared on live cells (i + d < n)
+only.
 ``--a-split`` says build A predates the merge of the stacked and long
 kernels: its N <= 256 entry points take no ring scratch, and its N > 256
 ones (if it has them) carry a ``_long`` suffix and take one.  Inputs and
@@ -16,8 +17,14 @@ shapes are chip_smoke.py's main-path ones: N = 128, B = 192 and N = 256,
 B = 96 for the four kernels (K1/K2, K4/K5), and unless ``--short-only``
 the long tier's (K8/K9 at N = 512, 1024, 2048; K12/K13 at 512, 1024).
 Prints each kernel's CUDA-event ms per build and turn (REPS launches after
-one warm-up), each build's ptxas register and spill lines, and the largest
-difference between the two builds' outputs.
+one warm-up), each build's ptxas register and spill lines, the largest
+difference between the two builds' outputs (K1/K2 and the cluster kernels
+on live cells) and whether they are bitwise equal, and each kernel's mean
+ms per build over its two turns with the ratio A / B.  ``--paths`` then
+times the exact main paths (``FoldEngine``, both models, chip_smoke.py's
+tRNA and random 150-200 nt batches) through each build in turns A, B, B, A,
+with their seqs/s and peak memory, as ``--log`` does for the parity
+paths.
 With the long tier it then times the barriers that end each span of the
 cluster kernels, alone: a probe kernel (built with nvcc into a temporary
 directory) runs B clusters of C blocks of 1,024 threads at each long
@@ -222,6 +229,8 @@ def main(argv=None):
                     help="the Durbin pair-HMM kernels K14 and K15 instead")
     ap.add_argument("--log", action="store_true",
                     help="the parity tier's kernels K16-K19 instead")
+    ap.add_argument("--paths", action="store_true",
+                    help="then the exact main paths through each build")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA GPU available", file=sys.stderr)
@@ -257,7 +266,7 @@ def main(argv=None):
             for N, B in shapes:
                 cases.append((N, B, builders[model](N, B, seed=7 * N,
                                                     device=dev)))
-    outs = {}
+    outs, times = {}, {}
     for turn, which in enumerate(("A", "B", "B", "A")):
         use(libs[which])
         for N, B, x in cases:
@@ -268,12 +277,15 @@ def main(argv=None):
                 out = fn(*a)
                 outs.setdefault((N, B, kernel), {})[which] = (
                     out if isinstance(out, tuple) else (out,))
+                times.setdefault((N, B, kernel), {}).setdefault(
+                    which, []).append(ms)
                 print(f"turn {turn} build {which} N={N} B={B} {kernel}: "
                       f"{ms:.4f} ms")
     for (N, B, kernel), got in outs.items():
         a, b, note = got["A"], got["B"], ""
         if kernel in chip_smoke.LIVE_ONLY:
-            # a build before the cluster kernels computes the dead cells too
+            # a build before the cluster kernels, or before K1/K2's
+            # redesign, computes the dead cells too
             x = next(c for n_, b_, c in cases
                      if (n_, b_) == (N, B) and kernel in c["kernels"])
             r = torch.arange(N, device=dev)
@@ -288,9 +300,15 @@ def main(argv=None):
                    for x, y in zip(a, b))
         print(f"N={N} B={B} {kernel}: max |A - B| {diff:.3e}, max "
               f"relative {rel:.3e}{note}{' (bitwise equal)' if same else ''}")
+    for (N, B, kernel), ms in times.items():
+        a, b = (sum(ms[k]) / len(ms[k]) for k in ("A", "B"))
+        print(f"mean N={N} B={B} {kernel}: A {a:.4f} ms, B {b:.4f} ms, "
+              f"A / B {a / b:.4f}")
     if not args.short_only:
         use(libs["B"])
         barrier_probe(chip_smoke)
+    if args.paths:
+        ab_main_paths(libs, "exact")
     return 0
 
 
@@ -419,16 +437,16 @@ def ab_log(libs, dev, chip_smoke):
                    for x, y in zip(a, b))
         print(f"N={N} B={B} {kernel}: outputs of A and B bitwise equal"
               f"{note}: {same}")
-    ab_parity_paths(libs)
+    ab_main_paths(libs, "parity")
     return 0
 
 
-def ab_parity_paths(libs):
-    """The parity main paths of chip_smoke.py (FoldEngine(numerics=
-    "parity"), both models, on the tRNA and the random 150-200 nt batches)
-    through each build in turns A, B, B, A: seqs/s (CUDA events around 3
-    batches after a warm-up, chip_smoke.cuda_ms) and the peak device memory
-    of one batch above what was held before it."""
+def ab_main_paths(libs, numerics):
+    """The main paths of chip_smoke.py in ``numerics`` (FoldEngine, both
+    models, on the tRNA and the random 150-200 nt batches) through each
+    build in turns A, B, B, A: seqs/s (CUDA events around 3 batches after a
+    warm-up, chip_smoke.cuda_ms) and the peak device memory of one batch
+    above what was held before it."""
     import chip_smoke
     from rna_algos_tpu_torch.parallel.runner import FoldEngine
     from rna_algos_tpu_torch.utils.io import read_fasta
@@ -441,7 +459,7 @@ def ab_parity_paths(libs):
         use(libs[which])
         for model in ("contra", "turner"):
             engine = FoldEngine(uses_contra_model=model == "contra",
-                                device="cuda", numerics="parity")
+                                device="cuda", numerics=numerics)
             for key, seqs in batches.items():
                 ms = chip_smoke.cuda_ms(lambda: engine.fold_batch(seqs), 3)
                 torch.cuda.synchronize()
@@ -449,7 +467,7 @@ def ab_parity_paths(libs):
                 held = torch.cuda.memory_allocated()
                 engine.fold_batch(seqs)
                 peak = (torch.cuda.max_memory_allocated() - held) / 2**30
-                print(f"turn {turn} build {which} {model}_parity_{key}: "
+                print(f"turn {turn} build {which} {model}_{numerics}_{key}: "
                       f"{ms:.4f} ms a batch, {1e3 * len(seqs) / ms:.2f} "
                       f"seqs/s, peak {peak:.3f} GiB above {held / 2**30:.3f}")
 

@@ -1,5 +1,7 @@
 """Kernels K1-K5, K8, K9, K12-K19 against their plain versions on a
-CUDA GPU: the checks of chip_smoke.py, at the main paths' buckets (the long
+CUDA GPU: the checks of chip_smoke.py, at the main paths' buckets (K1/K2
+on live cells with their dead cells 0, also on edge batches at each bucket
+<= 256 and with NaN in their dead input cells and scratch; the long
 tier's at a centred per-sequence ln_sigma, K8/K9 and K12/K13 on live cells
 with their dead cells 0, at every cluster size the check shapes take; the pair-HMM's at each pair's
 settled ln_sigma, the parity tier's log kernels on a few random sequences
@@ -94,6 +96,38 @@ def test_inside_kernel_matches_plain(inputs):
 
 def test_outside_kernel_matches_plain(inputs):
     assert chip_smoke.check_outside(inputs) <= chip_smoke.ATOL_BPPO
+
+
+@pytest.fixture(scope="module", params=sorted(chip_smoke.PROB_EDGE),
+                ids=lambda N: f"N{N}")
+def edge_inputs(device, request):
+    N = request.param
+    lengths = chip_smoke.PROB_EDGE[N]
+    return chip_smoke.kernel_inputs(N, len(lengths), seed=3 * N,
+                                    device=device, lengths=lengths)
+
+
+def test_inside_kernel_on_edge_batches(edge_inputs):
+    """K1 at each bucket <= 256 of the probability path on n = 1-5, lengths
+    just past a power of two and n = N: live cells within RTOL_INSIDE, dead
+    cells 0."""
+    chip_smoke.check_inside(edge_inputs)
+
+
+def test_outside_kernel_on_edge_batches(edge_inputs):
+    assert chip_smoke.check_outside(edge_inputs) <= chip_smoke.ATOL_BPPO
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["K1", "K2"])
+def test_prob_kernels_never_read_dead_cells(edge_inputs, which):
+    """NaN in every dead cell of K1's or K2's [d, i] tables and in their
+    scratch leaves their outputs bitwise unchanged, dead cells 0."""
+    chip_smoke.check_prob_dead_cells(edge_inputs, which)
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["K1", "K2"])
+def test_prob_kernels_never_read_dead_cells_at_check_shapes(inputs, which):
+    chip_smoke.check_prob_dead_cells(inputs, which)
 
 
 def test_main_path_launches_every_kernel(device):

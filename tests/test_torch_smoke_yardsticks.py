@@ -1,8 +1,9 @@
 """The yardsticks ``chip_smoke.py`` sets beside each long kernel, on the CPU.
 
-The cluster kernels K8, K9 (CONTRA) and K12, K13 (Turner) read their input
-tables on live cells only (i + d < n), so ``chip_smoke.work`` must charge
-them those cells' bytes and no more, and ``chip_smoke.reread_ms`` must give
+The cluster kernels K8, K9 (CONTRA) and K12, K13 (Turner), and K1, K2
+(CONTRA at N <= 256), read their input tables on live cells only
+(i + d < n), so ``chip_smoke.work`` must charge them those cells' bytes and
+no more, and ``chip_smoke.reread_ms`` must give
 each its own pass's HBM re-read floor: an inside kernel re-reads 16 B a
 bifurcation term t >= 1 of each live cell (rm, rmmb, ext, one), an outside
 kernel 8 B a pm term and 12 B an sa/sbc term.  The parity kernels K16-K19
@@ -20,6 +21,7 @@ N = 64
 LENGTHS = (9, 33, 50, 64)
 LONG = ("contra_inside_long", "contra_outside_long", "turner_inside_long",
         "turner_outside_long")
+PROB = ("contra_inside", "contra_outside")     # K1, K2
 # [d, i] input tables each long kernel reads (the outside's ONE and QONE
 # among them) and tables it writes
 TABLES = {"contra_inside_long": (9, 3), "contra_outside_long": (11, 1),
@@ -35,6 +37,57 @@ def batch():
 def live_cells():
     """Every live cell (n, d, i) of the batch."""
     return [(n, d, i) for n in LENGTHS for d in range(n) for i in range(n - d)]
+
+
+@pytest.mark.parametrize("kernel", PROB)
+def test_prob_kernels_are_live_only(kernel):
+    assert kernel in chip_smoke.LIVE_ONLY
+
+
+def prob_batch(seed=7, min_span=5):
+    """A ragged batch whose JS (inside) and CLOSE (outside) are 0 at ~60%
+    of the cells, as K1's and K2's calls see them."""
+    gen = torch.Generator().manual_seed(seed)
+    js = (torch.rand((len(LENGTHS), N, N), generator=gen) > 0.6).float()
+    close = (torch.rand((len(LENGTHS), N, N), generator=gen) > 0.6).float()
+    return js, close, dict(batch(), inside_args=({"JS": js},),
+                           outside_args=({"CLOSE": close}, min_span))
+
+
+@pytest.mark.parametrize("kernel", PROB)
+def test_work_charges_k1_k2_live_cells(kernel):
+    """K1/K2 (N <= 256) read their input tables on live cells only, as
+    K8/K9: ``chip_smoke.work`` charges those cells' bytes (9 inside tables,
+    11 outside ones with ONE and QONE) and the outputs whole, and the
+    FLOPs the data needs, counted here by brute force: 16 a live cell, then
+    inside 4 d for the ext and s2 terms, outside 2 a pm term (n - 2 - d - i
+    of them) and 4 an sa/sbc term (i of them); and 2 a 2-loop window term
+    at the cells that can close only (inside JS != 0 from span 5 on: the
+    terms (a, b) with a + b <= min(d - 2, 30); outside CLOSE > 0 from
+    min_span on: b < min(31 - a, n - 1 - d - i) for a < min(i, 31))."""
+    js, close, inp = prob_batch()
+    nbytes, flops = chip_smoke.work(kernel, inp)
+    ins, outs = TABLES[kernel + "_long"]
+    whole = 4 * len(LENGTHS) * N * N
+    assert nbytes == ins * 4 * len(live_cells()) + outs * whole
+    cell = chip_smoke.CELL_FLOPS
+    want = 0
+    for b, n in enumerate(LENGTHS):
+        for d in range(n):
+            for i in range(n - d):
+                if kernel == "contra_inside":
+                    want += cell + 4 * d
+                    if js[b, d, i] != 0 and d + 1 >= 5:
+                        want += 2 * sum(1 for a in range(31)
+                                        for bb in range(31)
+                                        if a + bb <= min(d - 2, 30))
+                else:
+                    want += cell + 2 * max(n - 2 - d - i, 0) + 4 * i
+                    if close[b, d, i] > 0 and d + 1 >= 5:
+                        r = n - 1 - d - i
+                        want += 2 * sum(min(31 - a, r)
+                                        for a in range(min(i, 31)))
+    assert flops == want
 
 
 @pytest.mark.parametrize("kernel", LONG)
