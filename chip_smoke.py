@@ -9,11 +9,11 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
 2. each kernel against its plain PyTorch version on the card (K3 bitwise in
    both directions, also on the Turner precompute's 18 tables at once; K1,
    K2 (CONTRA) and K4, K5 (Turner) within stated tolerances at N = 128,
-   B = 64 and N = 256, B = 32, K1/K2 on the live cells (i + d < n) with
-   their dead cells exactly 0, also on edge batches at each bucket <= 256
-   of the probability path (n = 1-5, just past a power of two, n = N) and
-   with NaN in every dead input cell and scratch word, each launch's block
-   size printed; the long tier's K8, K9 (CONTRA) and K12, K13
+   B = 64 and N = 256, B = 32, on the live cells (i + d < n) with their
+   dead cells exactly 0, also on edge batches at each bucket <= 256 of the
+   probability path (n = 1-5, just past a power of two, n = N) and with
+   NaN in every dead input cell and scratch word, each launch's block size
+   printed; the long tier's K8, K9 (CONTRA) and K12, K13
    (Turner), the same four sources launched past N = 256 as a cluster of
    blocks per sequence, at N = 512, B = 8 and N = 1024, B = 4, and K8, K9
    also at N = 2048, B = 2, the main paths' N = 512, B = 32, N = 1024,
@@ -96,15 +96,19 @@ LONG_CHECK = {"contra": ((512, 8), (1024, 4), (2048, 2), (512, 32),
               "turner": ((512, 8), (1024, 4), (512, 32), (1024, 16),
                          (512, 16), (512, 80))}
 # The kernels that compute live cells only (i + d < n) and leave the dead
-# ones the zeros their wrappers pass: K1 and K2 (CONTRA, N <= 256) and the
-# cluster kernels K8, K9, K12 and K13, compared with their plain versions on
-# the live cells.
+# ones the zeros their wrappers pass: K1, K2 (CONTRA) and K4, K5 (Turner) at
+# N <= 256 and the cluster kernels K8, K9, K12 and K13, compared with their
+# plain versions on the live cells.
 LIVE_ONLY = ("contra_inside", "contra_outside",
+             "turner_inside", "turner_outside",
              "contra_inside_long", "contra_outside_long",
              "turner_inside_long", "turner_outside_long")
-# K1/K2 on batches that reach the edges of their layout, at each bucket the
-# probability path takes at N <= 256 (parallel.runner.kernel_bucket): no
-# span that can close (n < 5), lengths just past a power of two and n = N.
+# The probability wavefronts at N <= 256 (csrc/narrow.cuh's layout).
+PROB = ("contra_inside", "contra_outside", "turner_inside", "turner_outside")
+# K1/K2 and K4/K5 on batches that reach the edges of their layout, at each
+# bucket the probability path takes at N <= 256
+# (parallel.runner.kernel_bucket): no span that can close (n < 5), lengths
+# just past a power of two and n = N.
 PROB_EDGE = {64: (1, 2, 3, 4, 5, 33, 63, 64),
              128: (1, 2, 3, 4, 5, 65, 127, 128),
              256: (1, 2, 3, 4, 5, 129, 255, 256)}
@@ -138,10 +142,13 @@ TURNER_TIE = ("centroid_threshold=1.fa", 0, (2, 80))
 # bytes/s and FP32 FLOP/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
-# Window FMAs per (span, lane) cell, from the kernels' loops: CONTRA's
-# banded 31 x 31 window (496 cells); Turner's KI (435), KB (60) and K2 (56)
-# arms, the 2 TM3 and the 7 small-loop cells.
+# Window FMAs per (span, lane) cell of the long kernels K8/K9 and K12/K13,
+# from their loops: CONTRA's banded 31 x 31 window (496 cells); Turner's KI
+# (435), KB (60) and K2 (56) arms, the 2 TM3 and the 7 small-loop cells.
 WINDOW_FMAS = {"contra": 496, "turner": 560}
+# FMAs at every live cell of K4/K5 besides the window: Turner's 2 TM3 and 7
+# small-loop cells.
+TURNER_CELL_FMAS = 9
 # FLOPs per cell outside the window and the O(d) sums: the special cells,
 # close, and the rm/rmmb/epow updates (inside); base, pm2, qa and bppo
 # (outside).
@@ -216,6 +223,15 @@ def random_batch(B, lo, hi, seed):
             for _ in range(B)]
 
 
+def sized_batch(N, B, seed, lengths=None):
+    """B random sequences of N/2 + 10 (at least 30) to N nt, or one of each
+    of ``lengths``."""
+    if lengths is None:
+        return random_batch(B, max(30, N // 2 + 10), N, seed)
+    rng = np.random.default_rng(seed)
+    return [list(rng.integers(0, 4, size=n)) for n in lengths]
+
+
 def padded(seqs, N, device):
     from rna_algos_tpu_torch.parallel.runner import pad_seqs
 
@@ -267,13 +283,8 @@ def kernel_inputs(N, B, seed, device, lengths=None):
     names = (("contra_inside_long", "contra_outside_long") if long
              else ("contra_inside", "contra_outside"))
     inside = wrappers(names[0])[0]
-    if lengths is None:
-        lo = max(30, N // 2 + 10)
-        batch = random_batch(B, lo, N, seed)
-    else:
-        rng = np.random.default_rng(seed)
-        batch = [list(rng.integers(0, 4, size=n)) for n in lengths]
-        B = len(lengths)
+    batch = sized_batch(N, B, seed, lengths)
+    B = len(batch)
     seqs, ns = padded(batch, N, device)
     ct = FoldEngine(uses_contra_model=True, device=device).tbl
 
@@ -306,10 +317,12 @@ def kernel_inputs(N, B, seed, device, lengths=None):
     )
 
 
-def turner_inputs(N, B, seed, device):
+def turner_inputs(N, B, seed, device, lengths=None):
     """The inputs the Turner main path hands its inside and outside kernels
     (K4/K5 at N <= 256, K12/K13 past it) and K3: at ln_sigma = 0.5 (the
-    Turner seed) for N <= 256, at a centred ln_sigma past it."""
+    Turner seed) for N <= 256, at a centred ln_sigma past it.  Random
+    sequences of N/2 + 10 (at least 30) to N nt, or of ``lengths`` (then B
+    is len(lengths))."""
     from rna_algos_tpu_torch.ops import pallas_fold as PF
     from rna_algos_tpu_torch.ops import pallas_fold_prob as PP
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
@@ -319,8 +332,9 @@ def turner_inputs(N, B, seed, device):
     names = (("turner_inside_long", "turner_outside_long") if long
              else ("turner_inside", "turner_outside"))
     inside = wrappers(names[0])[0]
-    lo = max(30, N // 2 + 10)
-    seqs, ns = padded(random_batch(B, lo, N, seed), N, device)
+    batch = sized_batch(N, B, seed, lengths)
+    B = len(batch)
+    seqs, ns = padded(batch, N, device)
     tt = turner_tables(device)
 
     def prep(ls):
@@ -369,22 +383,25 @@ def check_skew(inp):
     return 0.0
 
 
-def block_threads(N, B, threads):
-    """K1's and K2's block sizes (threads a sequence) for a launch over B
-    sequences at N <= 256, recorded in ``threads[kernel][shape]``; a note
-    for the log."""
+def block_threads(model, N, B, threads):
+    """A model's inside and outside block sizes at N <= 256 (threads a
+    sequence; K1/K2 or K4/K5) for a launch over B sequences, recorded in
+    ``threads[kernel][shape]``; a note for the log."""
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
 
-    sizes = P8.contra_block_threads(B, N)
-    for k, c in zip(("contra_inside", "contra_outside"), sizes):
+    sizes = getattr(P8, f"{model}_block_threads")(B, N)
+    kernels = (f"{model}_inside", f"{model}_outside")
+    for k, c in zip(kernels, sizes):
         threads.setdefault(k, {})[f"N{N}_B{B}"] = c
-    return f"block size K1 {sizes[0]}, K2 {sizes[1]} threads a sequence"
+    return (f"block size {LABELS[kernels[0]]} {sizes[0]}, "
+            f"{LABELS[kernels[1]]} {sizes[1]} threads a sequence")
 
 
 def check_prob_dead_cells(x, which):
-    """K1 (``which`` = 0) or K2 (1) lets no dead cell through: with NaN in
-    every dead cell (i + d >= n) of each (B, N, N) [d, i] table it is handed
-    (the merged tables, and K2's inside table ``one``) and in all of its
+    """The inside (``which`` = 0: K1, K4) or outside (1: K2, K5) kernel of
+    ``x`` lets no dead cell through: with NaN in every dead cell
+    (i + d >= n) of each (B, N, N) [d, i] table it is handed (the merged
+    tables, and the outside's inside table ``one``) and in all of its
     scratch, it gives bitwise the outputs of the call on the untouched
     inputs, every dead cell 0.  Two kernel launches, no plain version (the
     plain versions compute the dead cells)."""
@@ -451,9 +468,9 @@ def live_cells(kernel, inp, like):
 
 def check_inside(inp, label="K1", kernel="contra_inside"):
     """An inside kernel (K1, K4, K8 or K12) vs its plain version on close,
-    ext, one: |k - p| <= RTOL_INSIDE * |p| (K8, K12: on live cells, the
-    dead ones 0).  Returns (max abs error, max relative error); the scaled
-    partition functions run up to ~1e8, so the relative error is the
+    ext, one: |k - p| <= RTOL_INSIDE * |p| on the live cells, the dead ones
+    0 (``live_cells``).  Returns (max abs error, max relative error); the
+    scaled partition functions run up to ~1e8, so the relative error is the
     telling one."""
     kern, plain = wrappers(kernel)
     got = kern(*inp["inside_args"])
@@ -483,7 +500,8 @@ def check_inside(inp, label="K1", kernel="contra_inside"):
 
 def check_outside(inp, label="K2", kernel="contra_outside"):
     """An outside kernel (K2, K5, K9 or K13) vs its plain version on bppo:
-    max |k - p| <= ATOL_BPPO (K9, K13: on live cells, the dead ones 0)."""
+    max |k - p| <= ATOL_BPPO on the live cells, the dead ones 0
+    (``live_cells``)."""
     kern, plain = wrappers(kernel)
     got = kern(*inp["outside_args"])
     want = plain(*inp["outside_args"])
@@ -512,8 +530,10 @@ def work(kernel, inp):
     input table read once (LIVE_ONLY kernels: on the live cells, i + d < n,
     the only ones they read) and each output written once (whole: the wrappers
     zero-fill them); the FLOPs of the recurrences on the live cells of
-    this run's lengths, K1/K2's 2-loop window only at the cells that can
-    close (``prob_window_terms``: elsewhere it is multiplied by 0)."""
+    this run's lengths, the 2-loop windows of K1/K2 and K4/K5 only at the
+    cells that can close (``prob_window_terms``: elsewhere they are
+    multiplied by 0), K4/K5's TM3 and small-loop cells at every live
+    cell."""
     if kernel.endswith("_log"):
         return log_work(kernel, inp)
     key = kernel.replace("_long", "")
@@ -522,8 +542,11 @@ def work(kernel, inp):
     if key == "skew":
         return 2 * len(inp["pq"]) * nn, 0.0
     model = key.split("_")[0]
-    narrow = kernel in ("contra_inside", "contra_outside")
-    cell = CELL_FLOPS + (0 if narrow else 2 * WINDOW_FMAS[model])
+    narrow = kernel in PROB
+    if narrow:
+        cell = CELL_FLOPS + (2 * TURNER_CELL_FMAS if model == "turner" else 0)
+    else:
+        cell = CELL_FLOPS + 2 * WINDOW_FMAS[model]
     flops = 2.0 * prob_window_terms(kernel, inp) if narrow else 0.0
     live = 0.0
     for n, d, lanes in _live_cells(inp["ns"].tolist()):
@@ -542,16 +565,22 @@ def work(kernel, inp):
 
 
 def prob_window_terms(kernel, inp):
-    """The 2-loop window terms K1 (``kernel`` = "contra_inside") or K2
-    ("contra_outside") needs on this run's data: at a cell that can close
-    (live; inside JS != 0 from span MIN_SPAN_HAIRPIN_CLOSE on, outside
-    CLOSE a positive normal float and the span reaching min_span), inside
-    the terms (a, b) with a + b <= min(d - 2, 30) (the inner pair at span
-    d - 2 - a - b >= 0), outside sum_{a < min(i, 31)} min(31 - a, r), r =
-    n - 1 - d - i (the outer pair inside the sequence)."""
+    """The 2-loop window terms K1 (``kernel`` = "contra_inside"), K2
+    ("contra_outside"), K4 ("turner_inside") or K5 ("turner_outside")
+    needs on this run's data: at a cell that can close (live; inside from
+    span MIN_SPAN_HAIRPIN_CLOSE on where JS != 0 (K1) or AUGC != 0 (K4),
+    outside where CLOSE is a positive normal float and the span reaches
+    min_span), the window cells whose inner pair lies in the sequence:
+    CONTRA inside the terms (a, b) with a + b <= min(d - 2, 30) (the inner
+    pair at span d - 2 - a - b >= 0), outside sum_{a < min(i, 31)}
+    min(31 - a, r), r = n - 1 - d - i (the outer pair inside the sequence);
+    Turner the nonzero cells of its three window matrices
+    (``turner_window_terms``)."""
     from rna_algos_tpu_torch.constants import MIN_SPAN_HAIRPIN_CLOSE
     from rna_algos_tpu_torch.ops import pallas_fold_prob as PP
 
+    if kernel.startswith("turner"):
+        return turner_window_terms(kernel, inp)
     if kernel == "contra_inside":
         can = (inp["inside_args"][0]["JS"] != 0).cpu().numpy()
     else:
@@ -572,6 +601,52 @@ def prob_window_terms(kernel, inp):
             terms = sum(np.where(a < A, np.minimum(31 - a, r), 0)
                         for a in range(31))
             full = live & can[b] & (D + 1 >= min_span)
+        total += int(terms[full].sum())
+    return total
+
+
+def turner_window_terms(kernel, inp):
+    """The window terms K4 (``kernel`` = "turner_inside") or K5
+    ("turner_outside") needs on this run's data: at each cell that can
+    close (live; inside AUGC != 0 from span MIN_SPAN_HAIRPIN_CLOSE on,
+    outside CLOSE a positive normal float and the span reaching min_span),
+    the cells (a, r) of KI, KB and K2 (``KT``) that are nonzero and whose
+    inner pair lies in the sequence: inside r <= d - 1 (span d - 1 - r >=
+    0), outside a < i and r - a <= n - 1 - d - i (the outer pair's lane
+    i - 1 - a >= 0 and its span d + 1 + r live)."""
+    from rna_algos_tpu_torch.constants import MIN_SPAN_HAIRPIN_CLOSE
+    from rna_algos_tpu_torch.ops import pallas_fold_prob as PP
+
+    inside = kernel == "turner_inside"
+    if inside:
+        mi, KT = inp["inside_args"][0], inp["inside_args"][1]
+        can = (mi["AUGC"] != 0).cpu().numpy()
+        min_span = MIN_SPAN_HAIRPIN_CLOSE
+    else:
+        mo, KT = inp["outside_args"][0], inp["outside_args"][4]
+        min_span = int(inp["outside_args"][-1])
+        can = (mo["CLOSE"] >= PP.FLT_MIN).cpu().numpy()
+    nzc = (KT != 0).cpu().numpy().sum(axis=1)      # (B, 32, 32): a, r
+    N = can.shape[1]
+    D, I = np.meshgrid(np.arange(N), np.arange(N), indexing="ij")
+    total = 0
+    for b, n in enumerate(inp["ns"].tolist()):
+        full = (D + I <= n - 1) & can[b] & (D + 1 >= min_span)
+        if inside:
+            # terms(d): the cells with r <= d - 1
+            upto = np.concatenate([[0], np.cumsum(nzc[b].sum(axis=0))])
+            terms = upto[np.clip(D, 0, 32)]
+        else:
+            # C[a, s]: the cells of row a at s = r - a; cum[A, S]: a < A,
+            # 1 <= s <= S
+            C = np.zeros((32, 33))
+            for a in range(32):
+                for r in range(a + 1, 32):
+                    C[a, r - a] += nzc[b, a, r]
+            cum = np.zeros((33, 33))
+            cum[1:, :] = np.cumsum(np.cumsum(C, axis=0), axis=1)
+            terms = cum[np.minimum(I, 32),
+                        np.clip(n - 1 - D - I, 0, 32)]
         total += int(terms[full].sum())
     return total
 
@@ -1565,23 +1640,27 @@ def main():
         rel[ik] = max(rel[ik], r)
         err[ok] = max(err[ok], check_outside(x, LABELS[ok], ok))
 
-    threads = {}    # K1/K2 -> shape -> threads a sequence
+    threads = {}    # K1/K2, K4/K5 -> shape -> threads a sequence
+    builders = {"contra": kernel_inputs, "turner": turner_inputs}
+    seeds = {"contra": 0, "turner": 1}
     for N, B in SHAPES_CHECK:
-        print(f"check N={N} B={B}, {block_threads(N, B, threads)}")
-        x = kernel_inputs(N, B, seed=N + B, device=dev)
-        check_model(x)
-        for which in (0, 1):
-            check_prob_dead_cells(x, which)
-        check_model(turner_inputs(N, B, seed=N + B + 1, device=dev))
+        for model, build in builders.items():
+            print(f"check {model} N={N} B={B}, "
+                  f"{block_threads(model, N, B, threads)}")
+            x = build(N, B, seed=N + B + seeds[model], device=dev)
+            check_model(x)
+            for which in (0, 1):
+                check_prob_dead_cells(x, which)
     for N, lengths in PROB_EDGE.items():
         B = len(lengths)
-        print(f"check contra edge N={N} n={lengths}, "
-              f"{block_threads(N, B, threads)}")
-        x = kernel_inputs(N, B, seed=3 * N, device=dev, lengths=lengths)
-        check_model(x)
-        for which in (0, 1):
-            check_prob_dead_cells(x, which)
-    builders = {"contra": kernel_inputs, "turner": turner_inputs}
+        for model, build in builders.items():
+            print(f"check {model} edge N={N} n={lengths}, "
+                  f"{block_threads(model, N, B, threads)}")
+            x = build(N, B, seed=3 * N + seeds[model], device=dev,
+                      lengths=lengths)
+            check_model(x)
+            for which in (0, 1):
+                check_prob_dead_cells(x, which)
     clusters = {}   # K8/K9/K12/K13 -> shape -> blocks per sequence
     for model, shapes in LONG_CHECK.items():
         for N, B in shapes:
@@ -1608,7 +1687,7 @@ def main():
             note = (f", HBM re-read floor {reread_ms(kernel, x):.4f} ms, "
                     f"{cluster_sizes(kernel.split('_')[0], N, B, clusters)}")
         elif kernel in threads:
-            note = f", {block_threads(N, B, threads)}"
+            note = f", {block_threads(kernel.split('_')[0], N, B, threads)}"
         print(f"time N={N} B={B} {kernel}: kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms, bound {bms:.4f} ms ({by}){note}")
 

@@ -24,9 +24,9 @@
 //   one  = rmmb + s1 + s2
 //
 // with c(s, l) = close*JB of span s at lane l, the window-buffer rows.
-// K4/K12 (turner_inside.cu) share common.cuh's window loop, rm/rmmb update
-// and bifurcation sums; K8's close and its share of the sums are
-// cluster.cuh's, K1's narrow.cuh's.
+// K4 (turner_inside.cu) shares K1's layout and sums (narrow.cuh); K12
+// shares K8's sums (cluster.cuh) and common.cuh's window loop; K8's close
+// and its share of the sums are cluster.cuh's, K1's narrow.cuh's.
 //
 // K1 (N <= 256): one block of T = 256-1,024 threads per sequence, T from
 // the batch and the card (narrow.cuh), thread i owning lane i; live cells

@@ -26,9 +26,10 @@
 // because Mosaic cannot slice lanes dynamically, and its chunked kernel
 // adds row chunks, SONEF delivery and a live-height ladder because of
 // VMEM; here one(t-1, j+1) and ext(j+1, n-1) are indexed directly in the
-// inside outputs.  K5/K13 (turner_outside.cu) share common.cuh's window
-// loop and multibranch context; K9's share of the sums and its bppo are
-// cluster.cuh's, K2's narrow.cuh's and its own.
+// inside outputs.  K5 (turner_outside.cu) shares K2's layout and sums
+// (narrow.cuh), K13 K9's (cluster.cuh) and common.cuh's window loop; K9's
+// share of the sums and its bppo are cluster.cuh's, K2's narrow.cuh's and
+// its own.
 //
 // K2 (N <= 256): K1's layout (contra_inside.cu, narrow.cuh): one block of
 // T = 256-1,024 threads per sequence, thread i owning lane i, live cells

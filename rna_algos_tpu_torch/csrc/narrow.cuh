@@ -1,28 +1,30 @@
-// Launch shape and helpers of K1 and K2, the CONTRA wavefronts of the
-// N <= 256 probability tier (contra_inside.cu, contra_outside.cu): one
-// block of T threads per sequence, T from the batch, N and the card.
+// Launch shape and helpers of the wavefronts of the N <= 256 probability
+// tier: K1 and K2 (CONTRA, contra_inside.cu, contra_outside.cu) and K4 and
+// K5 (Turner, turner_inside.cu, turner_outside.cu).  One block of T
+// threads per sequence, T from the batch, N and the card.
 //
 // Thread i owns lane i (i < N <= T) and keeps its per-lane state in
 // registers; a span computes its live lanes only (i + d < n), and a dead
 // cell keeps the zero the wrapper passes.  A span is two phases, each
 // ending in a barrier:
 //   1. the owners compute their cells from their table cells and the
-//      window sum of the phase before, while every thread of the block
+//      window sums of the phase before, while every thread of the block
 //      computes a part of the live lanes' O(d) sums (rna_nw_part: part p of
 //      a lane takes its terms p, p + k, p + 2k, ...);
 //   2. the owners add their lane's parts in a fixed order and finish the
 //      cell, while every thread takes a share of the next span's 2-loop
 //      windows, computed for the cells that can close only (listed in
 //      phase 1) and over their nonzero ring cells only: each gets a group
-//      of GW threads (rna_nw_window_pass).
+//      of GW threads (rna_nw_window_pass for CONTRA's one window,
+//      rna_nw_turner_window_pass for Turner's three).
 // The owners' table reads overlap the parts in phase 1: staging them a
 // span ahead with cp.async changed nothing on an H100 (PERF.md, PR 10).
 // The sums' orders depend on the launch (T, the live lanes, the closable
 // count) and not on timing, so a result is the same run to run;
 // tests/test_torch_prob_split.py replays them against the plain versions.
 //
-// The helpers here are K1/K2's own: common.cuh's, which K4/K5 share, and
-// cluster.cuh's, which K8/K9 share, stay as they were measured.
+// common.cuh's helpers, which the cluster kernels share, and cluster.cuh's
+// stay as they were measured.
 #pragma once
 
 #include "launch.cuh"
@@ -247,4 +249,107 @@ __device__ __forceinline__ void rna_nw_window_pass(const float* ring, int LW,
   for (int off = GW >> 1; off >= 1; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   if (c < K && g == 0) win[i] = v;
+}
+
+// The first r of the run of window row a on the matrix whose row it is,
+// from the supports of Turner's window matrices
+// (pallas_fold_prob._turner_banded_kernels; K[a][r] holds the loop of
+// lengths a and b = r - a - 1): KB's row 0 (b >= 2), K2's row 1 (b >= 3)
+// and KI's rows 2 (b >= 4), 3 (b >= 3) and a >= 4 (b >= 2).  Past 31 (a >=
+// 29) the row has no run.  KB also holds the column b = 0 (r = a + 1,
+// a >= 2) and K2 the column b = 1 (r = a + 2, 3 <= a <= 29); every other
+// cell of the three is 0.
+__device__ __forceinline__ int rna_tw_first(int a) {
+  return a == 0 ? 3 : a == 1 ? 5 : max(7, a + 3);
+}
+
+// The window pass of K4 (INSIDE) and K5 over Turner's three windows: the K
+// cells listed in `cells` of span D get GW threads each, as in
+// rna_nw_window_pass, and each cell three sums, written to win[lane]
+// (winI: KI on ring g*TMI1, or g2*TMO1 outside), win[N + lane] (winB: KB on
+// ring g, or g2) and win[2N + lane] (win2: K2 on ring g*TMI2, or g2*TMO2).
+// The rings (32 slots of LW floats each, ringB | ringI | ring2 from
+// `ringB`) read one lane a window row: row a of a cell holds KI's row a
+// (a >= 2), KB's row 0 (a = 0) or K2's row 1 (a = 1), over its support
+// (rna_tw_first), and the single cells of KB's and K2's columns b = 0 and
+// b = 1 at row a.  The 31 rows are dealt to the group's threads in the
+// snake of rna_nw_window_pass; each thread adds its rows in order, a row's
+// run in increasing r into the sum of its matrix, then its KB cell into
+// winB and its K2 cell into win2 (FMA), and each of the three sums meets
+// the group's in a halving tree.  One mask serves the three rings: nz[lane]
+// has bit s & 31 set while ring g holds a nonzero value at slot s, and the
+// other two rings are g times a factor, so a skipped term is a zero one.
+// INSIDE: ring(D-1-r, i+1+a), lane l at column l; outside: ring(D+1+r,
+// i-1-a), lane l at column 32 + l.  kt holds KI | KB | K2, 32 x 32 each.
+// Every thread of the block calls this (the shuffles take whole warps).
+template <bool INSIDE>
+__device__ __forceinline__ void rna_nw_turner_window_pass(
+    const float* ringB, int LW, const unsigned* nz, const float* kt,
+    const int* cells, int K, int D, int T, int N, float* win) {
+  const int GW = rna_nw_group(K, T);
+  const int tid = threadIdx.x, c = tid / GW, g = tid - c * GW;
+  const int RW = RNA_WIN * LW, KK = RNA_WIN * RNA_WIN;
+  float vI = 0.0f, vB = 0.0f, v2 = 0.0f;
+  int i = 0;
+  if (c < K) {
+    i = cells[c];
+    for (int q = 0; q * GW < RNA_WIN - 1; ++q) {
+      const int a = q * GW + ((q & 1) ? GW - 1 - g : g);
+      if (a >= RNA_WIN - 1) continue;
+      const int col = INSIDE ? i + 1 + a : 31 + i - a;
+      const float* lane = ringB + col;
+      // bit r of `ages`: the lane's slot (D-1-r) & 31 (inside) or
+      // (D+1+r) & 31
+      const unsigned m = nz[col];
+      const unsigned ages =
+          INSIDE ? __funnelshift_r(__brev(m), __brev(m), 31 - ((D - 1) & 31))
+                 : __funnelshift_r(m, m, (D + 1) & 31);
+      const int r0 = rna_tw_first(a);
+      if (r0 < RNA_WIN) {
+        // the run: KB's row 0 on ring g, K2's row 1 on ring2, KI's row a
+        // on ringI
+        const float* kr = kt + (a == 0 ? KK : a == 1 ? 2 * KK + RNA_WIN
+                                                     : a * RNA_WIN);
+        const float* rg = lane + (a == 0 ? 0 : a == 1 ? 2 * RW : RW);
+        float v = a == 0 ? vB : a == 1 ? v2 : vI;
+        unsigned run = ages & (0xffffffffu << r0);
+        while (run) {
+          const int r = __ffs(run) - 1;
+          run &= run - 1;
+          v = fmaf(kr[r],
+                   rg[((INSIDE ? D - 1 - r : D + 1 + r) & (RNA_WIN - 1)) * LW],
+                   v);
+        }
+        if (a == 0) vB = v;
+        else if (a == 1) v2 = v;
+        else vI = v;
+      }
+      // KB's cell b = 0 (r = a + 1) and K2's cell b = 1 (r = a + 2)
+      if (a >= 2 && ((ages >> (a + 1)) & 1u)) {
+        const int r = a + 1;
+        vB = fmaf(kt[KK + a * RNA_WIN + r],
+                  lane[((INSIDE ? D - 1 - r : D + 1 + r) & (RNA_WIN - 1)) *
+                       LW],
+                  vB);
+      }
+      if (a >= 3 && a <= RNA_WIN - 3 && ((ages >> (a + 2)) & 1u)) {
+        const int r = a + 2;
+        v2 = fmaf(kt[2 * KK + a * RNA_WIN + r],
+                  lane[2 * RW +
+                       ((INSIDE ? D - 1 - r : D + 1 + r) & (RNA_WIN - 1)) *
+                           LW],
+                  v2);
+      }
+    }
+  }
+  for (int off = GW >> 1; off >= 1; off >>= 1) {
+    vI += __shfl_xor_sync(0xffffffffu, vI, off);
+    vB += __shfl_xor_sync(0xffffffffu, vB, off);
+    v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+  }
+  if (c < K && g == 0) {
+    win[i] = vI;
+    win[N + i] = vB;
+    win[2 * N + i] = v2;
+  }
 }

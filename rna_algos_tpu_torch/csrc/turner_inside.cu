@@ -9,12 +9,12 @@
 // (_turner_inside_prob_kernel).  The TPU's R-row chunks and resident
 // scratches do not carry over: the tables and histories are read in global
 // memory at every N.  The recurrences are K1's (contra_inside.cu), through
-// the same helpers of common.cuh (K12: K8's sums of cluster.cuh), with
-// eu1 = mbu1 = 1/sigma, ebp = 1 and mbbp = exp(COEFF_NUM_BRANCHES); only
-// the 2-loop term and ring inserts differ.  Inputs are the merged [d, i]
-// tables of pallas_fold_prob8._turner_merge_inside (CANON and the outer
-// terminal mismatch * AU/GU products folded in), so for pair
-// (i, j = i + d):
+// common.cuh's close and K1's sums of narrow.cuh (K12: K8's sums of
+// cluster.cuh), with eu1 = mbu1 = 1/sigma, ebp = 1 and mbbp =
+// exp(COEFF_NUM_BRANCHES); only the 2-loop term and ring inserts differ.
+// Inputs are the merged [d, i] tables of
+// pallas_fold_prob8._turner_merge_inside (CANON and the outer terminal
+// mismatch * AU/GU products folded in), so for pair (i, j = i + d):
 //
 //   close = H + two + MBC * s2(d-2, i+1)
 //   two   = TMO1C * winI(g*TMI1) + AUGC * winB(g) + TMO2C * win2(g*TMI2)
@@ -28,22 +28,35 @@
 // with K in {KI, KB, K2} the per-sequence banded window matrices of
 // pallas_fold_prob._turner_banded_kernels; each carries its cells' sigma
 // powers (the TPU's aging pass is unnecessary).  KB and K2 are non-zero
-// only on one column and one diagonal (bulges: a = 0 or b = 0; 1xn
-// arms: a = 1 or b = 1), KI only for a >= 2, so the loops visit those
-// cells alone; the plain version contracts the full matrices.
+// only on one row and one diagonal (bulges: a = 0 or b = 0; 1xn arms:
+// a = 1 or b = 1), KI only for a >= 2, so the loops visit those cells
+// alone (K4: their exact supports, narrow.cuh rna_tw_first); the plain
+// version contracts the full matrices.
 //
-// K4 (N <= 256): bound and design as K1 (contra_inside.cu): the latency
-// of n dependent spans with a __syncthreads each and the lanes' serial
-// O(d) bifurcation sums, not FLOPs or bytes.  One block per sequence, one
-// thread per lane i (launch.cuh), the whole span loop in the block.  Three
-// 32-slot rings (g, g*TMI1, g*TMI2; slot = span & 31) and an 8-slot ring
-// of g*TMI3 (read only at age 6) take 104 x (N + 33) floats in dynamic
-// shared memory with the three 32 x 32 matrices (~137 KB at N = 256, so
-// the launch raises the kernel's dynamic shared-memory limit).  The rm/rmmb
-// histories and the ext/one tables stay in global memory.  The S1
-// recurrence is telescoped (flush-safe: Turner's mbu = 0 makes a
-// standalone mbu1^t column underflow).  Rows at or past n are never
-// written: the wrapper passes zeroed outputs.
+// K4 (N <= 256): K1's layout (contra_inside.cu, narrow.cuh): one block
+// of T = 256-1,024 threads per sequence, T from the batch and the card,
+// thread i owning lane i, live cells only (i + d < n; a dead cell stays
+// the zero the wrapper passes), two phases a span: (1) the owners compute
+// close from their 18 table cells, the three window sums of the phase
+// before, the TM3 ring and the seven special cells, and insert g and its
+// products into the rings (slot d & 31 held span d - 32, which no lane
+// reads any more; the TM3 slot d & 7 span d - 8), while every thread takes
+// a part of the live lanes' bifurcation terms t >= 1; (2) the owners add
+// their parts and finish ext, one, s1 and s2, while the block computes the
+// next span's three windows (rna_nw_turner_window_pass), only at the cells
+// that can close (d >= 4, AUGC != 0: TMO1C, TMO2C and TMO3C carry AUGC,
+// and the window terms are multiplied by 0 elsewhere), listed by the
+// owners in phase 1.  What bounds it is K1's: the latency of n dependent
+// spans, in which one thread a lane walked a window of ~550 terms out of
+// shared memory and its O(d) bifurcation terms with one load in flight
+// (PR 2's form, PERF.md).  Three 32-slot rings (g, g*TMI1, g*TMI2) and an
+// 8-slot ring of g*TMI3 (read at age 6 only), rows N + 32 floats apart so
+// that a window group's threads read distinct banks, take 104 x (N + 32)
+// floats of dynamic shared memory beside the three 32 x 32 matrices
+// (~147 KB a block at N = 256, ~86 KB at N = 128: two blocks an SM).  The
+// rm/rmmb histories and the ext/one tables stay in global memory (L2).
+// The S1 recurrence is telescoped (flush-safe: Turner's mbu = 0 makes a
+// standalone mbu1^t column underflow).
 //
 // K12 (N = 512, 1024): a cluster of C blocks per sequence, as K8
 // (cluster.cuh, contra_inside.cu; C = 4 at N = 512 B = 32, 8 at N = 1024
@@ -75,6 +88,7 @@
 
 #include "cluster.cuh"
 #include "launch.cuh"
+#include "narrow.cuh"
 
 // pallas_fold_prob8.TURNER_INSIDE_TABLES order
 enum {
@@ -101,89 +115,147 @@ struct TurnerInsideTables {
 #define RING(buf, span, lane) \
   (buf)[((span) & (RNA_WIN - 1)) * LW + (lane)]
 
-__global__ void turner_inside_kernel(TURNER_INSIDE_PARAMS) {
+// K4's shared memory at N lanes and T threads: kt | the rings, 104 rows of
+// N + 32 lanes | s2r, s1r, 2 rows of N + 1 each | win, 3 rows of N | the es
+// and s2 parts, T each | the closable lists, 2 spans of N ints, and their
+// two counts | nz, N + 32.
+static size_t turner_inside_smem(int N, int T) {
+  return sizeof(float) * (3 * RNA_WIN * RNA_WIN +
+                          TURNER_RING_ROWS * (N + 32) + 4 * (N + 1) + 3 * N +
+                          2 * T) +
+         sizeof(int) * (2 * N + 2 + N + 32);
+}
+
+__global__ void __launch_bounds__(RNA_NW_MAX_THREADS)
+    turner_inside_kernel(TURNER_INSIDE_PARAMS) {
   extern __shared__ float smem[];
-  const int LW = N + 33;                       // ring row: N lanes + pad
-  const int b = blockIdx.x;
-  // rings | kt | s2r | s1r
-  float* kt = smem + TURNER_RING_ROWS * LW;    // KI | KB | K2, 32 x 32 each
-  float* s2r = kt + 3 * RNA_WIN * RNA_WIN;     // 2 * (N + 1), span parity
-  float* s1r = s2r + 2 * (N + 1);              // 2 * (N + 1), span parity
-  float* ringB = smem;                         // g          (KB, specials)
+  const int T = blockDim.x, tid = threadIdx.x, b = blockIdx.x;
+  // ring row: N lanes + 32 zero pad lanes (lane i + 1 + a <= N + 30), a
+  // multiple of 32 floats
+  const int LW = N + 32;
+  float* kt = smem;                            // KI | KB | K2, 32 x 32 each
+  float* ringB = kt + 3 * RNA_WIN * RNA_WIN;   // g          (KB, specials)
   float* ringI = ringB + RNA_WIN * LW;         // g * TMI1   (KI)
   float* ring2 = ringI + RNA_WIN * LW;         // g * TMI2   (K2)
-  float* ring3 = ring2 + RNA_WIN * LW;         // g * TMI3   (TM3 cells)
-  const float* kI = kt;
-  const float* kB = kt + RNA_WIN * RNA_WIN;
-  const float* k2 = kt + 2 * RNA_WIN * RNA_WIN;
+  float* ring3 = ring2 + RNA_WIN * LW;         // g * TMI3, 8 slots
+  float* s2r = ring3 + RNA_TM3_SLOTS * LW;     // 2 * (N + 1), span parity
+  float* s1r = s2r + 2 * (N + 1);              // 2 * (N + 1), span parity
+  float* win = s1r + 2 * (N + 1);              // winI | winB | win2, N each
+  float* part = win + 3 * N;                   // es | s2, T each
+  int* list = (int*)(part + 2 * T);            // 2 * N
+  int* count = list + 2 * N;                   // 2
+  unsigned* nz = (unsigned*)(count + 2);       // N + 32: nonzero slots of g
 
-  const int i = threadIdx.x;
   const long long base = (long long)b * N * N;
-  const float* const* T = tabs.t;
-
-  for (int e = i; e < TURNER_RING_ROWS * LW; e += N) ringB[e] = 0.0f;
-  for (int e = i; e < 3 * RNA_WIN * RNA_WIN; e += N)
+  const float* const* tab = tabs.t;
+  for (int e = tid; e < TURNER_RING_ROWS * LW + 4 * (N + 1); e += T)
+    ringB[e] = 0.0f;                           // the rings, s2r and s1r
+  for (int e = tid; e < N + 32; e += T) nz[e] = 0u;
+  for (int e = tid; e < 3 * RNA_WIN * RNA_WIN; e += T)
     kt[e] = KT[(long long)b * 3 * RNA_WIN * RNA_WIN + e];
-  for (int e = i; e < 2 * (N + 1); e += N) {
-    s2r[e] = 0.0f;
-    s1r[e] = 0.0f;
-  }
+  if (tid < 2) count[tid] = 0;
   const float* sc = scal + b * RNA_TSCAL;
   const RnaScalars s = rna_scalars(sc);
   const float leni32 = sc[4], leni23 = sc[5];
   const int n = ns[b];
+  const float* rmb = rm_hist + base;
+  const float* rmmb = rmm_hist + base;
+  const float* extb = ext + base;
+  const float* oneb = one + base;
   __syncthreads();
 
+  // thread i owns lane i
+  const int i = tid;
   RnaInsideLane st;
   for (int d = 0; d < n; ++d) {
+    const int m = n - d;                       // live lanes 0 .. m-1
     const long long row = base + (long long)d * N + i;
-
-    // phase A: close from the rings (spans < d) and the s2 ring
-    // generic interior: KI[a][r] for a >= 2
-    const float winI = rna_window_inside(ringI, kI, 2, d, i, LW);
-    // bulges: column a = 0 and diagonal r = a + 1 (b = 0), a >= 1
-    float winB = 0.0f;
-    for (int r = 1; r < RNA_WIN; ++r)
-      winB = fmaf(kB[r], RING(ringB, d - 1 - r, i + 1), winB);
-    for (int a = 1; a < RNA_WIN - 1; ++a)
-      winB = fmaf(kB[a * RNA_WIN + a + 1], RING(ringB, d - 2 - a, i + 1 + a),
-                  winB);
-    // 1xn / 2x3-edge arms: column a = 1 and diagonal r = a + 2 (b = 1),
-    // a >= 2 (the a = 0 diagonal cell is the 0x1 bulge, zero in K2)
-    float win2 = 0.0f;
-    for (int r = 2; r < RNA_WIN; ++r)
-      win2 = fmaf(k2[RNA_WIN + r], RING(ring2, d - 1 - r, i + 2), win2);
-    for (int a = 2; a < RNA_WIN - 2; ++a)
-      win2 = fmaf(k2[a * RNA_WIN + a + 2], RING(ring2, d - 3 - a, i + 1 + a),
-                  win2);
-    const int s3 = ((d - 1 - RNA_TM3_AGE) & (RNA_TM3_SLOTS - 1)) * LW;
-    const float tm3 = leni32 * ring3[s3 + i + 3] + leni23 * ring3[s3 + i + 4];
-
-    float two = T[TI_TMO1C][row] * winI;
-    two = two + T[TI_AUGC][row] * winB;
-    two = two + T[TI_TMO2C][row] * win2;
-    two = two + T[TI_TMO3C][row] * tm3;
-    two = two + T[TI_SP00][row] * RING(ringB, d - 2, i + 1);
-    two = two + T[TI_SP01][row] * RING(ringB, d - 3, i + 1);
-    two = two + T[TI_SP10][row] * RING(ringB, d - 3, i + 2);
-    two = two + T[TI_SP11][row] * RING(ringB, d - 4, i + 2);
-    two = two + T[TI_SP12][row] * RING(ringB, d - 5, i + 2);
-    two = two + T[TI_SP21][row] * RING(ringB, d - 5, i + 3);
-    two = two + T[TI_SP22][row] * RING(ringB, d - 6, i + 3);
-    const float c =
-        rna_inside_close(T[TI_H][row] + two, T[TI_MBC], T[TI_ACC], s2r, s,
-                         row, d, i, N, st, close, rm_hist, rmm_hist);
+    // phase 1: list span d + 1's cells that can close, their AUGC loaded
+    // with the owners' cells and appended after the owners' work.  Every
+    // load of the phase comes before its first store, which it could alias
+    // (the compiler keeps the two in order), so the loads are in flight
+    // together (2-4% of K4 on an H100, PERF.md, PR 11).
+    const bool lists = i < m - 1 && d + 2 >= RNA_MIN_SPAN_HAIRPIN_CLOSE;
+    const float augc_next = lists ? tab[TI_AUGC][row + N] : 0.0f;
+    // the owners' close of span d from its windows (where the cell can
+    // close; elsewhere TMO1C, AUGC and TMO2C are 0), the rings of spans
+    // < d and s2(d-2, i+1); and rmmb(d-1, i+1) for phase 2
+    float rmm_nb = 0.0f;
+    if (i < m) {
+      float v[TI_COUNT];
+#pragma unroll
+      for (int k = 0; k < TI_COUNT; ++k) v[k] = tab[k][row];
+      if (d >= 1) rmm_nb = rmm_hist[row - N + 1];
+      const bool can =
+          d + 1 >= RNA_MIN_SPAN_HAIRPIN_CLOSE && v[TI_AUGC] != 0.0f;
+      const int s3 = ((d - 1 - RNA_TM3_AGE) & (RNA_TM3_SLOTS - 1)) * LW;
+      const float tm3 = leni32 * ring3[s3 + i + 3] + leni23 * ring3[s3 + i + 4];
+      float two = v[TI_TMO1C] * (can ? win[i] : 0.0f);
+      two = two + v[TI_AUGC] * (can ? win[N + i] : 0.0f);
+      two = two + v[TI_TMO2C] * (can ? win[2 * N + i] : 0.0f);
+      two = two + v[TI_TMO3C] * tm3;
+      two = two + v[TI_SP00] * RING(ringB, d - 2, i + 1);
+      two = two + v[TI_SP01] * RING(ringB, d - 3, i + 1);
+      two = two + v[TI_SP10] * RING(ringB, d - 3, i + 2);
+      two = two + v[TI_SP11] * RING(ringB, d - 4, i + 2);
+      two = two + v[TI_SP12] * RING(ringB, d - 5, i + 2);
+      two = two + v[TI_SP21] * RING(ringB, d - 5, i + 3);
+      two = two + v[TI_SP22] * RING(ringB, d - 6, i + 3);
+      // rna_inside_close on the loaded cells
+      const float mb_term =
+          d >= 2 ? s2r[(d & 1) * (N + 1) + i + 1] * v[TI_MBC] : 0.0f;
+      float c = (v[TI_H] + two) + mb_term;
+      if (d + 1 < RNA_MIN_SPAN_HAIRPIN_CLOSE) c = 0.0f;
+      close[row] = c;
+      const float ca = c * v[TI_ACC];
+      st.rm = st.rm * s.eu1 + ca * s.ebp;
+      st.rmmb = st.rmmb * s.mbu1 + ca * s.mbbp;
+      st.epow = st.epow * s.eu1;
+      rm_hist[row] = st.rm;
+      rmm_hist[row] = st.rmmb;
+      // span d's rows, read from span d + 2 on
+      const float g = c * v[TI_AUGT];
+      const unsigned bit = 1u << (d & (RNA_WIN - 1));
+      RING(ringB, d, i) = g;
+      RING(ringI, d, i) = g * v[TI_TMI1];
+      RING(ring2, d, i) = g * v[TI_TMI2];
+      ring3[(d & (RNA_TM3_SLOTS - 1)) * LW + i] = g * v[TI_TMI3];
+      nz[i] = g != 0.0f ? nz[i] | bit : nz[i] & ~bit;
+    }
+    if (lists && augc_next != 0.0f)
+      list[((d + 1) & 1) * N + atomicAdd(&count[(d + 1) & 1], 1)] = i;
+    // every thread: a part of the live lanes' sums, terms t >= 1
+    const RnaNwPart pt = rna_nw_part(m, tid, T);
+    if (pt.p < pt.k) {
+      float es = 0.0f, s2 = 0.0f;
+      if (pt.l < m)
+        rna_nw_inside_part(d, pt.l, N, 1 + pt.p, pt.k, extb, oneb, rmb,
+                           rmmb, es, s2);
+      part[tid] = es;
+      part[T + tid] = s2;
+    }
     __syncthreads();
 
-    // phase B: insert this span into the rings; bifurcation sums over the
-    // rm/rmmb rows of spans <= d (all lanes now visible)
-    const float g = c * T[TI_AUGT][row];
-    RING(ringB, d, i) = g;
-    RING(ringI, d, i) = g * T[TI_TMI1][row];
-    RING(ring2, d, i) = g * T[TI_TMI2][row];
-    ring3[(d & (RNA_TM3_SLOTS - 1)) * LW + i] = g * T[TI_TMI3][row];
-    rna_inside_bifurcation(st, s.mbu1, base, row, d, i, N, ext, one, rm_hist,
-                           rmm_hist, s1r, s2r);
+    // phase 2: the owners finish span d (the parts in order p = 0 .. k-1)
+    if (i < m) {
+      float es = st.rm, s2 = 0.0f;    // term t = 0: rm(d, i) * ext(-1, i)
+      for (int k = 0; k < pt.k; ++k) {
+        es += part[k * pt.m32 + i];
+        s2 += part[T + k * pt.m32 + i];
+      }
+      const float s1v =
+          s.mbu1 * (rmm_nb + s1r[((d - 1) & 1) * (N + 1) + i + 1]);
+      s1r[(d & 1) * (N + 1) + i] = s1v;
+      s2r[(d & 1) * (N + 1) + i] = s2;
+      ext[row] = st.epow + es;
+      one[row] = st.rmmb + s1v + s2;
+    }
+    // every thread: span d + 1's windows (ring rows of spans <= d - 1)
+    if (d + 1 < n)
+      rna_nw_turner_window_pass<true>(ringB, LW, nz, kt,
+                                      list + ((d + 1) & 1) * N,
+                                      count[(d + 1) & 1], d + 1, T, N, win);
+    if (tid == 0) count[d & 1] = 0;            // span d's list, read at d - 1
     __syncthreads();
   }
 }
@@ -375,11 +447,11 @@ extern "C" int rna_turner_inside(void** tables, const float* KT,
   TurnerInsideTables tabs;
   for (int k = 0; k < TI_COUNT; ++k) tabs.t[k] = (const float*)tables[k];
   if (N <= RNA_NARROW) {
-    const size_t shmem = sizeof(float) * (3 * RNA_WIN * RNA_WIN +
-                                          4 * (N + 1) +
-                                          TURNER_RING_ROWS * (N + 33));
-    return rna_launch(turner_inside_kernel, B, N, shmem, stream,
-                      TURNER_INSIDE_ARGS);
+    const int T = rna_nw_threads(turner_inside_kernel, turner_inside_smem, B,
+                                 N);
+    if (!T) return (int)cudaErrorInvalidConfiguration;
+    return rna_launch(turner_inside_kernel, B, T, turner_inside_smem(N, T),
+                      stream, TURNER_INSIDE_ARGS);
   }
   const int C = rna_cl_size(turner_inside_cluster_kernel,
                             turner_inside_cl_smem, B, N);
@@ -392,4 +464,9 @@ extern "C" int rna_turner_inside(void** tables, const float* KT,
 extern "C" int rna_turner_inside_cluster(int B, int N) {
   return rna_cl_size(turner_inside_cluster_kernel, turner_inside_cl_smem, B,
                      N);
+}
+
+// The block size K4 takes for B sequences at N <= 256 (0: none launches).
+extern "C" int rna_turner_inside_threads(int B, int N) {
+  return rna_nw_threads(turner_inside_kernel, turner_inside_smem, B, N);
 }

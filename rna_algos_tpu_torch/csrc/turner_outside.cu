@@ -24,19 +24,32 @@
 //   win_K(x) = sum_{a, r} K[a][r] * x(d+1+r, i-1-a)
 //   g2 = bppo * AUGT / CLOSE (inserted after the span), gt3 = g2 * TMO3
 //
-// and base, pm, pm2, qa and the multibranch context K2's, through the same
-// helpers of common.cuh (K13: K9's sums of cluster.cuh).  The window
-// matrices and their non-zero arms are K4's (turner_inside.cu).
+// and base, pm, pm2, qa and the multibranch context K2's, through
+// common.cuh's pair and K2's sums of narrow.cuh (K13: K9's sums of
+// cluster.cuh).  The window matrices and their non-zero arms are K4's
+// (turner_inside.cu).
 //
-// K5 (N <= 256): bound and design as K2 (contra_outside.cu): the latency
-// of n dependent spans and each lane's serial O(n) multibranch sums; one
-// block per sequence, one thread per lane (launch.cuh), the whole span loop
-// in the block.  Three 32-slot rings (g2, g2*TMO1, g2*TMO2) and an 8-slot
-// ring of g2*TMO3 (read only at age 6), lanes offset by 32 so i-1-a never
-// goes negative, live in dynamic shared memory with the three 32 x 32
-// matrices (~134 KB at N = 256).  The pm/pm2/g histories stay in global
-// memory; pm2 and qa are telescoped (flush-safe).  Rows at or past n stay
-// the zeros the wrapper passes.
+// K5 (N <= 256): K2's layout (contra_outside.cu, narrow.cuh): one block
+// of T = 256-1,024 threads per sequence, T from the batch and the card,
+// thread i owning lane i, live cells only (a dead cell's bppo stays 0;
+// its g, pm and pm2 are never read), two phases a span: (1) the owners
+// compute the pair, base and 2-loop context from their 18 table cells, the
+// three window sums of the phase before, the TM3 ring and the seven
+// special cells, while every thread takes a part of the live lanes' pm,
+// sa and sbc terms; (2) the owners add their parts and finish bppo, g, pm,
+// pm2, qa and insert g2 and its products into the rings (slot d & 31 held
+// span d + 32, which no lane reads any more; the TM3 slot d & 7 span
+// d + 8), while the block computes the next span's three windows
+// (rna_nw_turner_window_pass) at the cells where bppo can be nonzero
+// (CLOSE a positive normal float, the span reaching min_span).  What
+// bounds it is K2's: the latency of n dependent spans, in which one thread
+// a lane walked its window and its O(n) multibranch sums alone (PR 2's
+// form, PERF.md).  Three 32-slot rings (g2, g2*TMO1, g2*TMO2) and an
+// 8-slot ring of g2*TMO3 (read at age 6 only), lanes offset by 32 so
+// i-1-a never goes negative, take 104 x (N + 32) floats of dynamic shared
+// memory beside the three 32 x 32 matrices (~149 KB a block at N = 256,
+// ~87 KB at N = 128).  The pm/pm2/g histories stay in global memory (L2);
+// pm2 and qa are telescoped (flush-safe).
 //
 // K13 (N = 512, 1024): a cluster of C blocks per sequence, as K9
 // (cluster.cuh, contra_outside.cu) and with K12's cluster sizes and design
@@ -59,6 +72,7 @@
 
 #include "cluster.cuh"
 #include "launch.cuh"
+#include "narrow.cuh"
 
 // pallas_fold_prob8.TURNER_OUTSIDE_TABLES order
 enum {
@@ -88,82 +102,151 @@ struct TurnerOutsideTables {
 #define RING(buf, span, lane) \
   (buf)[((span) & (RNA_WIN - 1)) * LW + 32 + (lane)]
 
-__global__ void turner_outside_kernel(TURNER_OUTSIDE_PARAMS) {
+// K5's shared memory at N lanes and T threads: kt | the rings, 104 rows of
+// 32 pad lanes + N | qab, 2 rows of N | win, 3 rows of N | the pm, sa and
+// sbc parts, T each | the closable lists, 2 spans of N ints, and their two
+// counts | nz, 32 + N.
+static size_t turner_outside_smem(int N, int T) {
+  return sizeof(float) * (3 * RNA_WIN * RNA_WIN +
+                          TURNER_RING_ROWS * (N + 32) + 2 * N + 3 * N +
+                          3 * T) +
+         sizeof(int) * (2 * N + 2 + 32 + N);
+}
+
+__global__ void __launch_bounds__(RNA_NW_MAX_THREADS)
+    turner_outside_kernel(TURNER_OUTSIDE_PARAMS) {
   extern __shared__ float smem[];
+  const int T = blockDim.x, tid = threadIdx.x, b = blockIdx.x;
   const int LW = N + 32;                       // ring row: 32 pad lanes + N
-  const int b = blockIdx.x;
-  // rings | kt | qab
-  float* kt = smem + TURNER_RING_ROWS * LW;    // KI | KB | K2
-  float* qab = kt + 3 * RNA_WIN * RNA_WIN;     // 2 * N, by span parity
-  float* ringB = smem;                         // g2         (KB, specials)
+  float* kt = smem;                            // KI | KB | K2, 32 x 32 each
+  float* ringB = kt + 3 * RNA_WIN * RNA_WIN;   // g2         (KB, specials)
   float* ringI = ringB + RNA_WIN * LW;         // g2 * TMO1  (KI)
   float* ring2 = ringI + RNA_WIN * LW;         // g2 * TMO2  (K2)
-  float* ring3 = ring2 + RNA_WIN * LW;         // g2 * TMO3  (TM3 cells)
-  const float* kI = kt;
-  const float* kB = kt + RNA_WIN * RNA_WIN;
-  const float* k2 = kt + 2 * RNA_WIN * RNA_WIN;
+  float* ring3 = ring2 + RNA_WIN * LW;         // g2 * TMO3, 8 slots
+  float* qab = ring3 + RNA_TM3_SLOTS * LW;     // 2 * N, by span parity
+  float* win = qab + 2 * N;                    // winI | winB | win2, N each
+  float* part = win + 3 * N;                   // pm | sa | sbc, T each
+  int* list = (int*)(part + 3 * T);            // 2 * N
+  int* count = list + 2 * N;                   // 2
+  unsigned* nz = (unsigned*)(count + 2);       // 32 + N: nonzero slots of g2
 
-  const int i = threadIdx.x;
   const long long base = (long long)b * N * N;
-  const float* const* T = tabs.t;
-
-  for (int e = i; e < TURNER_RING_ROWS * LW; e += N) ringB[e] = 0.0f;
-  for (int e = i; e < 3 * RNA_WIN * RNA_WIN; e += N)
+  const float* const* tab = tabs.t;
+  for (int e = tid; e < TURNER_RING_ROWS * LW + 5 * N; e += T)
+    ringB[e] = 0.0f;                           // the rings, qab and win
+  for (int e = tid; e < 32 + N; e += T) nz[e] = 0u;
+  for (int e = tid; e < 3 * RNA_WIN * RNA_WIN; e += T)
     kt[e] = KT[(long long)b * 3 * RNA_WIN * RNA_WIN + e];
-  for (int e = i; e < 2 * N; e += N) qab[e] = 0.0f;
+  if (tid < 2) count[tid] = 0;
   const float* sc = scal + b * RNA_TSCAL;
   const float mbu1 = sc[2];
   const float leni32 = sc[4], leni23 = sc[5];
   const int n = ns[b];
+  const float* gb = g_hist + base;
+  const float* pmb = pm_hist + base;
+  const float* pm2b = pm2_hist + base;
+  const float* oneb = ONE + base;
+  const float* qoneb = QONE + base;
   __syncthreads();
 
-  float p2prev = 0.0f;
+  // thread i owns lane i; lane i lives from span n - 1 - i down
+  const int i = tid;
+  float p2prev = 0.0f, g_prev = 0.0f;   // pm2(d+1, i), g(d+1, i)
   for (int d = n - 1; d >= 0; --d) {
-    const long long row = base + (long long)d * N + i;
+    const int m = n - d;                       // live lanes 0 .. m-1
     const bool span_ok = d + 1 >= min_span;
-
-    // phase A: everything but the ring inserts (reads spans > d only)
-    const RnaOutsidePair p =
-        rna_outside_pair(T[TO_CLOSE], T[TO_ACCB], EXTR, row, b, i, d, N);
-    const float winI = rna_window_outside(ringI, kI, 2, d, i, LW);
-    float winB = 0.0f;
-    for (int r = 1; r < RNA_WIN; ++r)
-      winB = fmaf(kB[r], RING(ringB, d + 1 + r, i - 1), winB);
-    for (int a = 1; a < RNA_WIN - 1; ++a)
-      winB = fmaf(kB[a * RNA_WIN + a + 1], RING(ringB, d + 2 + a, i - 1 - a),
-                  winB);
-    float win2 = 0.0f;
-    for (int r = 2; r < RNA_WIN; ++r)
-      win2 = fmaf(k2[RNA_WIN + r], RING(ring2, d + 1 + r, i - 2), win2);
-    for (int a = 2; a < RNA_WIN - 2; ++a)
-      win2 = fmaf(k2[a * RNA_WIN + a + 2], RING(ring2, d + 3 + a, i - 1 - a),
-                  win2);
-    const int s3 = ((d + 1 + RNA_TM3_AGE) & (RNA_TM3_SLOTS - 1)) * LW + 32;
-    const float tm3 = leni32 * ring3[s3 + i - 3] + leni23 * ring3[s3 + i - 4];
-
-    float two = T[TO_TMI1C][row] * winI;
-    two = two + T[TO_AUGT][row] * winB;
-    two = two + T[TO_TMI2C][row] * win2;
-    two = two + T[TO_TMI3C][row] * tm3;
-    two = two + T[TO_SP00][row] * RING(ringB, d + 2, i - 1);
-    two = two + T[TO_SP01][row] * RING(ringB, d + 3, i - 1);
-    two = two + T[TO_SP10][row] * RING(ringB, d + 3, i - 2);
-    two = two + T[TO_SP11][row] * RING(ringB, d + 4, i - 2);
-    two = two + T[TO_SP12][row] * RING(ringB, d + 5, i - 2);
-    two = two + T[TO_SP21][row] * RING(ringB, d + 5, i - 3);
-    two = two + T[TO_SP22][row] * RING(ringB, d + 6, i - 3);
-    const float g2 = rna_outside_bppo(
-        p, two * p.c, span_ok, mbu1, p2prev, T[TO_ACCMB], T[TO_MBC],
-        T[TO_AUGT], ONE, QONE, base, row, d, i, n, N, bppo, pm_hist, pm2_hist,
-        g_hist, qab);
+    const long long row = base + (long long)d * N + i;
+    // phase 1: list span d - 1's cells that can close, their CLOSE loaded
+    // with the owners' cells and appended after the owners' work (1-2% of
+    // K5 on an H100, PERF.md, PR 11)
+    const bool lists = d >= 1 && d >= min_span && i < m + 1;
+    const float close_next = lists ? tab[TO_CLOSE][row - N] : 0.0f;
+    // the owners' pair and 2-loop context of span d, from its windows
+    // (where bppo can be nonzero) and the rings of spans > d; and the cells
+    // phase 2 reads
+    RnaOutsidePair pr = {};
+    float two = 0.0f, accmb = 0.0f, mbc = 0.0f, augt = 0.0f, tmo1 = 0.0f,
+          tmo2 = 0.0f, tmo3 = 0.0f, pm_nb = 0.0f;
+    if (i < m) {
+      pr = rna_outside_pair(tab[TO_CLOSE], tab[TO_ACCB], EXTR, row, b, i, d,
+                            N);
+      const bool can = pr.pos && span_ok;
+      augt = tab[TO_AUGT][row];
+      const int s3 = ((d + 1 + RNA_TM3_AGE) & (RNA_TM3_SLOTS - 1)) * LW + 32;
+      const float tm3 = leni32 * ring3[s3 + i - 3] + leni23 * ring3[s3 + i - 4];
+      two = tab[TO_TMI1C][row] * (can ? win[i] : 0.0f);
+      two = two + augt * (can ? win[N + i] : 0.0f);
+      two = two + tab[TO_TMI2C][row] * (can ? win[2 * N + i] : 0.0f);
+      two = two + tab[TO_TMI3C][row] * tm3;
+      two = two + tab[TO_SP00][row] * RING(ringB, d + 2, i - 1);
+      two = two + tab[TO_SP01][row] * RING(ringB, d + 3, i - 1);
+      two = two + tab[TO_SP10][row] * RING(ringB, d + 3, i - 2);
+      two = two + tab[TO_SP11][row] * RING(ringB, d + 4, i - 2);
+      two = two + tab[TO_SP12][row] * RING(ringB, d + 5, i - 2);
+      two = two + tab[TO_SP21][row] * RING(ringB, d + 5, i - 3);
+      two = two + tab[TO_SP22][row] * RING(ringB, d + 6, i - 3);
+      two = two * pr.c;
+      accmb = tab[TO_ACCMB][row];
+      mbc = tab[TO_MBC][row];
+      tmo1 = tab[TO_TMO1][row];
+      tmo2 = tab[TO_TMO2][row];
+      tmo3 = tab[TO_TMO3][row];
+      if (i >= 1) pm_nb = pmb[(d + 1) * N + i - 1];   // pm(d+1, i-1)
+    }
+    if (lists && close_next >= RNA_FLT_MIN)
+      list[((d - 1) & 1) * N + atomicAdd(&count[(d - 1) & 1], 1)] = i;
+    // every thread: a part of the live lanes' sums
+    const RnaNwPart pt = rna_nw_part(m, tid, T);
+    if (pt.p < pt.k) {
+      float pm = 0.0f, sa = 0.0f, sbc = 0.0f;
+      if (pt.l < m)
+        rna_nw_outside_part(d, pt.l, n, N, pt.p, pt.k, oneb, qoneb, gb, pmb,
+                            pm2b, pm, sa, sbc);
+      part[tid] = pm;
+      part[T + tid] = sa;
+      part[2 * T + tid] = sbc;
+    }
     __syncthreads();
 
-    // phase B: insert g2 and its products (the 32-slot rings' slot held
-    // span d + 32, read above)
-    RING(ringB, d, i) = g2;
-    RING(ringI, d, i) = g2 * T[TO_TMO1][row];
-    RING(ring2, d, i) = g2 * T[TO_TMO2][row];
-    ring3[(d & (RNA_TM3_SLOTS - 1)) * LW + 32 + i] = g2 * T[TO_TMO3][row];
+    // phase 2: the owners finish span d (the parts in order p = 0 .. k-1)
+    if (i < m) {
+      float pm = 0.0f, sa = 0.0f, sbc = 0.0f;
+      for (int k = 0; k < pt.k; ++k) {
+        pm += part[k * pt.m32 + i];
+        sa += part[T + k * pt.m32 + i];
+        sbc += part[2 * T + k * pt.m32 + i];
+      }
+      const float pm_new = span_ok ? pm : 0.0f;
+      const float pm2_raw = g_prev + mbu1 * p2prev;
+      p2prev = pm2_raw;
+      const float pm2_new = span_ok ? pm2_raw : 0.0f;
+      float qa = 0.0f;
+      if (i >= 1)   // pm(d+1, i-1) + mbu1 * qa(d+1, i-1)
+        qa = pm_nb + mbu1 * qab[((d + 1) & 1) * N + i - 1];
+      const float acc_mb = pr.c * accmb;
+      float bp = pr.base + two + acc_mb * (sa + sbc + qa);
+      if (!(pr.pos && span_ok)) bp = 0.0f;
+      bppo[row] = bp;
+      // span d's rows, read from span d - 2 on
+      const float g2 = bp * augt * pr.inv_close;
+      const unsigned bit = 1u << (d & (RNA_WIN - 1));
+      RING(ringB, d, i) = g2;
+      RING(ringI, d, i) = g2 * tmo1;
+      RING(ring2, d, i) = g2 * tmo2;
+      ring3[(d & (RNA_TM3_SLOTS - 1)) * LW + 32 + i] = g2 * tmo3;
+      nz[32 + i] = g2 != 0.0f ? nz[32 + i] | bit : nz[32 + i] & ~bit;
+      g_prev = bp * mbc * pr.inv_close;
+      g_hist[row] = g_prev;
+      pm_hist[row] = pm_new;
+      pm2_hist[row] = pm2_new;
+      qab[(d & 1) * N + i] = qa;
+    }
+    // every thread: span d - 1's windows (ring rows of spans >= d + 1)
+    if (d >= 1)
+      rna_nw_turner_window_pass<false>(ringB, LW, nz, kt,
+                                       list + ((d - 1) & 1) * N,
+                                       count[(d - 1) & 1], d - 1, T, N, win);
+    if (tid == 0) count[d & 1] = 0;            // span d's list, read at d + 1
     __syncthreads();
   }
 }
@@ -365,10 +448,11 @@ extern "C" int rna_turner_outside(void** tables, const float* ONE,
   TurnerOutsideTables tabs;
   for (int k = 0; k < TO_COUNT; ++k) tabs.t[k] = (const float*)tables[k];
   if (N <= RNA_NARROW) {
-    const size_t shmem = sizeof(float) * (3 * RNA_WIN * RNA_WIN + 2 * N +
-                                          TURNER_RING_ROWS * (N + 32));
-    return rna_launch(turner_outside_kernel, B, N, shmem, stream,
-                      TURNER_OUTSIDE_ARGS);
+    const int T = rna_nw_threads(turner_outside_kernel, turner_outside_smem,
+                                 B, N);
+    if (!T) return (int)cudaErrorInvalidConfiguration;
+    return rna_launch(turner_outside_kernel, B, T, turner_outside_smem(N, T),
+                      stream, TURNER_OUTSIDE_ARGS);
   }
   const int C = rna_cl_size(turner_outside_cluster_kernel,
                             turner_outside_cl_smem, B, N);
@@ -381,4 +465,9 @@ extern "C" int rna_turner_outside(void** tables, const float* ONE,
 extern "C" int rna_turner_outside_cluster(int B, int N) {
   return rna_cl_size(turner_outside_cluster_kernel, turner_outside_cl_smem,
                      B, N);
+}
+
+// The block size K5 takes for B sequences at N <= 256 (0: none launches).
+extern "C" int rna_turner_outside_threads(int B, int N) {
+  return rna_nw_threads(turner_outside_kernel, turner_outside_smem, B, N);
 }

@@ -44,6 +44,8 @@ SIGNATURES = {
     "rna_turner_outside": [ctypes.POINTER(_P)] + [_P] * 10 + [_I, _I, _I, _P],
     "rna_turner_inside_cluster": [_I, _I],
     "rna_turner_outside_cluster": [_I, _I],
+    "rna_turner_inside_threads": [_I, _I],
+    "rna_turner_outside_threads": [_I, _I],
     "rna_pairhmm_prob": [_P] * 9 + [_I, _I, _I, _P],
     "rna_pairhmm_log": [_P] * 9 + [_I, _I, _I, _P],
     "rna_contra_inside_log": [ctypes.POINTER(_P)] + [_P] * 8 + [_I, _I, _P],

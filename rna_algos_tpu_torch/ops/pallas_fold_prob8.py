@@ -6,9 +6,10 @@ and the fixed-scale runs wrapped in the rescale-retry loop.
 The TPU stacked G sequences along sublanes and aged a lane-major window;
 none of that layout is carried over.  Here each kernel runs one CUDA block
 per sequence (``csrc/contra_inside.cu``, ``csrc/contra_outside.cu``,
-``csrc/turner_inside.cu``, ``csrc/turner_outside.cu``; K1/K2's block size
-comes from the batch and the card, ``contra_block_threads``, and they
-compute live cells only, i + d < n; the long tier's K8,
+``csrc/turner_inside.cu``, ``csrc/turner_outside.cu``; their block size
+comes from the batch and the card, ``contra_block_threads`` and
+``turner_block_threads``, and they compute live cells only, i + d < n; the
+long tier's K8,
 K9, K12 and K13, a cluster of blocks per sequence, are entries of the same
 sources past N = 256, launched through the helpers below by
 ``pallas_fold_long``).  The plain versions
@@ -279,9 +280,9 @@ def contra_inside(mi, KW, scal, ns):
 
 
 def _prob_scratch(B, N, dev, count):
-    """``count`` (B, N, N) history scratches of a CONTRA wavefront kernel
-    (rm and rmmb inside; pm, pm2 and g outside): the kernels write each
-    cell they read before reading it, live cells only."""
+    """``count`` (B, N, N) history scratches of a probability wavefront
+    kernel (rm and rmmb inside; pm, pm2 and g outside): the kernels write
+    each cell they read before reading it, live cells only."""
     return tuple(torch.empty((B, N, N), device=dev) for _ in range(count))
 
 
@@ -585,10 +586,19 @@ def turner_inside(mi, KT, scal, ns):
     return out
 
 
+def turner_block_threads(B, N):
+    """(K4's, K5's) block size, the threads a sequence runs on, for a launch
+    over B sequences at N <= 256 on the current CUDA device, by K1's rule
+    (``contra_block_threads``)."""
+    lib = _build.library().lib
+    return (lib.rna_turner_inside_threads(B, N),
+            lib.rna_turner_outside_threads(B, N))
+
+
 def _turner_inside_cuda(mi, KT, scal, ns):
     """Check the inputs of the Turner inside kernel (K4 at N <= 256, K12
-    past it) and launch it: (close, ext, one), zero where K12 skips a dead
-    cell (i + d >= n)."""
+    past it) and launch it: (close, ext, one), zero at every dead cell
+    (i + d >= n), which both skip."""
     entry = "rna_turner_inside"
     dev = mi["H"].device
     B, N, _ = mi["H"].shape
@@ -598,7 +608,7 @@ def _turner_inside_cuda(mi, KT, scal, ns):
     shapes.update(KT=(B, 3, 32, 32), scal=(B, 6), ns=(B,))
     _build.check_cuda(entry, ins, shapes, dev)
     close, ext, one = (torch.zeros((B, N, N), device=dev) for _ in range(3))
-    rm, rmm = torch.empty((B, N, N), device=dev), torch.empty((B, N, N), device=dev)
+    rm, rmm = _prob_scratch(B, N, dev, 2)
     args = [KT, scal, ns, close, ext, one, rm, rmm]
     _build.library().call(
         entry, _build.ptr_array(ins, TURNER_INSIDE_TABLES),
@@ -661,7 +671,8 @@ def turner_outside(mo, one, QONE, extR, KT, scal, ns, min_span):
 
 def _turner_outside_cuda(mo, one, QONE, extR, KT, scal, ns, min_span):
     """Check the inputs of the Turner outside kernel (K5 at N <= 256, K13
-    past it) and launch it: bppo."""
+    past it) and launch it: bppo, zero at every dead cell (i + d >= n),
+    which both skip."""
     entry = "rna_turner_outside"
     dev = one.device
     B, N, _ = one.shape
@@ -671,7 +682,7 @@ def _turner_outside_cuda(mo, one, QONE, extR, KT, scal, ns, min_span):
     shapes.update(EXTR=(B, 2 * N), KT=(B, 3, 32, 32), scal=(B, 6), ns=(B,))
     _build.check_cuda(entry, ins, shapes, dev)
     bppo = torch.zeros((B, N, N), device=dev)
-    pm, pm2, g = (torch.empty((B, N, N), device=dev) for _ in range(3))
+    pm, pm2, g = _prob_scratch(B, N, dev, 3)
     args = [one, QONE, extR, KT, scal, ns, bppo, pm, pm2, g]
     _build.library().call(
         entry, _build.ptr_array(ins, TURNER_OUTSIDE_TABLES),

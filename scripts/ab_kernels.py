@@ -8,8 +8,8 @@ a CUDA GPU, in turns (A, B, B, A), on the same inputs.
 ``_build`` directory beside its sources.  A build from before the cluster
 kernels (K8/K9 for CONTRA, K12/K13 for Turner) is handed the ring scratch
 its entry points take (``ring_g``, a global one past N = 256), and the
-cluster kernels' and K1/K2's outputs are compared on live cells (i + d < n)
-only.
+cluster kernels' and K1/K2's and K4/K5's outputs are compared on live cells
+(i + d < n) only.
 ``--a-split`` says build A predates the merge of the stacked and long
 kernels: its N <= 256 entry points take no ring scratch, and its N > 256
 ones (if it has them) carry a ``_long`` suffix and take one.  Inputs and
@@ -18,8 +18,8 @@ B = 96 for the four kernels (K1/K2, K4/K5), and unless ``--short-only``
 the long tier's (K8/K9 at N = 512, 1024, 2048; K12/K13 at 512, 1024).
 Prints each kernel's CUDA-event ms per build and turn (REPS launches after
 one warm-up), each build's ptxas register and spill lines, the largest
-difference between the two builds' outputs (K1/K2 and the cluster kernels
-on live cells) and whether they are bitwise equal, and each kernel's mean
+difference between the two builds' outputs (K1/K2, K4/K5 and the cluster
+kernels on live cells) and whether they are bitwise equal, and each kernel's mean
 ms per build over its two turns with the ratio A / B.  ``--paths`` then
 times the exact main paths (``FoldEngine``, both models, chip_smoke.py's
 tRNA and random 150-200 nt batches) through each build in turns A, B, B, A,
@@ -284,8 +284,8 @@ def main(argv=None):
     for (N, B, kernel), got in outs.items():
         a, b, note = got["A"], got["B"], ""
         if kernel in chip_smoke.LIVE_ONLY:
-            # a build before the cluster kernels, or before K1/K2's
-            # redesign, computes the dead cells too
+            # a build before the cluster kernels, or before K1/K2's or
+            # K4/K5's redesign, computes the dead cells too
             x = next(c for n_, b_, c in cases
                      if (n_, b_) == (N, B) and kernel in c["kernels"])
             r = torch.arange(N, device=dev)

@@ -1,7 +1,7 @@
 """Kernels K1-K5, K8, K9, K12-K19 against their plain versions on a
 CUDA GPU: the checks of chip_smoke.py, at the main paths' buckets (K1/K2
-on live cells with their dead cells 0, also on edge batches at each bucket
-<= 256 and with NaN in their dead input cells and scratch; the long
+and K4/K5 on live cells with their dead cells 0, also on edge batches at
+each bucket <= 256 and with NaN in their dead input cells and scratch; the long
 tier's at a centred per-sequence ln_sigma, K8/K9 and K12/K13 on live cells
 with their dead cells 0, at every cluster size the check shapes take; the pair-HMM's at each pair's
 settled ln_sigma, the parity tier's log kernels on a few random sequences
@@ -82,10 +82,12 @@ def test_skew_kernel_18_tables_bitwise(turner_inputs):
 
 
 def test_turner_inside_kernel_matches_plain(turner_inputs):
+    """K4 on live cells within RTOL_INSIDE, dead cells 0."""
     chip_smoke.check_inside(turner_inputs, "K4", "turner_inside")
 
 
 def test_turner_outside_kernel_matches_plain(turner_inputs):
+    """K5 on live cells within ATOL_BPPO, dead cells 0."""
     err = chip_smoke.check_outside(turner_inputs, "K5", "turner_outside")
     assert err <= chip_smoke.ATOL_BPPO
 
@@ -128,6 +130,54 @@ def test_prob_kernels_never_read_dead_cells(edge_inputs, which):
 @pytest.mark.parametrize("which", [0, 1], ids=["K1", "K2"])
 def test_prob_kernels_never_read_dead_cells_at_check_shapes(inputs, which):
     chip_smoke.check_prob_dead_cells(inputs, which)
+
+
+@pytest.fixture(scope="module", params=sorted(chip_smoke.PROB_EDGE),
+                ids=lambda N: f"N{N}")
+def turner_edge_inputs(device, request):
+    N = request.param
+    lengths = chip_smoke.PROB_EDGE[N]
+    return chip_smoke.turner_inputs(N, len(lengths), seed=3 * N + 1,
+                                    device=device, lengths=lengths)
+
+
+def test_turner_inside_kernel_on_edge_batches(turner_edge_inputs):
+    """K4 at each bucket <= 256 of the probability path on n = 1-5,
+    lengths just past a power of two and n = N: live cells within
+    RTOL_INSIDE, dead cells 0."""
+    chip_smoke.check_inside(turner_edge_inputs, "K4", "turner_inside")
+
+
+def test_turner_outside_kernel_on_edge_batches(turner_edge_inputs):
+    assert chip_smoke.check_outside(turner_edge_inputs, "K5",
+                                    "turner_outside") <= chip_smoke.ATOL_BPPO
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["K4", "K5"])
+def test_turner_prob_kernels_never_read_dead_cells(turner_edge_inputs,
+                                                   which):
+    """NaN in every dead cell of K4's or K5's [d, i] tables and in their
+    scratch leaves their outputs bitwise unchanged, dead cells 0."""
+    chip_smoke.check_prob_dead_cells(turner_edge_inputs, which)
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["K4", "K5"])
+def test_turner_prob_kernels_never_read_dead_cells_at_check_shapes(
+        turner_inputs, which):
+    chip_smoke.check_prob_dead_cells(turner_inputs, which)
+
+
+def test_block_sizes_at_the_main_shapes(device):
+    """K1/K2 and K4/K5 each take a block size of 256, 512 or 1,024 threads
+    a sequence at the main shapes and the edge batches."""
+    from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
+
+    shapes = list(chip_smoke.SHAPES_MAIN) + [
+        (N, len(n)) for N, n in chip_smoke.PROB_EDGE.items()]
+    for N, B in shapes:
+        for sizes in (P8.contra_block_threads(B, N),
+                      P8.turner_block_threads(B, N)):
+            assert all(t in (256, 512, 1024) and t >= N for t in sizes)
 
 
 def test_main_path_launches_every_kernel(device):

@@ -1,9 +1,10 @@
 """The yardsticks ``chip_smoke.py`` sets beside each long kernel, on the CPU.
 
 The cluster kernels K8, K9 (CONTRA) and K12, K13 (Turner), and K1, K2
-(CONTRA at N <= 256), read their input tables on live cells only
-(i + d < n), so ``chip_smoke.work`` must charge them those cells' bytes and
-no more, and ``chip_smoke.reread_ms`` must give
+(CONTRA) and K4, K5 (Turner) at N <= 256, read their input tables on live
+cells only (i + d < n), so ``chip_smoke.work`` must charge them those
+cells' bytes and no more, and the narrow kernels their 2-loop windows only
+at the cells that can close, and ``chip_smoke.reread_ms`` must give
 each its own pass's HBM re-read floor: an inside kernel re-reads 16 B a
 bifurcation term t >= 1 of each live cell (rm, rmmb, ext, one), an outside
 kernel 8 B a pm term and 12 B an sa/sbc term.  The parity kernels K16-K19
@@ -21,7 +22,8 @@ N = 64
 LENGTHS = (9, 33, 50, 64)
 LONG = ("contra_inside_long", "contra_outside_long", "turner_inside_long",
         "turner_outside_long")
-PROB = ("contra_inside", "contra_outside")     # K1, K2
+PROB = ("contra_inside", "contra_outside",     # K1, K2
+        "turner_inside", "turner_outside")     # K4, K5
 # [d, i] input tables each long kernel reads (the outside's ONE and QONE
 # among them) and tables it writes
 TABLES = {"contra_inside_long": (9, 3), "contra_outside_long": (11, 1),
@@ -54,7 +56,7 @@ def prob_batch(seed=7, min_span=5):
                            outside_args=({"CLOSE": close}, min_span))
 
 
-@pytest.mark.parametrize("kernel", PROB)
+@pytest.mark.parametrize("kernel", PROB[:2])
 def test_work_charges_k1_k2_live_cells(kernel):
     """K1/K2 (N <= 256) read their input tables on live cells only, as
     K8/K9: ``chip_smoke.work`` charges those cells' bytes (9 inside tables,
@@ -88,6 +90,78 @@ def test_work_charges_k1_k2_live_cells(kernel):
                         want += 2 * sum(min(31 - a, r)
                                         for a in range(min(i, 31)))
     assert flops == want
+
+
+def turner_batch(seed=11, min_span=5):
+    """A ragged batch whose AUGC (inside) and CLOSE (outside) are 0 at ~60%
+    of the cells, and whose window matrices KT (B, 3, 32, 32) hold nonzero
+    values at a random half of their band cells (r > a), as K4's and K5's
+    calls see them."""
+    gen = torch.Generator().manual_seed(seed)
+    B = len(LENGTHS)
+    augc = (torch.rand((B, N, N), generator=gen) > 0.6).float()
+    close = (torch.rand((B, N, N), generator=gen) > 0.6).float()
+    a = torch.arange(32)[:, None]
+    r = torch.arange(32)[None, :]
+    band = (r > a) & (a <= 30)
+    KT = torch.where(band & (torch.rand((B, 3, 32, 32), generator=gen) > 0.5),
+                     1.0, 0.0)
+    return augc, close, KT, dict(
+        batch(), inside_args=({"AUGC": augc}, KT),
+        outside_args=({"CLOSE": close}, None, None, None, KT, None, None,
+                      min_span))
+
+
+@pytest.mark.parametrize("kernel", PROB[2:])
+def test_work_charges_k4_k5_live_cells(kernel):
+    """K4/K5 (N <= 256) read their input tables on live cells only:
+    ``chip_smoke.work`` charges those cells' bytes (18 inside tables, 20
+    outside ones with ONE and QONE) and the outputs whole, and the FLOPs the
+    data needs, counted here by brute force: 16 a live cell and 18 for its
+    2 TM3 and 7 small-loop cells, then inside 4 d for the ext and s2 terms,
+    outside 2 a pm term (n - 2 - d - i of them) and 4 an sa/sbc term (i of
+    them); and 2 a window term at the cells that can close only (inside
+    AUGC != 0 from span 5 on: the nonzero cells (a, r) of the three window
+    matrices with r <= d - 1; outside CLOSE > 0 from min_span on: those
+    with a < i and r - a <= n - 1 - d - i)."""
+    augc, close, KT, inp = turner_batch()
+    nbytes, flops = chip_smoke.work(kernel, inp)
+    ins, outs = TABLES[kernel + "_long"]
+    whole = 4 * len(LENGTHS) * N * N
+    assert nbytes == ins * 4 * len(live_cells()) + outs * whole
+    cell = chip_smoke.CELL_FLOPS + 2 * chip_smoke.TURNER_CELL_FMAS
+    want = 0
+    for b, n in enumerate(LENGTHS):
+        cells = [(a, r) for k in range(3) for a in range(32)
+                 for r in range(32) if KT[b, k, a, r] != 0]
+        for d in range(n):
+            for i in range(n - d):
+                if kernel == "turner_inside":
+                    want += cell + 4 * d
+                    if augc[b, d, i] != 0 and d + 1 >= 5:
+                        want += 2 * sum(1 for a, r in cells if r <= d - 1)
+                else:
+                    want += cell + 2 * max(n - 2 - d - i, 0) + 4 * i
+                    if close[b, d, i] > 0 and d + 1 >= 5:
+                        want += 2 * sum(1 for a, r in cells
+                                        if a < i and r - a <= n - 1 - d - i)
+    assert flops == want
+
+
+def test_turner_window_terms_on_the_main_path_matrices():
+    """On the window matrices the Turner path builds, a cell that can close
+    at full depth is charged the 487 cells the kernels visit
+    (``rna_tw_first``), and a cell of span d < 32 the ones with r <= d - 1."""
+    x = chip_smoke.turner_inputs(64, 1, seed=3, device="cpu", lengths=(64,))
+    KT = x["inside_args"][1]
+    mi = {"AUGC": torch.zeros((1, 64, 64))}
+    mi["AUGC"][0, 40, 0] = 1.0          # span 40: every cell of the band
+    mi["AUGC"][0, 10, 0] = 1.0          # span 10: r <= 9
+    inp = dict(x, inside_args=(mi, KT))
+    nz = (KT[0] != 0).sum(0)
+    want = 487 + int(nz[:, :10].sum())
+    assert int((KT[0] != 0).sum()) == 487
+    assert chip_smoke.prob_window_terms("turner_inside", inp) == want
 
 
 @pytest.mark.parametrize("kernel", LONG)
