@@ -24,16 +24,17 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    centres each sequence's scaled Z; the Durbin pair-HMM's K14
    (probability space) and K15 (log space), forward and backward, on the
    630 tRNA pairs at N = 128 and 2,016 random pairs at N = 256, at each
-   pair's settled ln_sigma; the parity tier's log-space K16, K17 (CONTRA)
-   and K18, K19 (Turner) at N = 128, B = 192 and N = 256, B = 96 on random
-   sequences, each bitwise equal there and on edge batches at N = 32, 64
-   and 256 (n = 1, 2, 3 and lengths around powers of two), K16/K18 on the
-   live cells (i + d < n) with the fills in the dead ones, and with NaN in
-   every dead input cell and scratch word, each launch's threads a lane
-   printed), and
-   each one's time beside the plain version's, its bound and, for K3, the
-   time of one torch.gather computing the same skew, at the main paths'
-   shapes;
+   pair's settled ln_sigma, bitwise (planes and corners), also with their
+   output planes NaN-filled and on edge batches at N = 64 and 256 (n = 3,
+   n = N, n1 != n2, mixed lengths); the parity tier's log-space K16, K17
+   (CONTRA) and K18, K19 (Turner) at N = 128, B = 192 and N = 256, B = 96
+   on random sequences, each bitwise equal there and on edge batches at
+   N = 32, 64 and 256 (n = 1, 2, 3 and lengths around powers of two),
+   K16/K18 on the live cells (i + d < n) with the fills in the dead ones,
+   and with NaN in every dead input cell and scratch word, each launch's
+   threads a lane printed), and each one's time beside the plain
+   version's, its bound and, for K3, the time of one torch.gather
+   computing the same skew, at the main paths' shapes;
 3. the main paths, FoldEngine(device="cuda").fold_batch for CONTRA and for
    Turner, each on the six tRNAs tiled to B = 192 (bucket 128) and on 96
    seeded random sequences of 150-200 nt (bucket 256), then each on the
@@ -154,10 +155,14 @@ TURNER_CELL_FMAS = 9
 # (outside).
 CELL_FLOPS = 16
 # Durbin pair-HMM (K14, K15).  Kernel vs plain on the card: both round
-# every add and multiply on its own (the kernel through _rn intrinsics),
-# so bitwise is expected; the tolerances are the stated budgets.
-RTOL_PAIRHMM = 1e-5          # K14 planes and corners, relative
-ATOL_PAIRHMM_LOG = 1e-4      # K15 log values, absolute
+# every add and multiply on its own (the kernel through _rn intrinsics) in
+# the same association, so bitwise is required, planes and corners of both
+# passes, also with the output planes NaN-filled before the launch (the
+# kernels write every cell once, with no pre-fill).  The edge batches hold
+# n = 3 (one base), n = N (a full bucket), n1 != n2 and mixed lengths in
+# one launch, as wrapped lengths.
+DURBIN_EDGE = {64: (3, 3, 4, 17, 33, 40, 63, 64, 64),
+               256: (3, 5, 33, 129, 200, 255, 256, 256)}
 TOL_DURBIN = {"exact": 1e-5, "parity": 1e-4}   # path vs plain path
 TOL_DURBIN_CLI = 1e-5        # exact CLI on the card vs on the CPU
 # Durbin sets: the tRNA fixture x 6 (as scripts/bench_suite.py's
@@ -1126,38 +1131,58 @@ def pairhmm_calls(kernel, x, fn):
             lambda: fn(*x["seq_args"], ms, ins, scal_b, True)]
 
 
+@contextlib.contextmanager
+def poisoned_planes():
+    """The pair-HMM wrappers' output planes NaN-filled before each launch."""
+    from rna_algos_tpu_torch.ops import pallas_align as PA
+
+    plane = PA._plane
+    PA._plane = lambda *a: plane(*a).fill_(float("nan"))
+    try:
+        yield
+    finally:
+        PA._plane = plane
+
+
 def check_pairhmm(x, kernel):
-    """K14 (relative, planes and corners) or K15 (absolute on log values,
-    -inf exactly where the plain version has it) against the plain version
-    on both passes; returns the max abs error."""
+    """K14 or K15 bitwise equal to its plain version on both passes,
+    planes and corners, with the output planes as allocated and
+    NaN-filled; returns the max abs error (0)."""
     kern, plain = pairhmm_wrappers(kernel)
     label = LABELS[kernel]
-    worst = 0.0
     for direction, k_call, p_call in zip(
             ("forward", "backward"), pairhmm_calls(kernel, x, kern),
             pairhmm_calls(kernel, x, plain)):
-        for part, g, w in zip(("plane", "corner"), k_call(), p_call()):
+        want = p_call()
+        with poisoned_planes():
+            poisoned = k_call()
+        for how, got in (("", k_call()), (", planes NaN-filled", poisoned)):
             torch.cuda.synchronize()
-            if kernel == "pairhmm_log":
-                if not torch.equal(torch.isinf(g), torch.isinf(w)) or bool(
-                        torch.isnan(g).any()):
-                    raise AssertionError(f"{label} {direction} {part}: "
-                                         "-inf pattern differs from plain")
-                fin = torch.isfinite(w)
-                err = float((g[fin] - w[fin]).abs().max())
-                ok = err <= ATOL_PAIRHMM_LOG
-            else:
-                d = (g - w).abs()
-                err = float(d.max())
-                ok = bool((d <= RTOL_PAIRHMM * w.abs() + ATOL_TINY).all())
-            exact = torch.equal(g, w)
-            print(f"  {label} {direction} {part}: max abs err {err:.3e}"
-                  f"{' (bitwise)' if exact else ''}")
-            if not ok:
-                raise AssertionError(f"{label} {direction} {part} differs "
-                                     f"from plain: {err}")
-            worst = max(worst, err)
-    return worst
+            for part, g, w in zip(("plane", "corner"), got, want):
+                if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                    raise AssertionError(f"{label} {direction} {part}{how} "
+                                         "differs from plain")
+        print(f"  {label} {direction}: planes and corners bitwise equal to "
+              "plain, also with the planes NaN-filled")
+    return 0.0
+
+
+def durbin_edge_inputs(device):
+    """DURBIN_EDGE: all pairs (a < b) of seeded random sequences of the
+    listed wrapped lengths, one bucket each."""
+    from rna_algos_tpu_torch.constants import PSEUDO_BASE
+
+    out = {}
+    for N, lengths in DURBIN_EDGE.items():
+        rng = np.random.default_rng(N)
+        seqs = [np.concatenate([[PSEUDO_BASE], rng.integers(0, 4, n - 2),
+                                [PSEUDO_BASE]]).astype(np.int32)
+                for n in lengths]
+        pairs = [(a, b) for a in range(len(seqs))
+                 for b in range(a + 1, len(seqs))]
+        x = out[N] = durbin_inputs(seqs, pairs, device)
+        assert x["N"] == N
+    return out
 
 
 def pairhmm_bound(kernel, x):
@@ -1180,11 +1205,14 @@ DURBIN_RUNS = (("durbin_exact", "exact", "trna_N128_P630"),
 
 
 def durbin_checks(dsets, device, err):
-    """K14 and K15 against their plain versions on each Durbin set (phase
-    2); records the worst error in ``err``, returns the inputs by set."""
+    """K14 and K15 against their plain versions on each Durbin set and the
+    edge batches (phase 2); records the worst error in ``err``, returns the
+    inputs by set."""
     dinputs = {}
     for key, (seqs, pairs) in dsets.items():
-        x = dinputs[key] = durbin_inputs(seqs, pairs, device)
+        dinputs[key] = durbin_inputs(seqs, pairs, device)
+    edges = {f"edge_N{N}": x for N, x in durbin_edge_inputs(device).items()}
+    for key, x in {**dinputs, **edges}.items():
         print(f"check Durbin {key}: N={x['N']} P={x['P']} at each pair's "
               "settled ln_sigma")
         for k in ("pairhmm_prob", "pairhmm_log"):

@@ -339,7 +339,9 @@ __device__ __forceinline__ void rna_cl_outside_part(
 
 // K9's bppo of span d at a live lane from the pair, its 2-loop context
 // `two` (already times CLOSE), the summed parts and qa's telescoped
-// neighbour qa(d+1, i-1) (0 at lane 0) (rna_outside_bppo's arithmetic):
+// neighbour qa(d+1, i-1) (0 at lane 0):
+//   bppo = base + two + CLOSE*ACCMB * (sa + sbc + qa),
+//   pm2 = g(d+1, i) + mbu1 * pm2(d+1, i),  qa = pm(d+1, i-1) + mbu1 * qa_nb;
 // g(d+1, i) is the lane's own g of the span before, `g_prev` (0 before its
 // first live span, as past the end).  Writes bppo, g and the pm/pm2 rows
 // and sets `qa`; returns g2 = bppo * G2 / CLOSE for the ring.

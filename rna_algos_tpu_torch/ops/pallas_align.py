@@ -136,6 +136,12 @@ def _pairhmm_plain(x1, x2, n1, n2, ms, ins, scal, backward, sr):
     return flat[:, :N * N].reshape(P, N, N), corner
 
 
+def _plane(P, N, device):
+    """The (P, N, N) output planes of a kernel pass: uninitialised, the
+    kernel writes every cell once."""
+    return torch.empty((P, N, N), device=device)
+
+
 def _pairhmm_cuda(entry, x1, x2, n1, n2, ms, ins, scal, backward, sr):
     """Check the inputs of a pair-HMM kernel (K14 or K15) and launch it."""
     dev = x1.device
@@ -146,7 +152,7 @@ def _pairhmm_cuda(entry, x1, x2, n1, n2, ms, ins, scal, backward, sr):
     shapes = dict(x1=(P, N), x2=(P, N), n1=(P,), n2=(P,), ms=(P, NB, NB),
                   ins=(P, NB), scal=(5,))
     _build.check_cuda(entry, ins_, shapes, dev, ints=("x1", "x2", "n1", "n2"))
-    out = torch.empty((P, N, N), device=dev)
+    out = _plane(P, N, dev)
     corner = torch.full((P, 3), sr.zero, device=dev)
     args = [x1, x2, n1, n2, ms, ins, scal, out, corner]
     _build.library().call(

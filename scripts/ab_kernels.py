@@ -33,7 +33,10 @@ launch shape of chip_smoke.py (C that model's), each block looping over
 and nothing else.
 ``--pairhmm`` times the Durbin pair-HMM kernels K14 and K15 instead (a
 forward and a backward launch per timed call) on chip_smoke.py's two Durbin
-sets (630 tRNA pairs at N = 128, 2,016 random pairs at N = 256).
+sets (630 tRNA pairs at N = 128, 2,016 random pairs at N = 256), says
+whether the two builds' outputs are bitwise equal, then times the Durbin
+main paths (``AlignEngine``, chip_smoke.py's ``DURBIN_RUNS``) through each
+build in the same turns, with their pairs/s and peak memory.
 ``--log`` times the parity tier's log-space kernels K16-K19 instead, on
 chip_smoke.py's log inputs (``log_inputs``: the arguments one parity fold
 hands its kernels) at N = 128, B = 192 and N = 256, B = 96, prints each
@@ -497,7 +500,34 @@ def ab_pairhmm(libs, dev, chip_smoke):
         same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
                    for x, y in zip(got["A"], got["B"]))
         print(f"{key} {kernel}: outputs of A and B bitwise equal: {same}")
+    ab_durbin_paths(libs, chip_smoke, trnas)
     return 0
+
+
+def ab_durbin_paths(libs, chip_smoke, trnas):
+    """The Durbin main paths of chip_smoke.py (``AlignEngine``, exact on
+    both sets, parity on the tRNA set) through each build in turns A, B,
+    B, A: pairs/s (CUDA events around 3 calls after a warm-up, each call
+    ending in the copy to the host) and the peak device memory of one call
+    above what was held before it."""
+    from rna_algos_tpu_torch.parallel.runner import AlignEngine
+
+    dsets = chip_smoke.durbin_sets(trnas)
+    for turn, which in enumerate(("A", "B", "B", "A")):
+        use(libs[which])
+        for path, mode, key in chip_smoke.DURBIN_RUNS:
+            seqs, pairs = dsets[key]
+            engine = AlignEngine(device="cuda", numerics=mode)
+            ms = chip_smoke.cuda_ms(
+                lambda: engine.match_probs_pairs(seqs, pairs), 3)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            engine.match_probs_pairs(seqs, pairs)
+            peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+            print(f"turn {turn} build {which} {path}_{key}: {ms:.4f} ms a "
+                  f"call, {1e3 * len(pairs) / ms:.2f} pairs/s, peak "
+                  f"{peak:.3f} GiB above {held / 2**30:.3f}")
 
 
 if __name__ == "__main__":

@@ -3,9 +3,10 @@ CUDA GPU: the checks of chip_smoke.py, at the main paths' buckets (K1/K2
 and K4/K5 on live cells with their dead cells 0, also on edge batches at
 each bucket <= 256 and with NaN in their dead input cells and scratch; the long
 tier's at a centred per-sequence ln_sigma, K8/K9 and K12/K13 on live cells
-with their dead cells 0, at every cluster size the check shapes take; the pair-HMM's at each pair's
-settled ln_sigma, the parity tier's log kernels on a few random sequences
-at N = 128 and 256).  Skipped without a GPU; run on
+with their dead cells 0, at every cluster size the check shapes take; the pair-HMM's
+bitwise at each pair's settled ln_sigma, also with NaN-filled output
+planes and on edge batches at N = 64 and 256; the parity tier's log kernels
+on a few random sequences at N = 128 and 256).  Skipped without a GPU; run on
 the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
 import numpy as np
@@ -251,12 +252,19 @@ def durbin_inputs(device, request):
 @pytest.mark.parametrize("kernel", ["pairhmm_prob", "pairhmm_log"],
                          ids=["K14", "K15"])
 def test_pairhmm_kernel_matches_plain(durbin_inputs, kernel):
-    """K14 within 1e-5 relative, K15 within 1e-4 on log values (both
-    forward and backward, planes and corners)."""
-    err = chip_smoke.check_pairhmm(durbin_inputs, kernel)
-    limit = (chip_smoke.ATOL_PAIRHMM_LOG if kernel == "pairhmm_log"
-             else float("inf"))
-    assert err <= limit
+    """K14 and K15 bitwise equal to their plain versions (forward and
+    backward, planes and corners), also with the output planes NaN-filled
+    before the launch (check_pairhmm raises otherwise)."""
+    assert chip_smoke.check_pairhmm(durbin_inputs, kernel) == 0.0
+
+
+@pytest.mark.parametrize("kernel", ["pairhmm_prob", "pairhmm_log"],
+                         ids=["K14", "K15"])
+def test_pairhmm_kernel_bitwise_on_edge_batches(device, kernel):
+    """chip_smoke.DURBIN_EDGE: n = 3, n = N, n1 != n2 and mixed lengths in
+    one launch, at N = 64 and 256."""
+    for x in chip_smoke.durbin_edge_inputs(device).values():
+        assert chip_smoke.check_pairhmm(x, kernel) == 0.0
 
 
 @pytest.mark.parametrize("numerics", ["exact", "parity"])
