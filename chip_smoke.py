@@ -32,9 +32,16 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    N = 32, 64 and 256 (n = 1, 2, 3 and lengths around powers of two),
    K16/K18 on the live cells (i + d < n) with the fills in the dead ones,
    and with NaN in every dead input cell and scratch word, each launch's
-   threads a lane printed), and each one's time beside the plain
-   version's, its bound and, for K3, the time of one torch.gather
-   computing the same skew, at the main paths' shapes;
+   threads a lane printed); the generic-N scan's K20 (inside) and K21
+   (outside), one launch a span, both models, at N = 384, B = 8 and
+   N = 1536, B = 2 (exact and fast) and on edge batches at N = 160 (n = 1,
+   2, 3, n = N, a mix; exact, fast and parity), bitwise on the live cells
+   under exact and parity (within RTOL_SCAN_FAST under fast), under exact
+   also with NaN in every state cell and every dead score-table cell and
+   with blocks narrow enough for 64 and 128 tree leaves a thread; and each
+   one's time
+   beside the plain version's, its bound and, for K3, the time of one
+   torch.gather computing the same skew, at the main paths' shapes;
 3. the main paths, FoldEngine(device="cuda").fold_batch for CONTRA and for
    Turner, each on the six tRNAs tiled to B = 192 (bucket 128) and on 96
    seeded random sequences of 150-200 nt (bucket 256), then each on the
@@ -54,7 +61,18 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    150-200 nt batches, each counted on its own (one K16/K17 or K18/K19
    launch a bucket, the plain log wavefronts never called), against the
    plain path on the card (the same presence, BPP within 1e-5), with its
-   seqs/s and peak memory;
+   seqs/s and peak memory; the generic-N paths (K20/K21 N launches a pass,
+   the plain scan never called), each against the plain path on the card
+   (the same presence, BPP within 1e-5): Turner exact on seq_1536 of
+   tests/golden/longn_f64_1536.npz and four seeded 1,409-1,536 nt
+   sequences (bucket 1536, SSU rRNA scale; seq_1536 also against its
+   float64 golden within TOL_GOLDEN_SCAN), CONTRA exact on two seeded
+   2,817-2,944 nt sequences (bucket 2944, LSU rRNA scale; the plain path
+   on the first), and parity for both models on eight seeded 300-384 nt
+   sequences (bucket 384), each with seqs/s and peak memory; and Turner
+   exact past 5,461 nt: a seeded 5,600-nt sequence beside seq_1536
+   (bucket 5632), seq_1536 against its float64 golden, the long one's BPPs
+   against the probability gates;
 4. the centroid CLI on assets/sampled_trnas.fa: with -c byte for byte
    against tests/golden/c_baseline/centroid_contra/, without -c against
    centroid_turner/ under the gamma = 1 tie rule (``turner_centroid_verdict``);
@@ -66,6 +84,9 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    parity with and without -c against the c_baseline triples (the same
    keys, <= 5e-4) and cli.centroid_fold --numerics parity against the
    centroid goldens (CONTRA byte for byte, Turner under the tie rule);
+   cli.mccaskill and cli.centroid_fold --numerics parity -c on a 400-nt
+   record (the generic scan at bucket 512) on the card against
+   --device cpu;
 5. seqs/s (pairs/s for Durbin) of every main-path configuration, kernel
    path and plain path, and the peak device memory of each long batch.
 
@@ -82,6 +103,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -221,6 +243,71 @@ LOG_INSIDE_INPUTS = {"contra_inside_log": (8, 1, 1),
 LOG_OUTSIDE_INPUTS = {"contra_outside_log": (7, 2, 1),
                       "turner_outside_log": (16, 1, 2)}
 
+# The generic-N scan, kernels K20 (inside) and K21 (outside) of
+# ops/fold_scan.py, one launch a span.  Kernel vs plain on the card: under
+# "exact" and "parity" (one kernel instance: the mode only switches "fast")
+# both round every add and multiply on its own and sum in the same halving
+# trees, so bitwise is required on the live cells (i + d < n; right-layout
+# tables: j < n), also with NaN in every state cell before the pass and in
+# every dead cell of the score tables (CANON's dead cells set true); under
+# "fast" the -inf pattern identical and finite cells within
+# RTOL_SCAN_FAST * max(1, |x|) (the sums' order and the card's exp and log
+# differ from the CPU's; a few ulps of log Z move bppo by ~1e-5).  Parity
+# runs exact's kernel instance and plain passes, so the kernel phase holds
+# it on SCAN_EDGE only (the parity paths hold it at N = 384).  SCAN_CHECK:
+# parity's first generic bucket and the SSU rRNA bucket; SCAN_EDGE: n = 1,
+# 2, 3, n = N and a mix, at N = 160 (not a power of two).
+SCAN_CHECK = ((384, 8), (1536, 2))
+SCAN_EDGE = {160: (1, 2, 3, 160, 45, 97, 130, 159)}
+# Blocks held narrower than the wrappers pick them (narrow_blocks), so that
+# K21's context tree takes 64 (N = 384) and 128 (N = 1536, the most) leaves
+# a thread: past N = 5,461 the blocks of 1,024 threads take more than 16.
+SCAN_NARROW = {384: 32, 1536: 64}
+RTOL_SCAN_FAST = 1e-4
+SCAN_STATE = {"scan_inside": ("close", "ext", "mb", "one", "qone", "qrm",
+                              "qrmmb"),
+              "scan_outside": ("bppo", "g", "qpm", "qpm2")}
+# The generic main paths: (count, shortest, longest, seed) of the seeded
+# random sequences.  Turner exact at SSU rRNA scale, with seq_1536 of
+# tests/golden/longn_f64_1536.npz (bucket 1536); CONTRA exact at LSU rRNA
+# scale (bucket 2944; its plain path, ~85 s a sequence on the card, on
+# the first sequence only); parity, both models, RNase P scale (bucket 384).
+SCAN_TURNER = (4, 1409, 1536, 1536)
+SCAN_CONTRA = (2, 2817, 2944, 2944)
+SCAN_PARITY = (8, 300, 384, 384)
+# Past 5,461 nt (K21's context tree past 16 leaves a thread at 1,024
+# threads): one seeded sequence of this length with seq_1536 beside it
+# (bucket 5,632).  A base's pair probabilities sum to at most 1 in exact
+# arithmetic; the cubic numerics move that sum by up to 6.40e-3 (the JAX
+# scan, jitted on the CPU) and 6.42e-3 (the port's plain path) from the
+# float64 golden at n = 1536, so the gate is 1 + TOL_GOLDEN_SCAN (and the
+# same for one pair's probability).
+SCAN_LONG = 5600
+# A generic path vs its plain path on the card: the same presence, BPP
+# within TOL_SCAN_MAIN (the kernels are bitwise equal to the plain versions,
+# so 0.0 is what a run reads).  The Turner n = 1536 golden: the JAX scan's
+# own drift from float64 there, 5.376e-3 (exact numerics, jitted on the
+# CPU; the port's plain path reads 5.374e-3 on the CPU), plus 1e-3
+# (tests/test_torch_scan_golden.py, marked slow, measures both).
+TOL_SCAN_MAIN = 1e-5
+TOL_GOLDEN_SCAN = 6.4e-3
+# Float operations of the scan kernels (the bound), as LOG_OPS counts them:
+# a cubic lse_pair 8, an add or a multiply 1.  Inside: 10 per window leaf
+# (a + b <= d - 2, a, b <= 30) and 18 for close at the cells that can close
+# (live, canonical, span >= min_span); 9 per ext term (t < d), 19 per s1/s2
+# term (1 <= t < d) and 47 for the rest at every live cell.  Outside: 11
+# per window leaf (outer pair inside the sequence), 30 per context t
+# (three leaves, 1 <= t <= i) and 40 for the rest at the pair cells (close
+# finite, span >= min_span); 19 per pm/pm2 term (1 <= t <= n - 1 - j) at
+# every live cell of a valid span.  Bytes: each input and state cell once
+# at the live cells, each output once.
+SCAN_OPS = {"inside": (10, 18, 9, 19, 47), "outside": (11, 30, 40, 19)}
+# (B, N, N) tables a pass reads at its live cells (score tables, inputs
+# from the inside pass) and writes (state), by model.
+SCAN_TABLES = {("scan_inside", "contra"): (5, 7),
+               ("scan_inside", "turner"): (10, 6),
+               ("scan_outside", "contra"): (9, 4),
+               ("scan_outside", "turner"): (13, 4)}
 
 def random_batch(B, lo, hi, seed):
     rng = np.random.default_rng(seed)
@@ -1391,6 +1478,7 @@ def plain_kernels():
     """Route the main paths through the plain versions on the card."""
     from rna_algos_tpu_torch.models import mccaskill as M
     from rna_algos_tpu_torch.ops import pallas_align as PA
+    from rna_algos_tpu_torch.ops import fold_scan as FS
     from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
     from rna_algos_tpu_torch.ops import pallas_fold as PF
     from rna_algos_tpu_torch.ops import pallas_fold_long as PL
@@ -1404,6 +1492,8 @@ def plain_kernels():
     swaps += [(PAP, "pairhmm_prob", PAP.pairhmm_prob_plain),
               (PA, "pairhmm_log", PA.pairhmm_log_plain)]
     swaps += [(PF, k, getattr(PF, k + "_plain")) for k in LOG_KERNELS]
+    swaps += [(FS, k, getattr(FS, k + "_plain"))
+              for k in ("scan_inside", "scan_outside")]
     saved = [(mod, k, getattr(mod, k)) for mod, k, _ in swaps]
     for mod, k, fn in swaps:
         setattr(mod, k, fn)
@@ -1568,6 +1658,465 @@ def recorded_ln_sigma():
         PP._retrying = orig
 
 
+def scan_inputs(model, N, B, seed, device, lengths=None):
+    """A generic-scan batch: seqs (B, N) int64, ns (B,) int32, the model's
+    tables and its (B, N, N) score tables, on ``device``; random lengths in
+    [N / 2, N] (sequence 0 fills the bucket) unless ``lengths`` is given."""
+    from rna_algos_tpu_torch.models import mccaskill as M
+    from rna_algos_tpu_torch.params import build_fold_score_sets
+    from rna_algos_tpu_torch.weights import contra_tables, turner_tables
+
+    if lengths is None:
+        rng = np.random.default_rng(seed)
+        lengths = [N] + [int(rng.integers(N // 2, N + 1))
+                         for _ in range(B - 1)]
+    rng = np.random.default_rng(seed + 1)
+    seqs = np.full((len(lengths), N), 4, dtype=np.int64)
+    for k, n in enumerate(lengths):
+        seqs[k, :n] = rng.integers(0, 4, size=n)
+    seqs = torch.as_tensor(seqs, device=device)
+    ns = torch.as_tensor(lengths, dtype=torch.int32, device=device)
+    contra = model == "contra"
+    tbl = (contra_tables(build_fold_score_sets(), device) if contra
+           else turner_tables(device))
+    return dict(model=model, contra=contra, seqs=seqs, ns=ns, tbl=tbl,
+                pre=M._precompute(seqs, ns, tbl, N, contra))
+
+
+def scan_live(ns, N, right):
+    """(B, N, N) mask of a scan table's live cells: [b, i, d] with
+    i + d < n (left layout) or [b, j, e] with e <= j < n (right)."""
+    r = torch.arange(N, device=ns.device)
+    n = ns.view(-1, 1, 1)
+    if right:
+        return (r[:, None] >= r[None, :])[None] & (r[None, :, None] < n)
+    return (r[:, None] + r[None, :])[None] < n
+
+
+def scan_poisoned(x):
+    """The score tables with NaN in every dead cell (i + d >= n), and
+    CANON true there: what K20/K21 must never read."""
+    N = x["seqs"].shape[1]
+    dead = ~scan_live(x["ns"], N, False)
+    return {k: (v | dead if v.dtype == torch.bool
+                else torch.where(dead, float("nan"), v))
+            for k, v in x["pre"].items()}
+
+
+def scan_compare(kernel, got, want, x, mode, label):
+    """Max |difference| of a pass's state tables on the live cells, after
+    the check: bitwise under exact and parity, under fast the -inf pattern
+    identical and finite cells within RTOL_SCAN_FAST * max(1, |x|)."""
+    N = x["seqs"].shape[1]
+    worst = 0.0
+    for k in SCAN_STATE[kernel]:
+        if k == "qrmmb" and not x["contra"]:
+            continue
+        live = scan_live(x["ns"], N, k.startswith("q"))
+        a, b = got[k][live], want[k][live]
+        if torch.isnan(a).any() or not torch.equal(torch.isfinite(a),
+                                                   torch.isfinite(b)):
+            raise AssertionError(f"{label} {kernel} {k}: NaN or -inf pattern")
+        fin = torch.isfinite(b)
+        diff = (a[fin] - b[fin]).abs()
+        if diff.numel():
+            worst = max(worst, float(diff.max()))
+        if mode == "fast":
+            ok = bool((diff <= RTOL_SCAN_FAST
+                       * b[fin].abs().clamp(min=1.0)).all())
+        else:
+            ok = torch.equal(a, b)
+        if not ok:
+            raise AssertionError(f"{label} {kernel} {k}: kernel differs from "
+                                 f"plain (max {worst:.3e}, {mode})")
+    return worst
+
+
+def host_ms(fn):
+    """(fn(), milliseconds) on the host clock, the device synchronized
+    before and after: for the plain passes, host-driven spans of small
+    torch operations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def poisoned_state():
+    """The scan wrappers' state tables NaN-filled before each pass."""
+    from rna_algos_tpu_torch.ops import fold_scan as FS
+
+    state = FS._state
+    FS._state = lambda *a: {k: v.fill_(float("nan"))
+                            for k, v in state(*a).items()}
+    try:
+        yield
+    finally:
+        FS._state = state
+
+
+@contextlib.contextmanager
+def narrow_blocks(T):
+    """The scan wrappers' blocks held at T threads, so that each thread
+    takes more tree leaves (up to fold_scan.MAX_LEAVES) than the blocks
+    the wrappers pick give it at these N."""
+    from rna_algos_tpu_torch.ops import fold_scan as FS
+
+    threads = FS.threads
+    FS.threads = lambda extent: T
+    try:
+        yield
+    finally:
+        FS.threads = threads
+
+
+def scan_plain(x, mode):
+    """The plain inside and outside passes on ``x`` in ``mode`` and their
+    times on the host clock: (inside, outside, {kernel: ms})."""
+    from rna_algos_tpu_torch.ops import fold_scan as FS
+
+    a = (x["seqs"], x["ns"], x["tbl"], x["pre"])
+    ins, ms_in = host_ms(
+        lambda: FS.scan_inside_plain(*a, x["contra"], False, mode))
+    out, ms_out = host_ms(
+        lambda: FS.scan_outside_plain(*a, ins, x["contra"], False, mode))
+    return ins, out, {"scan_inside": ms_in, "scan_outside": ms_out}
+
+
+def check_scan(x, mode, err, fast_err, plain, poison=False):
+    """K20 and K21 against ``plain`` = scan_plain(x, mode), each on the
+    same inputs (K21 on the plain inside pass's tables); with ``poison``
+    the kernels get NaN-filled state tables (poisoned_state) and score
+    tables with NaN in every dead cell, and K21 K20's tables."""
+    from rna_algos_tpu_torch.ops import fold_scan as FS
+
+    a = (x["seqs"], x["ns"], x["tbl"])
+    c, label = x["contra"], f"{x['model']} N={x['seqs'].shape[1]}"
+    ins_p, out_p, _ = plain
+    pre = scan_poisoned(x) if poison else x["pre"]
+    with poisoned_state() if poison else contextlib.nullcontext():
+        ins_k = FS.scan_inside(*a, pre, c, False, mode)
+        e_in = scan_compare("scan_inside", ins_k, ins_p, x, mode, label)
+        out_k = FS.scan_outside(*a, pre, ins_k if poison else ins_p, c,
+                                False, mode)
+    e_out = scan_compare("scan_outside", out_k, out_p, x, mode, label)
+    into = fast_err if mode == "fast" else err
+    for kernel, e in (("scan_inside", e_in), ("scan_outside", e_out)):
+        into[kernel] = max(into.get(kernel, 0.0), e)
+    return e_in, e_out
+
+
+def scan_work(kernel, x):
+    """(bytes, FLOPs) of one pass (N launches) of K20 or K21 on ``x``: the
+    terms this run's data needs (SCAN_OPS) and each table cell once at the
+    live cells (SCAN_TABLES), counted on the host."""
+    from rna_algos_tpu_torch.ops import fold_scan as FS
+
+    inside = kernel == "scan_inside"
+    N = x["seqs"].shape[1]
+    span_min = FS.min_span(x["contra"], False)
+    reads, writes = SCAN_TABLES[(kernel, x["model"])]
+    canon = x["pre"]["canon"].cpu().numpy()
+    I, D = np.meshgrid(np.arange(N), np.arange(N), indexing="ij")
+    ab = np.add.outer(np.arange(31), np.arange(31))
+    win_in = np.array([(ab <= d - 2).sum() for d in range(N)])
+    flops, cells = 0.0, 0.0
+    for b, n in enumerate(x["ns"].tolist()):
+        live = I + D < n
+        cells += live.sum()
+        if inside:
+            win, full, ext, s12, cell = SCAN_OPS["inside"]
+            closes = live & canon[b] & (D + 1 >= span_min)
+            flops += (cell * live.sum() + ext * D[live].sum()
+                      + s12 * np.maximum(D - 1, 0)[live].sum()
+                      + full * closes.sum() + win * win_in[D[closes]].sum())
+        else:
+            win, ctx, cell, pm = SCAN_OPS["outside"]
+            close = x.get("close")
+            pair = live & (D + 1 >= span_min)
+            if close is not None:
+                pair &= np.isfinite(close[b])
+            r = n - 1 - I - D
+            flops += (pm * r[live & (D + 1 >= span_min)].sum()
+                      + cell * pair.sum() + ctx * I[pair].sum()
+                      + win * (np.minimum(I, 31)
+                               * np.minimum(np.maximum(r, 0), 31))[pair].sum())
+    return 4.0 * cells * (reads + writes) + cells, flops
+
+
+def scan_bound(kernel, x):
+    nbytes, flops = scan_work(kernel, x)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scan_checks(device, err, fast_err, times, smi):
+    """Phase 2 for K20/K21: both models against the plain versions at
+    SCAN_CHECK under exact and fast, and under exact also with NaN-poisoned
+    inputs and with blocks of SCAN_NARROW threads; on SCAN_EDGE under
+    exact, fast and parity and poisoned.  Each pass timed (CUDA events, two
+    passes after a warm-up) beside its plain version's exact pass (host
+    clock, one pass) and its bound at SCAN_CHECK."""
+    from rna_algos_tpu_torch.ops import fold_scan as FS
+
+    for model in ("contra", "turner"):
+        for N, B in SCAN_CHECK:
+            x = scan_inputs(model, N, B, seed=N + B, device=device)
+            for mode in ("exact", "fast"):
+                t0 = time.perf_counter()
+                plain = scan_plain(x, mode)
+                if mode == "exact":
+                    plain_ms = plain[2]
+                e = check_scan(x, mode, err, fast_err, plain)
+                print(f"check scan {model} N={N} B={B} {mode}: K20 "
+                      f"{e[0]:.3e}, K21 {e[1]:.3e} "
+                      f"({'bitwise' if mode != 'fast' else 'tolerance'}; "
+                      f"{time.perf_counter() - t0:.1f} s)")
+                if mode != "exact":
+                    continue
+                check_scan(x, mode, err, fast_err, plain, poison=True)
+                T = SCAN_NARROW[N]
+                with narrow_blocks(T):
+                    check_scan(x, mode, err, fast_err, plain)
+                print(f"check scan {model} N={N} B={B}: NaN-poisoned state "
+                      f"and dead cells, and blocks of {T} threads (K21 "
+                      f"{1 << ((3 * N - 1) // T).bit_length()} leaves a "
+                      "thread), bitwise")
+            del plain
+            a = (x["seqs"], x["ns"], x["tbl"], x["pre"])
+            ins = FS.scan_inside(*a, x["contra"])
+            x["close"] = ins["close"].cpu().numpy()
+            for kernel, kern, args in (
+                    ("scan_inside", FS.scan_inside, a + (x["contra"],)),
+                    ("scan_outside", FS.scan_outside,
+                     a + (ins, x["contra"]))):
+                ms = cuda_ms(lambda: kern(*args), 2)
+                pms = plain_ms[kernel]
+                bms, by = scan_bound(kernel, x)
+                times[kernel][f"N{N}_B{B}_{model}"] = (ms, pms, bms, by, None)
+                print(f"time N={N} B={B} {model} {kernel} (one pass, {N} "
+                      f"launches): kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                      f"bound {bms:.4f} ms ({by}) on {smi}")
+        for N, lengths in SCAN_EDGE.items():
+            x = scan_inputs(model, N, len(lengths), seed=3 * N,
+                            device=device, lengths=lengths)
+            for mode in ("exact", "fast", "parity"):
+                plain = scan_plain(x, mode)
+                e = check_scan(x, mode, err, fast_err, plain)
+                print(f"check scan {model} edge N={N} n={lengths} {mode}: "
+                      f"K20 {e[0]:.3e}, K21 {e[1]:.3e}")
+                if mode == "exact":
+                    check_scan(x, mode, err, fast_err, plain, poison=True)
+                    print(f"check scan {model} edge N={N}: NaN-poisoned, "
+                          "bitwise")
+
+
+@contextlib.contextmanager
+def counted_plain_scan():
+    """Count the calls of the scan's plain passes while the block runs: a
+    one-item list."""
+    from rna_algos_tpu_torch.ops import fold_scan as FS
+
+    calls = [0]
+    saved = {k: getattr(FS, k) for k in ("scan_inside_plain",
+                                         "scan_outside_plain")}
+
+    def counting(fn):
+        def call(*args, **kw):
+            calls[0] += 1
+            return fn(*args, **kw)
+        return call
+
+    for k, fn in saved.items():
+        setattr(FS, k, counting(fn))
+    try:
+        yield calls
+    finally:
+        for k, fn in saved.items():
+            setattr(FS, k, fn)
+
+
+def scan_paths(counted, counts, path_kernels, smi):
+    """The generic main paths (phase 3), each counted on its own: K20 and
+    K21 launched N times a pass (one pass each a bucket), the plain scan
+    never called; held against the plain path on the card (the same
+    presence, BPP within TOL_SCAN_MAIN), seqs/s (host clock around one
+    call that ends in a copy to the host) and peak memory above what the
+    script held.  The Turner batch also against the float64 golden of
+    seq_1536 (TOL_GOLDEN_SCAN).  Returns the stats by run."""
+    from rna_algos_tpu_torch.parallel.runner import FoldEngine, kernel_bucket
+
+    g = np.load(ROOT / "tests" / "golden" / "longn_f64_1536.npz")
+    seq_1536 = [int(b) for b in g["seq_1536"]]
+    runs = [
+        ("turner_scan", "exact",
+         [seq_1536] + random_batch(*SCAN_TURNER[:3], seed=SCAN_TURNER[3])),
+        ("contra_scan", "exact", random_batch(*SCAN_CONTRA[:3],
+                                              seed=SCAN_CONTRA[3])),
+    ]
+    for model in ("contra", "turner"):
+        runs.append((f"{model}_parity_scan", "parity",
+                     random_batch(*SCAN_PARITY[:3], seed=SCAN_PARITY[3])))
+    stats = {}
+    for path, mode, seqs in runs:
+        contra = path.startswith("contra")
+        engine = FoldEngine(uses_contra_model=contra, device="cuda",
+                            numerics=mode)
+        Ns = {kernel_bucket(len(s), contra, mode) for s in seqs}
+        if len(Ns) != 1:
+            raise AssertionError(f"{path}: buckets {Ns}")
+        (N,) = Ns
+        label = f"{path}_N{N}_B{len(seqs)}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with counted_plain_scan() as n_plain:
+            t0 = time.perf_counter()
+            got = counted(label, path, lambda: engine.fold_batch(seqs))
+            wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        c = counts[label]
+        counts.setdefault(path, {k: 0 for k in c})
+        for k, v in c.items():
+            counts[path][k] += v
+        if n_plain[0] or c["scan_inside"] != N or c["scan_outside"] != N:
+            raise AssertionError(f"{label}: {c}, plain scan calls "
+                                 f"{n_plain[0]} (want {N} + {N}, 0 plain)")
+        held_against = seqs[:1] if path == "contra_scan" else seqs
+        t0 = time.perf_counter()
+        with plain_kernels():
+            plain = engine.fold_batch(held_against)
+        pwall = time.perf_counter() - t0
+        worst = 0.0
+        for (bk, pk), (bp, pp), s in zip(got, plain, held_against):
+            if not (bk.shape == (len(s), len(s)) and np.isfinite(bk).all()
+                    and np.array_equal(pk, pp)):
+                raise AssertionError(f"{label}: presence or shape differs "
+                                     "from the plain path")
+            worst = max(worst, float(np.abs(bk - bp).max()))
+        if not worst <= TOL_SCAN_MAIN:
+            raise AssertionError(f"{label}: main path disagrees with plain")
+        note = ""
+        if path == "turner_scan":
+            drift = float(np.abs(got[0][0] - g["bpp_1536_turner"]).max())
+            note = (f"; seq_1536 vs float64 golden max |dBPP| {drift:.3e} "
+                    f"(gate {TOL_GOLDEN_SCAN:g})")
+            if not drift <= TOL_GOLDEN_SCAN:
+                raise AssertionError(f"{label}: outside the golden gate")
+            stats[label + "_golden_drift"] = drift
+        nh = len(held_against)
+        stats[label] = dict(seqs_per_s=len(seqs) / wall, seconds=wall,
+                            plain_seqs_per_s=nh / pwall, held_against=nh,
+                            peak_gib=peak, max_abs_vs_plain=worst)
+        print(f"{label}: kernel vs plain path max |dBPP| {worst:.3e} on "
+              f"{nh} of {len(seqs)} sequences, presence identical{note}; "
+              f"{len(seqs) / wall:.4f} seqs/s ({wall:.3f} s/batch), plain "
+              f"path {nh / pwall:.4f} seqs/s; launches scan_inside {N}, scan_outside {N}, plain "
+              f"scan calls 0; peak memory {peak:.3f} GiB above the "
+              f"{held / 2**30:.3f} GiB held before, on {smi}")
+    return stats
+
+
+def scan_long(counted, counts, smi):
+    """Past 5,461 nt (phase 3), where K21's blocks of 1,024 threads take
+    more than 16 leaves a thread: Turner exact on a seeded SCAN_LONG-nt
+    sequence and seq_1536, padded to one bucket, through
+    mccaskill_bpp_batch_auto (the engine's call), counted on its own: K20
+    and K21 N launches, the plain scan never called.  seq_1536's BPPs
+    within TOL_GOLDEN_SCAN of its float64 golden; the long sequence's
+    finite, in [0, 1 + TOL_GOLDEN_SCAN], upper triangular (i < j), each
+    base paired with probability at most 1 + TOL_GOLDEN_SCAN.  Returns seqs/s, peak memory and the drift."""
+    from rna_algos_tpu_torch.models import mccaskill as M
+    from rna_algos_tpu_torch.parallel.runner import kernel_bucket, pad_seqs
+    from rna_algos_tpu_torch.weights import turner_tables
+
+    g = np.load(ROOT / "tests" / "golden" / "longn_f64_1536.npz")
+    seqs = random_batch(1, SCAN_LONG, SCAN_LONG, seed=SCAN_LONG) + [
+        [int(b) for b in g["seq_1536"]]]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # past 2048 nt
+        N = kernel_bucket(SCAN_LONG, False)
+    arr = torch.as_tensor(pad_seqs(seqs, N), dtype=torch.int64,
+                          device="cuda")
+    ns = torch.as_tensor([len(s) for s in seqs], dtype=torch.int32,
+                         device="cuda")
+    tbl = turner_tables("cuda")
+    label = f"turner_scan_long_N{N}_B2"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with counted_plain_scan() as n_plain:
+        t0 = time.perf_counter()
+        bpp, _ = counted(label, "turner_scan_long",
+                         lambda: M.mccaskill_bpp_batch_auto(arr, ns, tbl, N))
+        bpp = bpp.cpu().numpy()
+        wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    c = counts[label]
+    counts["turner_scan_long"] = c
+    if n_plain[0] or c["scan_inside"] != N or c["scan_outside"] != N:
+        raise AssertionError(f"{label}: {c}, plain scan calls {n_plain[0]} "
+                             f"(want {N} + {N}, 0 plain)")
+    long = bpp[0, :SCAN_LONG, :SCAN_LONG]
+    paired = float((long + long.T).sum(axis=1).max())
+    drift = float(np.abs(bpp[1, :1536, :1536]
+                         - g["bpp_1536_turner"]).max())
+    print(f"{label}: finite {np.isfinite(long).all()}, BPP in "
+          f"[{long.min():.6f}, {long.max():.6f}], below the diagonal "
+          f"{np.abs(np.tril(long)).max():g}, max P(paired) {paired:.6f}; "
+          f"seq_1536 vs its float64 golden {drift:.3e}")
+    if not (np.isfinite(long).all() and long.min() >= 0.0
+            and long.max() <= 1.0 + TOL_GOLDEN_SCAN
+            and not np.tril(long).any()
+            and paired <= 1.0 + TOL_GOLDEN_SCAN):
+        raise AssertionError(f"{label}: the {SCAN_LONG}-nt BPPs are not a "
+                             "pair-probability matrix")
+    if not drift <= TOL_GOLDEN_SCAN:
+        raise AssertionError(f"{label}: seq_1536 outside the golden gate")
+    print(f"{label}: {SCAN_LONG}-nt BPPs finite, within the gates, i < j, "
+          f"max P(paired) {paired:.6f}; seq_1536 in the same bucket vs its "
+          f"float64 golden max |dBPP| {drift:.3e} (gate "
+          f"{TOL_GOLDEN_SCAN:g}); {2 / wall:.4f} seqs/s ({wall:.3f} "
+          f"s/batch); launches scan_inside {N}, scan_outside {N}, plain scan "
+          f"calls 0; peak memory {peak:.3f} GiB above the "
+          f"{held / 2**30:.3f} GiB held before, on {smi}")
+    return {label: dict(seqs_per_s=2 / wall, seconds=wall, peak_gib=peak,
+                        golden_drift_seq_1536=drift, max_paired=paired)}
+
+
+def scan_cli(mc_cli, cf_cli):
+    """cli.mccaskill and cli.centroid_fold, --numerics parity -c, on a
+    400-nt record (bucket 512: the generic scan under parity) on the card
+    against --device cpu: the same key set and BPP within TOL_SCAN_MAIN,
+    the centroid files byte for byte."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        (seq,) = random_batch(1, 400, 400, seed=401)
+        fa = tmp / "r.fa"
+        fa.write_text(">r400\n" + "".join("ACGU"[b] for b in seq) + "\n")
+        outs = {}
+        for device in ("cuda", "cpu"):
+            flags = ["-c", "--numerics", "parity", "--device", device]
+            out = tmp / f"{device}.txt"
+            mc_cli.main(["-i", str(fa), "-o", str(out)] + flags)
+            outs[device] = parse_triples(out.read_text())
+            cf_cli.main(["-i", str(fa), "-o", str(tmp / device)] + flags)
+        names = sorted(os.listdir(tmp / "cpu"))
+        if names != sorted(os.listdir(tmp / "cuda")) or any(
+                (tmp / "cpu" / nm).read_bytes()
+                != (tmp / "cuda" / nm).read_bytes() for nm in names):
+            raise AssertionError("cli.centroid_fold --numerics parity, 400 "
+                                 "nt: the card's files differ from the CPU's")
+    worst, _ = compare_triples(outs["cpu"], outs["cuda"], TOL_SCAN_MAIN,
+                               "cli.mccaskill --numerics parity -c, 400 nt")
+    print(f"cli.mccaskill --numerics parity -c, 400-nt record: card vs "
+          f"--device cpu, identical key sets, worst {worst:.3e}; "
+          f"cli.centroid_fold: {len(names)} files byte-identical")
+    return worst
+
 KERNELS_P8 = ("contra_inside", "contra_outside", "turner_inside",
               "turner_outside")
 KERNELS_LONG = ("contra_inside_long", "contra_outside_long",
@@ -1607,6 +2156,11 @@ REPLACES = {
                           "rna_algos_tpu/ops/pallas_fold.py:931"),
     "turner_outside_log": ("rna_algos_tpu_torch/csrc/turner_outside_log.cu",
                            "rna_algos_tpu/ops/pallas_fold.py:1028"),
+    # the generic-N scan: no TPU kernel, the JAX package's XLA scan steps
+    "scan_inside": ("rna_algos_tpu_torch/csrc/fold_scan.cu",
+                    "rna_algos_tpu/models/mccaskill.py:72"),
+    "scan_outside": ("rna_algos_tpu_torch/csrc/fold_scan.cu",
+                     "rna_algos_tpu/models/mccaskill.py:179"),
 }
 LABELS = {"contra_inside": "K1", "contra_outside": "K2",
           "turner_inside": "K4", "turner_outside": "K5",
@@ -1614,7 +2168,8 @@ LABELS = {"contra_inside": "K1", "contra_outside": "K2",
           "turner_inside_long": "K12", "turner_outside_long": "K13",
           "pairhmm_prob": "K14", "pairhmm_log": "K15",
           "contra_inside_log": "K16", "contra_outside_log": "K17",
-          "turner_inside_log": "K18", "turner_outside_log": "K19"}
+          "turner_inside_log": "K18", "turner_outside_log": "K19",
+          "scan_inside": "K20", "scan_outside": "K21"}
 
 
 def main():
@@ -1626,6 +2181,7 @@ def main():
     from rna_algos_tpu_torch.ops import _build
     from rna_algos_tpu_torch.ops import pallas_align as PA
     from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
+    from rna_algos_tpu_torch.ops import fold_scan as FS
     from rna_algos_tpu_torch.ops import pallas_fold as PF
     from rna_algos_tpu_torch.ops import pallas_fold_long as PL
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
@@ -1658,7 +2214,8 @@ def main():
 
     # phase 2: kernels vs plain
     err = {k: 0.0 for k in REPLACES}
-    rel = {k: 0.0 for k in REPLACES if k.endswith(("inside", "inside_long"))}
+    rel = {k: 0.0 for k in REPLACES
+           if k.endswith(("inside", "inside_long")) and not k.startswith("scan")}
 
     def check_model(x):
         ik, ok = x["kernels"]
@@ -1744,6 +2301,8 @@ def main():
     durbin_times(dinputs, times)
     del dinputs
     log_checks(dev, err, rel, times, smi)
+    fast_err = {}
+    scan_checks(dev, err, fast_err, times, smi)
 
     # phase 3: the main paths, each counted on its own
     batches = {
@@ -1762,7 +2321,8 @@ def main():
                 PL.turner_outside_long_launches,
                 PAP.prob_launches, PA.log_launches,
                 PF.contra_inside_log_launches, PF.contra_outside_log_launches,
-                PF.turner_inside_log_launches, PF.turner_outside_log_launches)
+                PF.turner_inside_log_launches, PF.turner_outside_log_launches,
+                FS.inside_launches, FS.outside_launches)
     path_kernels = {
         "contra": ("skew", "contra_inside", "contra_outside"),
         "turner": ("skew", "turner_inside", "turner_outside"),
@@ -1772,6 +2332,11 @@ def main():
         "durbin_parity": ("pairhmm_log",),
         "contra_parity": ("skew", "contra_inside_log", "contra_outside_log"),
         "turner_parity": ("skew", "turner_inside_log", "turner_outside_log"),
+        "turner_scan": ("skew", "scan_inside", "scan_outside"),
+        "contra_scan": ("skew", "scan_inside", "scan_outside"),
+        "contra_parity_scan": ("skew", "scan_inside", "scan_outside"),
+        "turner_parity_scan": ("skew", "scan_inside", "scan_outside"),
+        "turner_scan_long": ("skew", "scan_inside", "scan_outside"),
     }
     results, counts = {}, {}
 
@@ -1894,6 +2459,8 @@ def main():
         for model in ("contra", "turner")}
     parity_stats, _ = parity_paths(parity_engines, batches, counted, counts,
                                    path_kernels, smi)
+    scan_stats = scan_paths(counted, counts, path_kernels, smi)
+    scan_stats.update(scan_long(counted, counts, smi))
 
     # the float64 goldens of the long-n anchors
     gdir = ROOT / "tests" / "golden"
@@ -1904,14 +2471,7 @@ def main():
                        (1536, TOL_GOLDEN)):
             seq = [int(b) for b in g[f"seq_{n}"]]
             if model == "turner" and n == 1536:
-                try:
-                    engine.fold_batch([seq])
-                except NotImplementedError as e:
-                    if "A10" not in str(e):
-                        raise
-                    print(f"turner n=1536: NotImplementedError ({e})")
-                    continue
-                raise AssertionError("turner n=1536 folded; expected A10")
+                tol = TOL_GOLDEN_SCAN   # the generic scan (K20/K21)
             bpp = engine.fold_batch([seq])[0][0]
             worst = float(np.abs(bpp - g[f"bpp_{n}_{model}"]).max())
             print(f"{model} n={n} vs float64 golden: max |dBPP| {worst:.3e} "
@@ -1969,6 +2529,7 @@ def main():
           "records byte-identical to the tRNA-only run")
 
     durbin_clis(du_cli, fasta, golden)
+    scan_stats["cli_parity_400_worst"] = scan_cli(mc_cli, cf_cli)
     verdict, tie_bpp = parity_clis(mc_cli, cf_cli, fasta, golden)
     parity_stats["turner_centroid_verdict"] = verdict
     parity_stats["turner_tie_bpp"] = tie_bpp
@@ -1991,7 +2552,8 @@ def main():
     for k, (src, rep) in REPLACES.items():
         by_shape = times[k]
         head = ("N1024_B16" if k.endswith("_long") else
-                "N128_P630" if k.startswith("pairhmm") else "N128_B192")
+                "N128_P630" if k.startswith("pairhmm") else
+                "N1536_B2_turner" if k.startswith("scan") else "N128_B192")
         paths = [m for m, ks in path_kernels.items() if k in ks]
         ms, pms, bms, by, lms = by_shape[head]
         entry = {
@@ -2008,6 +2570,8 @@ def main():
         }
         if k in rel:
             entry["max_rel_err"] = rel[k]
+        if k in fast_err:
+            entry["max_abs_err_fast"] = fast_err[k]
         if k in clusters:
             entry["cluster_by_shape"] = clusters[k]
         if k in threads:
@@ -2025,6 +2589,7 @@ def main():
         for k, v in long_stats.items()}}))
     print(json.dumps({"durbin_paths": durbin_stats}))
     print(json.dumps({"parity_paths": parity_stats}))
+    print(json.dumps({"scan_paths": scan_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

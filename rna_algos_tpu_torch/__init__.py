@@ -11,6 +11,9 @@ The centroid-fold main path, both models, held against the JAX package:
                      ops.pallas_fold_long.mccaskill_turner_pallas_prob
                      (kernels K12, K13, K3), or mccaskill_contra_pallas_prob
                      with -c (kernels K8, K9, K3)
+           any other bucket (and parity past 256): the generic-N scan,
+                     models.mccaskill.mccaskill_bpp_batch (kernels K20,
+                     K21 in ops.fold_scan, K3)
         -> models.mccaskill._prob_finish                 (kernel K3, inverse)
         -> models.centroid.mea_fill_gammas + traceback -> dot-bracket files
 

@@ -21,6 +21,8 @@ cubics; "fast" uses ``torch.logaddexp`` and ``torch.exp``.  -inf is the
 additive identity and ``lse_pair`` skips it as the reference does.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -75,13 +77,23 @@ EXPF_COEFFS = np.array(
 )
 
 
-def _piecewise_cubic(x, breaks, coeffs):
+_TABLES = {"ln": (LN_EXP_1P_BREAKS, LN_EXP_1P_COEFFS),
+           "exp": (EXPF_BREAKS[:-1], EXPF_COEFFS)}
+
+
+@functools.lru_cache(maxsize=None)
+def _on_device(name, device):
+    """(breaks, coeffs) of a cubic as tensors on ``device``, made once: a
+    copy from host memory on every call would wait for the device."""
+    return tuple(torch.as_tensor(t, device=device) for t in _TABLES[name])
+
+
+def _piecewise_cubic(x, name):
     """Horner evaluation with the coefficients of x's segment, row k of
-    ``coeffs`` for the k breaks at or below x."""
-    seg = torch.bucketize(x.contiguous(),
-                          torch.as_tensor(breaks, device=x.device),
-                          right=True)
-    c3, c2, c1, c0 = torch.as_tensor(coeffs, device=x.device)[seg].unbind(-1)
+    the coefficients for the k breaks at or below x."""
+    breaks, coeffs = _on_device(name, x.device)
+    seg = torch.bucketize(x.contiguous(), breaks, right=True)
+    c3, c2, c1, c0 = coeffs[seg].unbind(-1)
     return ((c3 * x + c2) * x + c1) * x + c0
 
 
@@ -91,7 +103,7 @@ def _f32(x):
 
 def ln_exp_1p(x):
     """CONTRAfold approximation of ln(1 + e^x) for 0 <= x <= 11.862479."""
-    return _piecewise_cubic(_f32(x), LN_EXP_1P_BREAKS, LN_EXP_1P_COEFFS)
+    return _piecewise_cubic(_f32(x), "ln")
 
 
 def expf(x, mode="exact"):
@@ -100,7 +112,7 @@ def expf(x, mode="exact"):
     x = _f32(x)
     if check_mode(mode) == "fast":
         return torch.exp(x)
-    approx = _piecewise_cubic(x, EXPF_BREAKS[:-1], EXPF_COEFFS)
+    approx = _piecewise_cubic(x, "exp")
     # the all-zero cubic gives 0 * -inf = NaN at x = -inf
     approx = torch.where(x < float(EXPF_BREAKS[0]), 0.0, approx)
     return torch.where(x >= 0.0, torch.exp(x), approx)
@@ -121,3 +133,49 @@ def lse_pair(a, b, mode="exact"):
     # the reference's `y + z` (1-ulp faithful) where both are finite
     big = torch.where(lo > NEG_INF, lo + z, hi)
     return torch.where(z < LOGSUMEXP_THRESHOLD_UPPER, lo + ln_exp_1p(z), big)
+
+
+def lse_accumulate(sum_val, x, mode="exact"):
+    """Streaming accumulate matching ``logsumexp(&mut sum, x)``: unlike
+    ``lse_pair`` it is asymmetric, a non-finite ``x`` leaves ``sum``
+    unchanged even if ``sum`` itself is non-finite."""
+    sum_val, x = _f32(sum_val), _f32(x)
+    return torch.where(torch.isfinite(x), lse_pair(sum_val, x, mode), sum_val)
+
+
+def _next_pow2(n):
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def lse_reduce(x, dim=-1, mode="exact"):
+    """Balanced-tree log-sum-exp along ``dim`` with ``lse_pair``: the axis
+    is padded with -inf (the identity) to the next power of two, then
+    halved, ``x[k] (+) x[k + half]``, until one term is left.  Since
+    ``lse_pair(x, -inf)`` is ``x`` bit for bit, a sum whose finite terms lie
+    in a prefix gives the same bits over any wider power of two.  In "fast"
+    mode: the max-form ``m + log(sum(exp(x - m)))``."""
+    x = _f32(x)
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    if n == 0:
+        return torch.full(x.shape[:-1], NEG_INF, dtype=torch.float32,
+                          device=x.device)
+    if check_mode(mode) == "fast":
+        m = x.amax(dim=-1)
+        fin = torch.isfinite(m)
+        safe = torch.where(fin, m, torch.zeros((), device=x.device))
+        s = torch.exp(x - safe[..., None]).sum(dim=-1)
+        return torch.where(fin, safe + torch.log(s),
+                           torch.full((), NEG_INF, device=x.device))
+    p = _next_pow2(n)
+    if p != n:
+        pad = torch.full(x.shape[:-1] + (p - n,), NEG_INF,
+                         dtype=torch.float32, device=x.device)
+        x = torch.cat([x, pad], dim=-1)
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = lse_pair(x[..., :half], x[..., half:], mode)
+    return x[..., 0]

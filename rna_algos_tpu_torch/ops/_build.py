@@ -55,6 +55,10 @@ SIGNATURES = {
     "rna_turner_outside_log": [ctypes.POINTER(_P)] + [_P] * 12
     + [_I, _I, _I, _P],
     "rna_log_group_of": [_I],
+    "rna_scan_inside": [ctypes.POINTER(_P), _P, ctypes.POINTER(_P),
+                        ctypes.POINTER(_P), _P, _P] + [_I] * 7 + [_P],
+    "rna_scan_outside": [ctypes.POINTER(_P), _P, ctypes.POINTER(_P),
+                         ctypes.POINTER(_P), _P, _P] + [_I] * 7 + [_P],
 }
 
 

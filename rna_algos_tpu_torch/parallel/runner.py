@@ -2,6 +2,8 @@
 (``rna_algos_tpu.parallel.runner``), both folding models and the Durbin
 pair-HMM, without a mesh."""
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -22,36 +24,37 @@ def pick_bucket(n):
     for b in BUCKETS:
         if n <= b:
             return b
+    if n > 2048:
+        # past the last kernel tier only the generic-N scan folds it
+        warnings.warn(
+            f"sequence length {n} exceeds the fused-kernel tiers "
+            "(N <= 2048); it folds through the generic-N scan (K20/K21, "
+            "one launch a span), which is orders of magnitude slower at "
+            "this length",
+            RuntimeWarning,
+            stacklevel=2,
+        )
     return ((n + 127) // 128) * 128
 
 
-# The JAX runner's promotions to the power-of-two kernel tiers.
-POW2_BUCKET = {96: 128, 192: 256, 384: 512}
-
-
-def _promote(N):
-    """96 -> 128, 192 -> 256, 384 -> 512, (512, 1024] -> 1024 and
-    (1024, 2048] -> 2048."""
-    if N in POW2_BUCKET:
-        return POW2_BUCKET[N]
-    for tier in (1024, 2048):
-        if tier // 2 < N <= tier:
-            return tier
-    return N
+# The JAX runner's promotions to the power-of-two tiers of every mode.
+POW2_BUCKET = {96: 128, 192: 256}
 
 
 def kernel_bucket(n, contra, numerics="exact"):
-    """The bucket the port folds a length-n sequence in: ``pick_bucket``
-    and the JAX runner's promotions to the kernel tiers.  Lengths past the
-    tiers (Turner n > 1024, any n > 2048; under parity any n > 256) raise:
-    the JAX package folds them with the XLA scan, which is not ported."""
-    N = _promote(pick_bucket(n))
-    if not M.pallas_available(contra, N, numerics):
-        model = "CONTRA" if contra else "Turner"
-        raise NotImplementedError(
-            f"{model} sequence of length {n} (bucket {pick_bucket(n)}) "
-            f"under {numerics} numerics {M.GENERIC_N_ITEM}"
-        )
+    """The bucket the port folds a length-n sequence in, the JAX runner's
+    rule: ``pick_bucket``, promoted to a power-of-two kernel tier only
+    where that tier takes it (96 -> 128, 192 -> 256; in the probability
+    tiers 384 -> 512, (512, 1024] -> 1024 and, for CONTRA, (1024, 2048] ->
+    2048).  Every other bucket (384 and up under parity, Turner past 1024,
+    any model past 2048) stays a multiple of 128 and runs the generic-N
+    scan."""
+    N = pick_bucket(n)
+    if N in POW2_BUCKET:
+        return POW2_BUCKET[N]
+    for lo, hi in ((256, 512), (512, 1024), (1024, 2048)):
+        if lo < N <= hi and M.pallas_available(contra, hi, numerics):
+            return hi
     return N
 
 

@@ -12,11 +12,14 @@ import jax.numpy as jnp
 from rna_algos_tpu.models import centroid as JC
 
 from rna_algos_tpu_torch.models import centroid as TC
+from rna_algos_tpu_torch.models import mccaskill as TM
+from rna_algos_tpu_torch.parallel.runner import kernel_bucket
 from rna_algos_tpu_torch.cli import centroid_fold as cf_cli
 from rna_algos_tpu_torch.cli import mccaskill as mc_cli
 
 from .conftest import REPO_ROOT
 from .test_reference_golden import _parse_triples
+from .scan_cases import single_torch_thread  # noqa: F401  (fixture)
 
 FASTA = str(REPO_ROOT / "assets" / "sampled_trnas.fa")
 GOLDEN = REPO_ROOT / "tests" / "golden"
@@ -93,20 +96,65 @@ def test_mccaskill_cli_within_golden_budget(tmp_path):
 
 
 @pytest.mark.parametrize("cli", [cf_cli, mc_cli])
-def test_cli_refuses_what_is_not_ported(tmp_path, cli):
-    out = str(tmp_path / "o")
-    # under parity the JAX package folds buckets past 256 with the XLA
-    # scan, which is not ported
-    fa400 = tmp_path / "n400.fa"
-    fa400.write_text(">n400\n" + "GCAU" * 100 + "\n")
-    with pytest.raises(NotImplementedError, match="A10"):
-        cli.main(["-i", str(fa400), "-o", out, "-c", "--device", "cpu",
-                  "--numerics", "parity"])
-    # past the kernel tiers (CONTRA n > 2048, Turner n > 1024) the JAX
-    # package runs the XLA scan, which is not ported
-    for model, n in ((["-c"], 2052), ([], 1028)):
-        long_fa = tmp_path / "long.fa"
-        long_fa.write_text(">long\n" + "GCAU" * (n // 4) + "\n")
-        with pytest.raises(NotImplementedError, match="A10"):
-            cli.main(["-i", str(long_fa), "-o", out, "--device", "cpu",
-                      *model])
+@pytest.mark.usefixtures("single_torch_thread")
+def test_cli_refuses_what_is_not_ported(tmp_path, cli, monkeypatch):
+    """(Named when these records were refused.) Under parity past 256 (the
+    400-nt record: bucket 512) and past the kernel tiers (CONTRA n > 2048,
+    Turner n > 1024) the JAX package folds with the XLA scan, and so does
+    the port (the generic-N path, K20/K21 on the card). On the CPU at a
+    small size: with no kernel tier taking a bucket, the CLIs fold the tRNA
+    fixture through the plain scan under parity and match the C baseline as
+    the JAX scan does: the same key sets within 5e-4, the centroid files
+    byte for byte."""
+    for n, contra, mode, N in ((400, True, "parity", 512),
+                               (2052, True, "exact", 2176),
+                               (1028, False, "exact", 1152)):
+        assert kernel_bucket(n, contra, mode) == N
+        assert not TM.pallas_available(contra, N, mode)
+    monkeypatch.setattr(TM, "pallas_available", lambda *a, **k: False)
+    out = tmp_path / "o"
+    flags = ["-i", FASTA, "-c", "--device", "cpu", "--numerics", "parity"]
+    if cli is mc_cli:
+        assert cli.main(flags + ["-o", str(out)]) == 0
+        ref = _parse_triples((GOLDEN / "c_baseline" / "mccaskill_contra.txt")
+                             .read_text())
+        got = _parse_triples(out.read_text())
+        assert set(ref) == set(got)
+        worst = 0.0
+        for rid, pairs in ref.items():
+            assert set(pairs) == set(got[rid]), rid
+            worst = max([worst] + [abs(p - got[rid][k])
+                                   for k, p in pairs.items()])
+        assert worst <= 5e-4, worst
+    else:
+        assert cli.main(flags + ["-o", str(out)]) == 0
+        ref_dir = GOLDEN / "c_baseline" / "centroid_contra"
+        names = sorted(os.listdir(ref_dir))
+        assert names == sorted(os.listdir(out))
+        for name in names:
+            assert (ref_dir / name).read_bytes() == (out / name).read_bytes()
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("cli", [cf_cli, mc_cli])
+def test_cli_folds_past_the_tiers(tmp_path, cli):
+    """The records the CLIs once refused fold on the CPU: a 400-nt record
+    under parity, a 1,028-nt Turner and a 2,052-nt CONTRA record (random,
+    seeded; the plain scan at buckets 512, 1152 and 2176).  The BPPs lie in
+    [0, 1 + 1e-2]: the cubic log-add drifts ~5e-3 from float64 at these
+    lengths (chip_smoke.TOL_GOLDEN_SCAN)."""
+    cases = ((["-c", "--numerics", "parity"], 400), ([], 1028),
+             (["-c"], 2052))
+    for flags, n in cases:
+        rng = np.random.default_rng(n)
+        fa = tmp_path / f"n{n}.fa"
+        fa.write_text(f">n{n}\n" + "".join(rng.choice(list("ACGU"), n))
+                      + "\n")
+        out = tmp_path / f"o{n}"
+        assert cli.main(["-i", str(fa), "-o", str(out), "--device", "cpu",
+                         *flags]) == 0
+        if cli is mc_cli:
+            (pairs,) = _parse_triples(out.read_text()).values()
+            assert pairs and all(0 <= p <= 1 + 1e-2 for p in pairs.values())
+        else:
+            assert len(os.listdir(out)) > 0

@@ -1,4 +1,4 @@
-"""Kernels K1-K5, K8, K9, K12-K19 against their plain versions on a
+"""Kernels K1-K5, K8, K9, K12-K21 against their plain versions on a
 CUDA GPU: the checks of chip_smoke.py, at the main paths' buckets (K1/K2
 and K4/K5 on live cells with their dead cells 0, also on edge batches at
 each bucket <= 256 and with NaN in their dead input cells and scratch; the long
@@ -6,8 +6,9 @@ tier's at a centred per-sequence ln_sigma, K8/K9 and K12/K13 on live cells
 with their dead cells 0, at every cluster size the check shapes take; the pair-HMM's
 bitwise at each pair's settled ln_sigma, also with NaN-filled output
 planes and on edge batches at N = 64 and 256; the parity tier's log kernels
-on a few random sequences at N = 128 and 256).  Skipped without a GPU; run on
-the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
+on a few random sequences at N = 128 and 256; the generic-N scan's K20/K21
+on the N = 160 edge batch and one parity path past 256).  Skipped without
+a GPU; run on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
 import numpy as np
 import pytest
@@ -385,3 +386,47 @@ def test_parity_path_launches_its_kernels(device, contra):
     assert n_plain[0] == 0
     assert all(bpp.shape == (len(s), len(s)) and np.isfinite(bpp).all()
                for (bpp, _), s in zip(out, seqs))
+
+
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+@pytest.mark.parametrize("model", ["contra", "turner"])
+def test_scan_kernels_match_plain(device, model, mode):
+    """K20/K21 (the generic-N scan) against their plain versions on the
+    edge batch at N = 160: bitwise on the live cells under exact, within
+    RTOL_SCAN_FAST under fast; with NaN-poisoned state and dead cells,
+    and with blocks of 32 threads (more leaves a thread)."""
+    ((N, lengths),) = chip_smoke.SCAN_EDGE.items()
+    x = chip_smoke.scan_inputs(model, N, len(lengths), seed=3 * N,
+                               device=device, lengths=lengths)
+    err, fast_err = {"scan_inside": 0.0, "scan_outside": 0.0}, {}
+    chip_smoke.check_scan(x, mode, err, fast_err,
+                          chip_smoke.scan_plain(x, mode))
+    plain = chip_smoke.scan_plain(x, "exact")
+    chip_smoke.check_scan(x, "exact", err, fast_err, plain, poison=True)
+    with chip_smoke.narrow_blocks(32):
+        chip_smoke.check_scan(x, "exact", err, fast_err, plain)
+    assert err == {"scan_inside": 0.0, "scan_outside": 0.0}
+
+
+@pytest.mark.parametrize("contra", [True, False], ids=["contra", "turner"])
+def test_scan_path_launches_its_kernels(device, contra):
+    """Under parity past 256 the engine runs the generic-N scan: K20 and
+    K21 N launches a pass, the plain scan never called, the BPPs equal to
+    the plain path's."""
+    from rna_algos_tpu_torch.ops import fold_scan as FS
+    from rna_algos_tpu_torch.parallel.runner import FoldEngine
+
+    engine = FoldEngine(uses_contra_model=contra, device=device,
+                        numerics="parity")
+    seqs = chip_smoke.random_batch(3, 260, 300, seed=11)
+    for c in (FS.inside_launches, FS.outside_launches):
+        c.reset()
+    with chip_smoke.counted_plain_scan() as n_plain:
+        out = engine.fold_batch(seqs)
+    assert FS.inside_launches.count == FS.outside_launches.count == 384
+    assert n_plain[0] == 0
+    with chip_smoke.plain_kernels():
+        plain = engine.fold_batch(seqs)
+    for (bk, pk), (bp, pp) in zip(out, plain):
+        np.testing.assert_array_equal(bk, bp)
+        np.testing.assert_array_equal(pk, pp)

@@ -1,8 +1,8 @@
 """The long tier's routing and seed against the JAX package: the buckets
-``kernel_bucket(n, contra)`` picks for n = 1..2048 against the JAX
-``FoldEngine``'s promotions to the fused tiers (run with the TPU gate
-forced on), the refusal past them, ``pallas_available`` and
-``_estimate_ls0`` (the prefix seed) on a synthetic run."""
+``kernel_bucket(n, contra)`` picks for n = 1..2048 and past 2048 against
+the JAX ``FoldEngine``'s (run with the TPU gate forced on), the generic-N
+path off the tiers, ``pallas_available`` and ``_estimate_ls0`` (the prefix
+seed) on a synthetic run."""
 
 import numpy as np
 import pytest
@@ -16,10 +16,14 @@ from rna_algos_tpu.parallel import runner as JR
 from rna_algos_tpu.utils import platform as JPLAT
 
 from rna_algos_tpu_torch.models import mccaskill as TM
+from rna_algos_tpu_torch.ops import fold_scan as FS
 from rna_algos_tpu_torch.ops import pallas_fold_prob as TPP
+from rna_algos_tpu_torch.params import build_fold_score_sets
 from rna_algos_tpu_torch.parallel import runner as TR
+from rna_algos_tpu_torch.weights import contra_tables, turner_tables
 
 from .test_torch_fold import _synthetic_run
+from .scan_cases import single_torch_thread  # noqa: F401  (fixture)
 
 LENGTHS = range(1, 2049)
 
@@ -49,26 +53,54 @@ def test_kernel_bucket_matches_jax_runner(on_tpu, contra):
     fused = 0
     for n in LENGTHS:
         N = on_tpu[n]
+        assert TR.kernel_bucket(n, contra) == N, n
         if JM.pallas_available(contra, N):
             fused += 1
-            assert TR.kernel_bucket(n, contra) == N, n
             assert TM.pallas_available(contra, N)
         else:
-            # the JAX package folds it with the XLA scan, not ported
-            with pytest.raises(NotImplementedError, match="A10"):
-                TR.kernel_bucket(n, contra)
+            # the JAX package folds it with the XLA scan: the port's
+            # generic-N path (K20/K21), at the same bucket
+            assert not TM.pallas_available(contra, N), n
+            assert N % 128 == 0 and N > 1024, (n, N)
     assert fused == (2048 if contra else 1024)
 
 
 @pytest.mark.parametrize("contra", [True, False], ids=["contra", "turner"])
-def test_kernel_bucket_refuses_past_the_tiers(contra):
-    for n in (2049, 3000):
-        with pytest.raises(NotImplementedError, match="A10"):
-            TR.kernel_bucket(n, contra)
-    seqs = torch.zeros((1, 2176), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="A10"):
-        TM.mccaskill_bpp_batch_auto(seqs, torch.tensor([2100], dtype=torch.int32),
-                                    {}, N=2176, contra=contra)
+@pytest.mark.usefixtures("single_torch_thread")
+def test_kernel_bucket_refuses_past_the_tiers(on_tpu, contra, monkeypatch):
+    """(Named when these lengths were refused.) Past the tiers the port
+    takes the JAX runner's bucket (pick_bucket's multiples of 128, with its
+    RuntimeWarning past 2048) and the generic-N path:
+    ``mccaskill_bpp_batch_auto`` at a bucket no tier takes (N = 160) runs
+    the plain scan once a pass on the CPU."""
+    lengths = (2049, 2177, 3000)
+    with pytest.warns(RuntimeWarning, match="fused-kernel tiers"):
+        JR.FoldEngine(uses_contra_model=contra).fold_batch(
+            [[0] * n for n in lengths])
+    for n in lengths:
+        with pytest.warns(RuntimeWarning, match="fused-kernel tiers"):
+            N = TR.kernel_bucket(n, contra)
+        assert N == on_tpu[n] == ((n + 127) // 128) * 128
+        assert not TM.pallas_available(contra, N)
+    calls = []
+    for name in ("scan_inside_plain", "scan_outside_plain"):
+        orig = getattr(FS, name)
+        monkeypatch.setattr(FS, name, lambda *a, _o=orig, _n=name, **k:
+                            calls.append(_n) or _o(*a, **k))
+    N, B = 160, 2
+    rng = np.random.default_rng(contra)
+    seqs = torch.full((B, N), 4, dtype=torch.int64)
+    ns = torch.tensor([N, 117], dtype=torch.int32)
+    for k in range(B):
+        seqs[k, :int(ns[k])] = torch.as_tensor(rng.integers(0, 4, int(ns[k])))
+    tbl = (contra_tables(build_fold_score_sets(), "cpu") if contra
+           else turner_tables("cpu"))
+    bpp, presence = TM.mccaskill_bpp_batch_auto(seqs, ns, tbl, N=N,
+                                                contra=contra)
+    assert calls == ["scan_inside_plain", "scan_outside_plain"]
+    assert bpp.shape == presence.shape == (B, N, N)
+    assert torch.isfinite(bpp).all() and presence.any()
+    assert not presence[1, :, 117:].any()
 
 
 @pytest.mark.parametrize(

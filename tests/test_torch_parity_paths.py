@@ -29,6 +29,7 @@ from rna_algos_tpu.parallel import runner as JR
 
 from rna_algos_tpu_torch.cli import centroid_fold as cf_cli
 from rna_algos_tpu_torch.cli import mccaskill as mc_cli
+from rna_algos_tpu_torch.models import mccaskill as TM
 from rna_algos_tpu_torch.parallel import runner as TR
 
 from .test_torch_long_tiers import on_tpu  # noqa: F401  (fixture)
@@ -98,13 +99,13 @@ def test_parity_kernel_bucket_matches_jax_runner(on_tpu, contra):  # noqa: F811
             [[0] * n for n in lengths])
         for n in lengths:
             N = on_tpu[n]
-            if JM.pallas_available(contra, N):
-                assert TR.kernel_bucket(n, contra, "parity") == N, n
-            else:
-                # the JAX package runs the XLA scan past 256 under parity
-                assert n > 256
-                with pytest.raises(NotImplementedError, match="A10"):
-                    TR.kernel_bucket(n, contra, "parity")
+            assert TR.kernel_bucket(n, contra, "parity") == N, n
+            if not JM.pallas_available(contra, N):
+                # the JAX package runs the XLA scan past 256 under parity,
+                # the port its generic-N path, at the same bucket (384 stays
+                # 384)
+                assert n > 256 and N == 384, (n, N)
+                assert not TM.pallas_available(contra, N, "parity")
 
 
 def test_fold_engine_checks_numerics():
