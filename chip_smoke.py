@@ -33,12 +33,14 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    K16/K18 on the live cells (i + d < n) with the fills in the dead ones,
    and with NaN in every dead input cell and scratch word, each launch's
    threads a lane printed); the generic-N scan's K20 (inside) and K21
-   (outside), one launch a span, both models, at N = 384, B = 8 and
+   (outside), one cooperative launch a pass, both models, at N = 384,
+   B = 8 and
    N = 1536, B = 2 (exact and fast) and on edge batches at N = 160 (n = 1,
    2, 3, n = N, a mix; exact, fast and parity), bitwise on the live cells
    under exact and parity (within RTOL_SCAN_FAST under fast), under exact
    also with NaN in every state cell and every dead score-table cell and
-   with blocks narrow enough for 64 and 128 tree leaves a thread; and each
+   with the narrowest groups the spans allow on a grid of SCAN_NARROW[1]
+   blocks (lanes taken in many rounds); and each
    one's time
    beside the plain version's, its bound and, for K3, the time of one
    torch.gather computing the same skew, at the main paths' shapes;
@@ -61,7 +63,7 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    150-200 nt batches, each counted on its own (one K16/K17 or K18/K19
    launch a bucket, the plain log wavefronts never called), against the
    plain path on the card (the same presence, BPP within 1e-5), with its
-   seqs/s and peak memory; the generic-N paths (K20/K21 N launches a pass,
+   seqs/s and peak memory; the generic-N paths (K20/K21 one launch a pass,
    the plain scan never called), each against the plain path on the card
    (the same presence, BPP within 1e-5): Turner exact on seq_1536 of
    tests/golden/longn_f64_1536.npz and four seeded 1,409-1,536 nt
@@ -70,7 +72,7 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    2,817-2,944 nt sequences (bucket 2944, LSU rRNA scale; the plain path
    on the first), and parity for both models on eight seeded 300-384 nt
    sequences (bucket 384), each with seqs/s and peak memory; and Turner
-   exact past 5,461 nt: a seeded 5,600-nt sequence beside seq_1536
+   exact on a seeded 5,600-nt sequence beside seq_1536
    (bucket 5632), seq_1536 against its float64 golden, the long one's BPPs
    against the probability gates;
 4. the centroid CLI on assets/sampled_trnas.fa: with -c byte for byte
@@ -244,7 +246,7 @@ LOG_OUTSIDE_INPUTS = {"contra_outside_log": (7, 2, 1),
                       "turner_outside_log": (16, 1, 2)}
 
 # The generic-N scan, kernels K20 (inside) and K21 (outside) of
-# ops/fold_scan.py, one launch a span.  Kernel vs plain on the card: under
+# ops/fold_scan.py, one cooperative launch a pass.  Kernel vs plain on the card: under
 # "exact" and "parity" (one kernel instance: the mode only switches "fast")
 # both round every add and multiply on its own and sum in the same halving
 # trees, so bitwise is required on the live cells (i + d < n; right-layout
@@ -259,10 +261,11 @@ LOG_OUTSIDE_INPUTS = {"contra_outside_log": (7, 2, 1),
 # 2, 3, n = N and a mix, at N = 160 (not a power of two).
 SCAN_CHECK = ((384, 8), (1536, 2))
 SCAN_EDGE = {160: (1, 2, 3, 160, 45, 97, 130, 159)}
-# Blocks held narrower than the wrappers pick them (narrow_blocks), so that
-# K21's context tree takes 64 (N = 384) and 128 (N = 1536, the most) leaves
-# a thread: past N = 5,461 the blocks of 1,024 threads take more than 16.
-SCAN_NARROW = {384: 32, 1536: 64}
+# The schedule held at its narrowest (narrow_groups): groups at most
+# SCAN_NARROW[0] threads wide, so each span takes the narrowest its trees
+# allow (2^LG leaves a thread: K21's context at 256 at N = 1536), on a
+# grid of SCAN_NARROW[1] blocks, so that a span's lanes take many rounds.
+SCAN_NARROW = (1, 8)
 RTOL_SCAN_FAST = 1e-4
 SCAN_STATE = {"scan_inside": ("close", "ext", "mb", "one", "qone", "qrm",
                               "qrmmb"),
@@ -275,8 +278,9 @@ SCAN_STATE = {"scan_inside": ("close", "ext", "mb", "one", "qone", "qrm",
 SCAN_TURNER = (4, 1409, 1536, 1536)
 SCAN_CONTRA = (2, 2817, 2944, 2944)
 SCAN_PARITY = (8, 300, 384, 384)
-# Past 5,461 nt (K21's context tree past 16 leaves a thread at 1,024
-# threads): one seeded sequence of this length with seq_1536 beside it
+# K21's context trees past 16,384 terms (groups of at least 128 threads at
+# 256 leaves a thread): one seeded sequence of this length with seq_1536
+# beside it
 # (bucket 5,632).  A base's pair probabilities sum to at most 1 in exact
 # arithmetic; the cubic numerics move that sum by up to 6.40e-3 (the JAX
 # scan, jitted on the CPU) and 6.42e-3 (the port's plain path) from the
@@ -1758,18 +1762,19 @@ def poisoned_state():
 
 
 @contextlib.contextmanager
-def narrow_blocks(T):
-    """The scan wrappers' blocks held at T threads, so that each thread
-    takes more tree leaves (up to fold_scan.MAX_LEAVES) than the blocks
-    the wrappers pick give it at these N."""
+def narrow_groups(cap, blocks):
+    """The scan wrappers' groups held at most ``cap`` threads wide and
+    their grid at ``blocks`` blocks, so that each span takes the narrowest
+    groups its trees allow (the most tree leaves a thread) and its lanes
+    in many rounds."""
     from rna_algos_tpu_torch.ops import fold_scan as FS
 
-    threads = FS.threads
-    FS.threads = lambda extent: T
+    saved = FS.GROUP_CAP, FS.GRID_CAP
+    FS.GROUP_CAP, FS.GRID_CAP = cap, blocks
     try:
         yield
     finally:
-        FS.threads = threads
+        FS.GROUP_CAP, FS.GRID_CAP = saved
 
 
 def scan_plain(x, mode):
@@ -1809,7 +1814,7 @@ def check_scan(x, mode, err, fast_err, plain, poison=False):
 
 
 def scan_work(kernel, x):
-    """(bytes, FLOPs) of one pass (N launches) of K20 or K21 on ``x``: the
+    """(bytes, FLOPs) of one pass (one launch) of K20 or K21 on ``x``: the
     terms this run's data needs (SCAN_OPS) and each table cell once at the
     live cells (SCAN_TABLES), counted on the host."""
     from rna_algos_tpu_torch.ops import fold_scan as FS
@@ -1846,6 +1851,30 @@ def scan_work(kernel, x):
     return 4.0 * cells * (reads + writes) + cells, flops
 
 
+def scan_reread_ms(kernel, x):
+    """K20's or K21's HBM re-read floor in ms: the bytes its O(d) sums
+    load on this run's live cells, at the HBM rate, as if the L2 kept none
+    of them (reread_ms's rule).  Inside: 12 B a term t >= 1 (rm, ext, one;
+    CONTRA 16 B with rmmb); outside: 4 B a pm term (G) and 4 B one's for
+    k >= 2, and at the pair cells 8 B a context term (pm, pm2) and 4 B
+    qone's for t >= 2."""
+    N = x["seqs"].shape[1]
+    I, D = np.meshgrid(np.arange(N), np.arange(N), indexing="ij")
+    nbytes = 0.0
+    for b, n in enumerate(x["ns"].tolist()):
+        live = I + D < n
+        if kernel == "scan_inside":
+            per = 16.0 if x["contra"] else 12.0
+            nbytes += per * float(np.maximum(D - 1, 0)[live].sum())
+        else:
+            r = (n - 1 - I - D)[live]
+            nbytes += float((4.0 * r + 4.0 * np.maximum(r - 1, 0)).sum())
+            pair = live & np.isfinite(x["close"][b])
+            nbytes += float((8.0 * I + 4.0 * np.maximum(I - 1, 0))[pair]
+                            .sum())
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
 def scan_bound(kernel, x):
     nbytes, flops = scan_work(kernel, x)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -1856,7 +1885,7 @@ def scan_bound(kernel, x):
 def scan_checks(device, err, fast_err, times, smi):
     """Phase 2 for K20/K21: both models against the plain versions at
     SCAN_CHECK under exact and fast, and under exact also with NaN-poisoned
-    inputs and with blocks of SCAN_NARROW threads; on SCAN_EDGE under
+    inputs and with the narrowest groups (SCAN_NARROW); on SCAN_EDGE under
     exact, fast and parity and poisoned.  Each pass timed (CUDA events, two
     passes after a warm-up) beside its plain version's exact pass (host
     clock, one pass) and its bound at SCAN_CHECK."""
@@ -1878,13 +1907,11 @@ def scan_checks(device, err, fast_err, times, smi):
                 if mode != "exact":
                     continue
                 check_scan(x, mode, err, fast_err, plain, poison=True)
-                T = SCAN_NARROW[N]
-                with narrow_blocks(T):
+                with narrow_groups(*SCAN_NARROW):
                     check_scan(x, mode, err, fast_err, plain)
                 print(f"check scan {model} N={N} B={B}: NaN-poisoned state "
-                      f"and dead cells, and blocks of {T} threads (K21 "
-                      f"{1 << ((3 * N - 1) // T).bit_length()} leaves a "
-                      "thread), bitwise")
+                      f"and dead cells, and the narrowest groups on "
+                      f"{SCAN_NARROW[1]} blocks, bitwise")
             del plain
             a = (x["seqs"], x["ns"], x["tbl"], x["pre"])
             ins = FS.scan_inside(*a, x["contra"])
@@ -1897,9 +1924,11 @@ def scan_checks(device, err, fast_err, times, smi):
                 pms = plain_ms[kernel]
                 bms, by = scan_bound(kernel, x)
                 times[kernel][f"N{N}_B{B}_{model}"] = (ms, pms, bms, by, None)
-                print(f"time N={N} B={B} {model} {kernel} (one pass, {N} "
-                      f"launches): kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                      f"bound {bms:.4f} ms ({by}) on {smi}")
+                print(f"time N={N} B={B} {model} {kernel} (one pass, one "
+                      f"launch on {FS.grid_blocks(kernel == 'scan_inside', x['contra'], 'exact')} "
+                      f"blocks): kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                      f"bound {bms:.4f} ms ({by}), HBM re-read floor "
+                      f"{scan_reread_ms(kernel, x):.4f} ms on {smi}")
         for N, lengths in SCAN_EDGE.items():
             x = scan_inputs(model, N, len(lengths), seed=3 * N,
                             device=device, lengths=lengths)
@@ -1941,7 +1970,7 @@ def counted_plain_scan():
 
 def scan_paths(counted, counts, path_kernels, smi):
     """The generic main paths (phase 3), each counted on its own: K20 and
-    K21 launched N times a pass (one pass each a bucket), the plain scan
+    K21 launched once a pass (one pass each a bucket), the plain scan
     never called; held against the plain path on the card (the same
     presence, BPP within TOL_SCAN_MAIN), seqs/s (host clock around one
     call that ends in a copy to the host) and peak memory above what the
@@ -1982,9 +2011,9 @@ def scan_paths(counted, counts, path_kernels, smi):
         counts.setdefault(path, {k: 0 for k in c})
         for k, v in c.items():
             counts[path][k] += v
-        if n_plain[0] or c["scan_inside"] != N or c["scan_outside"] != N:
+        if n_plain[0] or c["scan_inside"] != 1 or c["scan_outside"] != 1:
             raise AssertionError(f"{label}: {c}, plain scan calls "
-                                 f"{n_plain[0]} (want {N} + {N}, 0 plain)")
+                                 f"{n_plain[0]} (want 1 + 1, 0 plain)")
         held_against = seqs[:1] if path == "contra_scan" else seqs
         t0 = time.perf_counter()
         with plain_kernels():
@@ -2014,18 +2043,18 @@ def scan_paths(counted, counts, path_kernels, smi):
         print(f"{label}: kernel vs plain path max |dBPP| {worst:.3e} on "
               f"{nh} of {len(seqs)} sequences, presence identical{note}; "
               f"{len(seqs) / wall:.4f} seqs/s ({wall:.3f} s/batch), plain "
-              f"path {nh / pwall:.4f} seqs/s; launches scan_inside {N}, scan_outside {N}, plain "
+              f"path {nh / pwall:.4f} seqs/s; launches scan_inside 1, scan_outside 1, plain "
               f"scan calls 0; peak memory {peak:.3f} GiB above the "
               f"{held / 2**30:.3f} GiB held before, on {smi}")
     return stats
 
 
 def scan_long(counted, counts, smi):
-    """Past 5,461 nt (phase 3), where K21's blocks of 1,024 threads take
-    more than 16 leaves a thread: Turner exact on a seeded SCAN_LONG-nt
+    """Past 5,461 nt (phase 3), where K21's context trees pass 16,384
+    terms: Turner exact on a seeded SCAN_LONG-nt
     sequence and seq_1536, padded to one bucket, through
     mccaskill_bpp_batch_auto (the engine's call), counted on its own: K20
-    and K21 N launches, the plain scan never called.  seq_1536's BPPs
+    and K21 one launch each, the plain scan never called.  seq_1536's BPPs
     within TOL_GOLDEN_SCAN of its float64 golden; the long sequence's
     finite, in [0, 1 + TOL_GOLDEN_SCAN], upper triangular (i < j), each
     base paired with probability at most 1 + TOL_GOLDEN_SCAN.  Returns seqs/s, peak memory and the drift."""
@@ -2057,9 +2086,9 @@ def scan_long(counted, counts, smi):
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     c = counts[label]
     counts["turner_scan_long"] = c
-    if n_plain[0] or c["scan_inside"] != N or c["scan_outside"] != N:
+    if n_plain[0] or c["scan_inside"] != 1 or c["scan_outside"] != 1:
         raise AssertionError(f"{label}: {c}, plain scan calls {n_plain[0]} "
-                             f"(want {N} + {N}, 0 plain)")
+                             f"(want 1 + 1, 0 plain)")
     long = bpp[0, :SCAN_LONG, :SCAN_LONG]
     paired = float((long + long.T).sum(axis=1).max())
     drift = float(np.abs(bpp[1, :1536, :1536]
@@ -2080,7 +2109,7 @@ def scan_long(counted, counts, smi):
           f"max P(paired) {paired:.6f}; seq_1536 in the same bucket vs its "
           f"float64 golden max |dBPP| {drift:.3e} (gate "
           f"{TOL_GOLDEN_SCAN:g}); {2 / wall:.4f} seqs/s ({wall:.3f} "
-          f"s/batch); launches scan_inside {N}, scan_outside {N}, plain scan "
+          f"s/batch); launches scan_inside 1, scan_outside 1, plain scan "
           f"calls 0; peak memory {peak:.3f} GiB above the "
           f"{held / 2**30:.3f} GiB held before, on {smi}")
     return {label: dict(seqs_per_s=2 / wall, seconds=wall, peak_gib=peak,

@@ -55,10 +55,9 @@ SIGNATURES = {
     "rna_turner_outside_log": [ctypes.POINTER(_P)] + [_P] * 12
     + [_I, _I, _I, _P],
     "rna_log_group_of": [_I],
-    "rna_scan_inside": [ctypes.POINTER(_P), _P, ctypes.POINTER(_P),
-                        ctypes.POINTER(_P), _P, _P] + [_I] * 7 + [_P],
-    "rna_scan_outside": [ctypes.POINTER(_P), _P, ctypes.POINTER(_P),
-                         ctypes.POINTER(_P), _P, _P] + [_I] * 7 + [_P],
+    "rna_scan_blocks": [_I, _I, _I, _P],
+    "rna_scan_pass": [_I, ctypes.POINTER(_P), _P, ctypes.POINTER(_P),
+                      ctypes.POINTER(_P)] + [_P] * 5 + [_I] * 7 + [_P],
 }
 
 
@@ -119,7 +118,8 @@ def library():
     """Build (if needed) and load the kernel library; cached per process."""
     BUILD_DIR.mkdir(exist_ok=True)
     so = BUILD_DIR / f"librna_kernels_{source_hash()}.so"
-    build_seconds, out = 0.0, ""
+    log = so.with_suffix(".log")    # the compiler's output of that build
+    build_seconds, out = 0.0, log.read_text() if log.exists() else ""
     if not so.exists():
         t0 = time.perf_counter()
         work = pathlib.Path(tempfile.mkdtemp(dir=BUILD_DIR))
@@ -150,6 +150,7 @@ def library():
         if failed:
             shutil.rmtree(work, ignore_errors=True)
             raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{out}")
+        log.write_text(out)
         os.replace(tmp, so)
         shutil.rmtree(work, ignore_errors=True)
         build_seconds = time.perf_counter() - t0

@@ -1,20 +1,29 @@
-"""Kernels K20 and K21: the span steps of the generic-N McCaskill scan
-(``rna_algos_tpu.models.mccaskill._inside`` / ``_outside``).
+"""Kernels K20 and K21: the inside and outside passes of the generic-N
+McCaskill scan (``rna_algos_tpu.models.mccaskill._inside`` / ``_outside``).
 
 The JAX package folds every bucket its TPU kernels do not take with an XLA
 ``lax.scan`` over the spans: increasing for the inside pass, decreasing for
 the outside pass, one anti-diagonal a step, in cubic log space under
-"exact" and "parity" and with ``logaddexp`` under "fast".  Here each step is
-one launch of a hand-written kernel (``csrc/fold_scan.cu``): K20 for the
-inside, K21 for the outside, N launches a pass, one block a live lane
-(sequence b, left end i, i + d < n).
+"exact" and "parity" and with ``logaddexp`` under "fast".  Here each pass
+is one cooperative launch of a hand-written kernel (``csrc/fold_scan.cu``):
+K20 for the inside, K21 for the outside.  Its blocks stay resident and walk
+the spans with one grid barrier a span; at each span the live lanes
+(sequence b, left end i, i + d < n) go to groups of g threads, g a power of
+two chosen for the span and the kind of work (``span_work``), and a unit
+of threads takes its items in rounds (``span_units``).  The lanes that
+carry a 2-loop window (K20: those that can close; K21: those that can
+pair) are listed two spans ahead, and their windows summed a span ahead,
+so that each kind of work gets groups of its own width.
 
 Every sum is ``numerics.lse_reduce``'s halving tree at the term indices the
 JAX scan gives them: the 2-loop window at a * 31 + b (961 terms), the O(d)
-sums at their term t, the multibranch context at t, N + t and 2N + t.  As
-``lse_pair(x, -inf)`` is ``x`` bit for bit, a tree over the live terms only
-gives the same bits, so the plain versions and the kernels pay O(d) a lane
-and agree bit for bit under the cubic modes.
+sums at their term t, the multibranch context at t, N + t and 2N + t.
+Thread t of a group holds the terms t + m g and closes the halving tree
+over them in bit-reversed order of m; the group then halves over its
+threads.  As ``lse_pair(x, -inf)`` is ``x`` bit for bit, a tree over the
+live terms only, or one that skips a dead run whole, gives the same bits,
+so the plain versions and the kernels pay O(d) a lane and agree bit for bit
+under the cubic modes.
 
 The state tables are (B, N, N) float32: left layout [b, i, d] = state(i,
 i + d) for close, ext, mb, one (inside) and bppo, G (outside), right layout
@@ -33,13 +42,21 @@ from . import _build
 from . import scores as S
 
 W = S.WINDOW            # 2-loop window extent
-LEAVES = 16             # tree leaves a thread while the block can grow
-MAX_LEAVES = 128        # 2^SCAN_MAX_LG in csrc/fold_scan.cu
-MIN_THREADS, MAX_THREADS = 64, 1024
-# The kernels' largest N: K21's context tree (3N terms) in one block.  One
-# (N, N) float32 table takes 7.6 GB there, and a sequence ~22 of them, so
-# the card's memory binds first.
-MAX_N = MAX_LEAVES * MAX_THREADS // 3
+SCAN_T = 512            # threads a block (csrc/fold_scan.cu)
+LG_INSIDE = 7           # K20: at most 2^7 tree leaves a thread
+LG_OUTSIDE = 8          # K21: 2^8
+MIN_LEAVES = 4          # a span's widest tree: >= 4 leaves a thread
+RUN = 4                 # a thread takes its positions 4 at a time
+# The kernels' largest N: K21's context tree (3N terms) over one block at
+# 2^LG_OUTSIDE leaves a thread.  One (N, N) float32 table takes 7.6 GB
+# there, and a sequence ~22 of them, so the card's memory binds first.
+MAX_N = SCAN_T * 2 ** LG_OUTSIDE // 3
+# Groups at most GROUP_CAP threads wide (a power of two), and a pass on at
+# most GRID_CAP blocks (0: as many as the card keeps resident).  The
+# checks lower them to reach the narrowest groups a span allows and lanes
+# taken in many rounds (chip_smoke.narrow_groups).
+GROUP_CAP = SCAN_T
+GRID_CAP = 0
 
 inside_launches = _build.LaunchCounter("scan_inside")
 outside_launches = _build.LaunchCounter("scan_outside")
@@ -295,19 +312,126 @@ def _device(name, t):
     return dev.type
 
 
-def threads(extent):
-    """Threads a block for trees of up to ``extent`` terms: a power of two
-    in [MIN_THREADS, MAX_THREADS] with LEAVES terms a thread; past
-    MAX_THREADS * LEAVES each thread takes more (the kernel doubles its
-    leaves until they cover the tree), up to MAX_LEAVES."""
-    T = MIN_THREADS
-    while T * LEAVES < extent and T < MAX_THREADS:
-        T *= 2
-    if T * MAX_LEAVES < extent:
-        raise ValueError(f"fold_scan: a tree of {extent} terms exceeds one "
-                         f"block ({MAX_THREADS} threads x {MAX_LEAVES} "
-                         "leaves)")
-    return T
+def pow2_ceil(x):
+    """Least power of two >= x (1 for x <= 1)."""
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def inside_window_terms(d):
+    """K20's 2-loop window at span d: the (a, b) with a + b <= d - 2 and
+    a, b <= 30."""
+    return sum(min(W - 1, d - 2 - a) + 1 for a in range(min(W - 1, d - 2)
+                                                       + 1))
+
+
+def inside_window_extent(d):
+    """The last live window term a * 31 + b at span d, plus one."""
+    if d < 2:
+        return 0
+    a = min(W - 1, d - 2)
+    return a * W + min(W - 1, d - 2 - a) + 1
+
+
+def group_width(E, width, count, threads, lg, cap=None):
+    """The group width of a kind of work at a span (``scan_group`` in
+    csrc/fold_scan.cu): a power of two no wider than the widest tree's E
+    live terms over MIN_LEAVES leaves a thread, nor than ``threads`` (the
+    grid's) over the ``count`` items, nor than ``cap``; no narrower than
+    the widest tree's ``width`` (a power of two) over 2^lg leaves a thread;
+    at most SCAN_T.  Refuses a tree no block holds (N past MAX_N)."""
+    cap = GROUP_CAP if cap is None else cap
+    if width > SCAN_T << lg:
+        raise ValueError(f"fold_scan: a tree {width} wide exceeds one block "
+                         f"({SCAN_T} threads x {1 << lg} leaves)")
+    g = pow2_ceil((E + MIN_LEAVES - 1) // MIN_LEAVES)
+    g = min(g, 1 << (max(1, threads // max(count, 1)).bit_length() - 1))
+    g = max(min(g, cap), max(1, width >> lg))
+    return min(g, SCAN_T)
+
+
+def span_work(inside, d, N, lanes, listed, min_span_, threads, cap=None):
+    """The work of span d in the order the kernel takes it: (kind, span of
+    its lanes, count, group width), ``lanes(d)`` the live lanes of a span
+    and ``listed(d)`` the lanes of its list.  K20: the windows of span
+    d + 1's closing lanes, the list of span d + 2's (groups of 1), span d's
+    lanes.  K21: the contexts of span d's pair lanes, the pm/pm2 trees of
+    its lanes, the windows of span d - 1's pair lanes, the list of span
+    d - 2's.  A kind with no items is left out."""
+    out = []
+
+    def add(kind, at, count, E, width, lg):
+        if count > 0:
+            out.append((kind, at, count,
+                        1 if kind == "list" else
+                        group_width(E, width, count, threads, lg, cap)))
+
+    if inside:
+        if 2 <= d + 1 < N:
+            add("window", d + 1, listed(d + 1), inside_window_terms(d + 1),
+                pow2_ceil(inside_window_extent(d + 1)), LG_INSIDE)
+        if d + 2 < N and d + 3 >= min_span_:
+            add("list", d + 2, lanes(d + 2), 0, 1, 0)
+        add("lanes", d, lanes(d), d, pow2_ceil(d), LG_INSIDE)
+    else:
+        if d + 1 >= min_span_:
+            add("context", d, listed(d), max(3 * (N - 1 - d), 1),
+                pow2_ceil(3 * N - d), LG_OUTSIDE)
+        add("pm", d, lanes(d), max(N - 1 - d, 1), pow2_ceil(N - d),
+            LG_OUTSIDE)
+        if d >= 1 and d >= min_span_:
+            add("window", d - 1, listed(d - 1), W * W, pow2_ceil(W * W),
+                LG_OUTSIDE)
+        if d - 2 >= 0 and d - 1 >= min_span_:
+            add("list", d - 2, lanes(d - 2), 0, 1, 0)
+    return out
+
+
+def span_units(g, items, blocks):
+    """The items of a kind of work as ``span_lanes`` in csrc/fold_scan.cu
+    hands them out, for every thread of the grid: arrays over (block,
+    thread) of the thread's index t in its group, its group in the block,
+    and the item of each round (a list; -1 where the thread's group
+    idles)."""
+    import numpy as np
+
+    tb = np.arange(SCAN_T)[None, :]
+    blk = np.arange(blocks)[:, None]
+    per = max(g, 32)
+    lpu = per // g
+    units = (SCAN_T // per) * blocks
+    u = (tb // per) * blocks + blk
+    gin = (tb % per) // g
+    rounds, first = [], u * lpu
+    while (first < items).any():
+        item = first + gin
+        rounds.append(np.where((first < items) & (item < items), item, -1))
+        first = first + units * lpu
+    return (np.broadcast_to(tb & (g - 1), u.shape),
+            np.broadcast_to(tb // g, u.shape), rounds)
+
+
+def lane_offsets(ns, N):
+    """(N, B + 1) int32: entry [d, b] counts the live lanes of span d in
+    the sequences before b (lane l of span d is sequence b's left end
+    l - [d, b])."""
+    ns = ns.to(torch.int32)
+    d = torch.arange(N, device=ns.device, dtype=torch.int32)
+    live = (ns[None, :] - d[:, None]).clamp(min=0)
+    off = torch.zeros((N, ns.numel() + 1), dtype=torch.int32,
+                      device=ns.device)
+    off[:, 1:] = torch.cumsum(live, 1, dtype=torch.int32)
+    return off
+
+
+def grid_blocks(inside, contra, mode):
+    """The blocks of a pass: as many as the card keeps resident for the
+    kernel instance (a cooperative launch takes no more), at most
+    GRID_CAP if set."""
+    out = _build.ctypes.c_int(0)
+    _build.library().call("rna_scan_blocks", int(inside), int(contra),
+                          int(check_mode(mode) == "fast"),
+                          _build.ctypes.byref(out))
+    return min(out.value, GRID_CAP) if GRID_CAP else out.value
 
 
 def _check(name, seqs, ns, tables, tnames, params, pnames, state, snames):
@@ -315,8 +439,8 @@ def _check(name, seqs, ns, tables, tnames, params, pnames, state, snames):
     dev = seqs.device
     if N > MAX_N:
         raise ValueError(f"{name}: N = {N} > MAX_N = {MAX_N} (K21's context "
-                         f"tree of 3N terms in one block of {MAX_THREADS} "
-                         f"threads x {MAX_LEAVES} leaves)")
+                         f"tree of 3N terms in one block of {SCAN_T} "
+                         f"threads x {1 << LG_OUTSIDE} leaves)")
     want = {k: (tables[k], (B, N, N), torch.float32) for k in tnames}
     want["canon"] = (tables["canon"], (B, N, N), torch.bool)
     want.update({k: (state[k], (B, N, N), torch.float32) for k in snames})
@@ -355,64 +479,62 @@ def _launch_args(seqs, ns, tbl, contra):
     return tnames, pnames, params, s32, n32
 
 
+def _pass(inside, seqs, ns, tbl, pre, state, names, contra,
+          allows_short_hairpins, mode):
+    """One cooperative launch of K20 (``inside``) or K21 on the (B, N, N)
+    ``state`` tables, in the order of ``names``."""
+    B, N = seqs.shape
+    dev = seqs.device
+    tnames, pnames, params, s32, n32 = _launch_args(seqs, ns, tbl, contra)
+    _check("scan_inside" if inside else "scan_outside", s32, n32, pre,
+           tnames, params, pnames, state, names)
+    lib = _build.library()
+    lanes = lane_offsets(n32, N)
+    # the work lists (3 B N entries, then N counts at zero) and the window
+    # sums (2 B N, -inf)
+    lists = torch.zeros(3 * B * N + N, dtype=torch.int32, device=dev)
+    windows = _neg((2, B, N), dev)
+    lib.call("rna_scan_pass", int(inside), _ptrs([pre[k] for k in tnames]),
+             _build.ptr(pre["canon"]), _ptrs([params[k] for k in pnames]),
+             _ptrs([state[k] for k in names]), _build.ptr(s32),
+             _build.ptr(n32), _build.ptr(lanes), _build.ptr(lists),
+             _build.ptr(windows), B, N, int(contra),
+             int(check_mode(mode) == "fast"),
+             min_span(contra, allows_short_hairpins), GROUP_CAP,
+             grid_blocks(inside, contra, mode), _build.stream_ptr(dev))
+
+
 def scan_inside(seqs, ns, tbl, pre, contra, allows_short_hairpins=False,
                 mode="exact"):
-    """The inside pass: kernel K20 (``csrc/fold_scan.cu``) once a span for
-    CUDA tensors, ``scan_inside_plain`` for CPU tensors.  Returns the state
-    dict of INSIDE_STATE; the kernels write the live cells (i + d < n)
-    only, the others keep their fills."""
+    """The inside pass: kernel K20 (``csrc/fold_scan.cu``), one launch,
+    for CUDA tensors, ``scan_inside_plain`` for CPU tensors.  Returns the
+    state dict of INSIDE_STATE; the kernel writes the live cells (i + d <
+    n) only, the others keep their fills."""
     if _device("scan_inside", seqs) == "cpu":
         return scan_inside_plain(seqs, ns, tbl, pre, contra,
                                  allows_short_hairpins, mode)
     B, N = seqs.shape
-    dev = seqs.device
-    st = _state(INSIDE_STATE, B, N, dev, INSIDE_FILLS)
-    tnames, pnames, params, s32, n32 = _launch_args(seqs, ns, tbl, contra)
-    _check("scan_inside", s32, n32, pre, tnames, params, pnames, st,
-           INSIDE_STATE)
-    lib = _build.library()
-    tabs = _ptrs([pre[k] for k in tnames])
-    pars = _ptrs([params[k] for k in pnames])
-    sts = _ptrs([st[k] for k in INSIDE_STATE])
-    stream = _build.stream_ptr(dev)
-    fast = int(check_mode(mode) == "fast")
-    span_min = min_span(contra, allows_short_hairpins)
-    for d in range(N):
-        lib.call("rna_scan_inside", tabs, _build.ptr(pre["canon"]), pars,
-                 sts, _build.ptr(s32), _build.ptr(n32), B, N, d,
-                 int(contra), fast, span_min, threads(max(W * W, d)), stream)
-        inside_launches.count += 1
+    st = _state(INSIDE_STATE, B, N, seqs.device, INSIDE_FILLS)
+    _pass(True, seqs, ns, tbl, pre, st, INSIDE_STATE, contra,
+          allows_short_hairpins, mode)
+    inside_launches.count += 1
     return st
 
 
 def scan_outside(seqs, ns, tbl, pre, inside, contra,
                  allows_short_hairpins=False, mode="exact"):
-    """The outside pass: kernel K21 once a span (N - 1 down to 0) for CUDA
-    tensors, ``scan_outside_plain`` for CPU tensors.  ``inside`` is the
-    inside pass's state dict.  Returns the state dict of OUTSIDE_STATE,
-    live cells written, the others their fills."""
+    """The outside pass: kernel K21, one launch (spans N - 1 down to 0),
+    for CUDA tensors, ``scan_outside_plain`` for CPU tensors.  ``inside``
+    is the inside pass's state dict.  Returns the state dict of
+    OUTSIDE_STATE, live cells written, the others their fills."""
     if _device("scan_outside", seqs) == "cpu":
         return scan_outside_plain(seqs, ns, tbl, pre, inside, contra,
                                   allows_short_hairpins, mode)
     B, N = seqs.shape
-    dev = seqs.device
-    st = _state(OUTSIDE_STATE, B, N, dev, {})
-    tnames, pnames, params, s32, n32 = _launch_args(seqs, ns, tbl, contra)
-    ins = {k: inside[k] for k in ("close", "ext", "one", "qone")}
-    both = dict(st, **ins)
+    st = _state(OUTSIDE_STATE, B, N, seqs.device, {})
     names = ("close", "ext", "one", "qone") + OUTSIDE_STATE
-    _check("scan_outside", s32, n32, pre, tnames, params, pnames, both, names)
-    lib = _build.library()
-    tabs = _ptrs([pre[k] for k in tnames])
-    pars = _ptrs([params[k] for k in pnames])
-    sts = _ptrs([both[k] for k in names])
-    stream = _build.stream_ptr(dev)
-    fast = int(check_mode(mode) == "fast")
-    span_min = min_span(contra, allows_short_hairpins)
-    for d in range(N - 1, -1, -1):
-        lib.call("rna_scan_outside", tabs, _build.ptr(pre["canon"]), pars,
-                 sts, _build.ptr(s32), _build.ptr(n32), B, N, d,
-                 int(contra), fast, span_min,
-                 threads(max(W * W, 3 * N - d)), stream)
-        outside_launches.count += 1
+    both = dict(st, **{k: inside[k] for k in names[:4]})
+    _pass(False, seqs, ns, tbl, pre, both, names, contra,
+          allows_short_hairpins, mode)
+    outside_launches.count += 1
     return st

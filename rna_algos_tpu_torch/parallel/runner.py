@@ -28,9 +28,7 @@ def pick_bucket(n):
         # past the last kernel tier only the generic-N scan folds it
         warnings.warn(
             f"sequence length {n} exceeds the fused-kernel tiers "
-            "(N <= 2048); it folds through the generic-N scan (K20/K21, "
-            "one launch a span), which is orders of magnitude slower at "
-            "this length",
+            "(N <= 2048); it folds through the generic-N scan (K20/K21)",
             RuntimeWarning,
             stacklevel=2,
         )

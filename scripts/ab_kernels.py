@@ -37,6 +37,19 @@ sets (630 tRNA pairs at N = 128, 2,016 random pairs at N = 256), says
 whether the two builds' outputs are bitwise equal, then times the Durbin
 main paths (``AlignEngine``, chip_smoke.py's ``DURBIN_RUNS``) through each
 build in the same turns, with their pairs/s and peak memory.
+``--scan`` times the generic-N scan's kernels K20/K21 instead: ``--a`` is
+the ``csrc`` of a checkout (e.g. ``git archive PARENT rna_algos_tpu_torch``
+unpacked), driven by that checkout's own ``ops/fold_scan.py`` beside it
+(its C entry points may differ from today's).  One pass of each kernel
+(CUDA events, the mean of SCAN_REPS passes after a warm-up) per build in
+turns A, B, B, A, at CONTRA and Turner N = 1536 B = 2 (exact) and N = 384
+B = 8 (parity) on ``chip_smoke.scan_inputs``; each build's ptxas lines for
+them; whether the two builds' state tables are bitwise equal on the live
+cells; the bare grid barrier (``grid_barrier_probe``); then the generic
+main paths (``FoldEngine``: Turner N = 1536 B = 5, CONTRA N = 2944 B = 2,
+parity N = 384 B = 8 for both models, chip_smoke.py's batches) through
+each build in the same turns, with their seqs/s (host clock around one
+batch ending in the copy to the host, after a warm-up) and peak memory.
 ``--log`` times the parity tier's log-space kernels K16-K19 instead, on
 chip_smoke.py's log inputs (``log_inputs``: the arguments one parity fold
 hands its kernels) at N = 128, B = 192 and N = 256, B = 96, prints each
@@ -69,6 +82,15 @@ REPS = {128: 10, 256: 10, 512: 3, 1024: 3, 2048: 3}
 WAVEFRONT = ("rna_contra_inside", "rna_contra_outside", "rna_turner_inside",
              "rna_turner_outside")
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# Entry points of earlier builds that today's library no longer has: K20
+# and K21 one launch a span
+LEGACY_SIGNATURES = {
+    name: [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
+           _P, _P] + [_I] * 7 + [_P]
+    for name in ("rna_scan_inside", "rna_scan_outside")}
+SCAN_REPS = 3
+SCAN_SHAPES = (("contra", 1536, 2, "exact"), ("turner", 1536, 2, "exact"),
+               ("contra", 384, 8, "parity"), ("turner", 384, 8, "parity"))
 # Ring rows a sequence of an older build's ring scratch: CONTRA's window
 # ring, Turner's three 32-slot rings and its 8-slot ring.
 RING_ROWS = {"rna_contra_inside": 32, "rna_contra_outside": 32,
@@ -183,9 +205,10 @@ def load(csrc, split):
     else:
         decl = {k: re.search(rf'"C" int {k}\(([^)]*)\)', text)
                 for k in WAVEFRONT}
-        ringed = {k for k, m in decl.items() if "ring_g" in m.group(1)}
+        ringed = {k for k, m in decl.items() if m and "ring_g" in m.group(1)}
         sigs = {k: ring_signature(v) if k in ringed else v
-                for k, v in saved.items() if f'"C" int {k}(' in text}
+                for k, v in {**LEGACY_SIGNATURES, **saved}.items()
+                if f'"C" int {k}(' in text}
         log_decl = re.search(r'"C" int rna_contra_outside_log\(([^)]*)\)',
                              text)
         pm_split = bool(log_decl) and "pm2" in log_decl.group(1)
@@ -212,6 +235,20 @@ def load(csrc, split):
     return RingBuild(lib, ringed) if ringed else lib
 
 
+def fold_scan_module(csrc):
+    """The ``ops/fold_scan.py`` beside ``csrc`` as a module of this
+    package: its relative imports resolve here, and it launches through
+    ``_build.library()`` (see ``use``)."""
+    import importlib.util
+
+    path = pathlib.Path(csrc).resolve().parent / "ops" / "fold_scan.py"
+    name = f"rna_algos_tpu_torch.ops._fold_scan_{abs(hash(str(path)))}"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def use(lib):
     """Make the wrappers launch through ``lib`` (after every ``load``)."""
     from rna_algos_tpu_torch.ops import _build
@@ -232,6 +269,8 @@ def main(argv=None):
                     help="the Durbin pair-HMM kernels K14 and K15 instead")
     ap.add_argument("--log", action="store_true",
                     help="the parity tier's kernels K16-K19 instead")
+    ap.add_argument("--scan", action="store_true",
+                    help="the generic-N scan's kernels K20/K21 instead")
     ap.add_argument("--paths", action="store_true",
                     help="then the exact main paths through each build")
     args = ap.parse_args(argv)
@@ -249,9 +288,13 @@ def main(argv=None):
     for k, lib in libs.items():
         print(f"build {k}: {lib.path}")
         for name, line in ptxas_lines(lib.compiler_output):
+            if args.scan and "scan_" not in name:
+                continue
             if not args.log or "_log_kernel" in name:
                 print(f"  {k} ptxas: {name}: {line}")
     use(libs["B"])
+    if args.scan:
+        return ab_scan(libs, args, dev, chip_smoke)
     if args.pairhmm:
         return ab_pairhmm(libs, dev, chip_smoke)
     if args.log:
@@ -392,6 +435,78 @@ def barrier_probe(chip_smoke):
                   "a span (cluster barrier + block barrier)")
 
 
+GRID_SPANS = 2000
+GRID_BARRIER_PROBE = r"""
+#include <cooperative_groups.h>
+namespace cg = cooperative_groups;
+
+__global__ void __launch_bounds__(512, 2) probe(int spans, int* sink) {
+  cg::grid_group grid = cg::this_grid();
+  int acc = 0;
+  for (int d = 0; d < spans; ++d) {
+    acc += d ^ threadIdx.x;
+    grid.sync();
+  }
+  if (acc == -1) sink[0] = acc;
+}
+
+extern "C" int probe_launch(int blocks, int spans, int* sink, void* stream) {
+  void* args[] = {&spans, &sink};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (void*)probe, dim3(blocks), dim3(512), args, 0, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_blocks(int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, probe, 512,
+                                                        0);
+  *out = per_sm * sms;
+  return (int)err;
+}
+"""
+
+
+def grid_barrier_probe(chip_smoke):
+    """The bare grid barrier of a cooperative launch, alone: blocks of 512
+    threads at the occupancy limit (and at one and at 132 blocks), looping
+    over GRID_SPANS spans with one ``grid.sync()`` a span and nothing
+    else; the ms of one launch (CUDA events, 5 launches after a warm-up)
+    and the microseconds a span."""
+    from rna_algos_tpu_torch.ops import _build
+
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    with tempfile.TemporaryDirectory() as tmp:
+        src, so = pathlib.Path(tmp, "grid.cu"), pathlib.Path(tmp, "grid.so")
+        src.write_text(GRID_BARRIER_PROBE)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS[:6], "-shared",
+                        "-o", str(so), str(src)], check=True)
+        lib = ctypes.CDLL(str(so))
+        lib.probe_launch.argtypes = [_I, _I, _P, _P]
+        lib.probe_blocks.argtypes = [_P]
+        most = ctypes.c_int(0)
+        if lib.probe_blocks(ctypes.byref(most)):
+            raise RuntimeError("grid barrier probe: occupancy query failed")
+        for blocks in sorted({1, 132, most.value}):
+            def launch():
+                err = lib.probe_launch(blocks, GRID_SPANS, sink.data_ptr(),
+                                       stream)
+                if err:
+                    raise RuntimeError(f"grid barrier probe: CUDA error "
+                                       f"{err}")
+
+            ms = chip_smoke.cuda_ms(launch, 5)
+            print(f"grid barrier: {blocks} blocks of 512 threads (occupancy "
+                  f"limit {most.value}): {ms:.4f} ms for {GRID_SPANS} spans, "
+                  f"{1e3 * ms / GRID_SPANS:.4f} us a span")
+
+
 def ptxas_lines(output):
     """(kernel, line) for each ptxas line on registers, spills or stack
     frame in a build's compiler output."""
@@ -403,6 +518,106 @@ def ptxas_lines(output):
             name = m.group(1)
         elif "registers" in line or "spill" in line or "stack" in line:
             yield name, line.strip()
+
+
+def ab_scan(libs, args, dev, chip_smoke):
+    """K20 and K21 of the two builds in turns A, B, B, A (each build's own
+    ops/fold_scan.py), whether their state tables are bitwise equal on the
+    live cells, the bare grid barrier, then the generic main paths."""
+    from rna_algos_tpu_torch.ops import fold_scan
+
+    mods = {"A": fold_scan_module(args.a), "B": fold_scan}
+    outs, times = {}, {}
+    for model, N, B, mode in SCAN_SHAPES:
+        x = chip_smoke.scan_inputs(model, N, B, seed=N + B, device=dev)
+        a = (x["seqs"], x["ns"], x["tbl"], x["pre"])
+        key = f"{model} N={N} B={B} {mode}"
+        for turn, which in enumerate(("A", "B", "B", "A")):
+            use(libs[which])
+            FS = mods[which]
+            ins = FS.scan_inside(*a, x["contra"], False, mode)
+            out = FS.scan_outside(*a, ins, x["contra"], False, mode)
+            outs.setdefault(key, {})[which] = (ins, out)
+            for kernel, fn in (
+                    ("K20", lambda: FS.scan_inside(*a, x["contra"], False,
+                                                   mode)),
+                    ("K21", lambda: FS.scan_outside(*a, ins, x["contra"],
+                                                    False, mode))):
+                ms = chip_smoke.cuda_ms(fn, SCAN_REPS)
+                times.setdefault((key, kernel), {}).setdefault(
+                    which, []).append(ms)
+                print(f"turn {turn} build {which} {key} {kernel}: {ms:.4f} "
+                      "ms a pass")
+        same = {}
+        for kernel, k in (("K20", 0), ("K21", 1)):
+            ta, tb = outs[key]["A"][k], outs[key]["B"][k]
+            same[kernel] = all(
+                torch.equal(ta[s][live].view(torch.int32),
+                            tb[s][live].view(torch.int32))
+                for s in chip_smoke.SCAN_STATE[
+                    "scan_inside" if k == 0 else "scan_outside"]
+                if s != "qrmmb" or x["contra"]
+                for live in [chip_smoke.scan_live(x["ns"], N,
+                                                  s.startswith("q"))])
+            print(f"{key} {kernel}: state tables of A and B bitwise equal "
+                  f"on the live cells: {same[kernel]}")
+        del x, outs[key]
+        torch.cuda.empty_cache()
+    for (key, kernel), ms in times.items():
+        a_ms, b_ms = (sum(ms[k]) / len(ms[k]) for k in ("A", "B"))
+        print(f"mean {key} {kernel}: A {a_ms:.4f} ms, B {b_ms:.4f} ms, "
+              f"A / B {a_ms / b_ms:.4f}")
+    grid_barrier_probe(chip_smoke)
+    ab_scan_paths(libs, mods, chip_smoke)
+    return 0
+
+
+def ab_scan_paths(libs, mods, chip_smoke):
+    """The generic main paths of chip_smoke.py (``FoldEngine``: Turner
+    exact N = 1536 B = 5 with seq_1536, CONTRA exact N = 2944 B = 2,
+    parity N = 384 B = 8 both models) through each build in turns A, B, B,
+    A: seqs/s (host clock around one batch that ends in the copy to the
+    host, after a warm-up) and the peak device memory of that batch above
+    what was held before it."""
+    import time
+
+    import numpy as np
+
+    from rna_algos_tpu_torch.models import mccaskill as M
+    from rna_algos_tpu_torch.parallel.runner import FoldEngine
+
+    g = np.load(ROOT / "tests" / "golden" / "longn_f64_1536.npz")
+    runs = {"turner_scan_N1536_B5": (False, "exact", [
+        [int(b) for b in g["seq_1536"]]] + chip_smoke.random_batch(
+            *chip_smoke.SCAN_TURNER[:3], seed=chip_smoke.SCAN_TURNER[3])),
+        "contra_scan_N2944_B2": (True, "exact", chip_smoke.random_batch(
+            *chip_smoke.SCAN_CONTRA[:3], seed=chip_smoke.SCAN_CONTRA[3]))}
+    for model in ("contra", "turner"):
+        runs[f"{model}_parity_scan_N384_B8"] = (
+            model == "contra", "parity", chip_smoke.random_batch(
+                *chip_smoke.SCAN_PARITY[:3], seed=chip_smoke.SCAN_PARITY[3]))
+    saved = M.FS
+    try:
+        for turn, which in enumerate(("A", "B", "B", "A")):
+            use(libs[which])
+            M.FS = mods[which]
+            for label, (contra, mode, seqs) in runs.items():
+                engine = FoldEngine(uses_contra_model=contra, device="cuda",
+                                    numerics=mode)
+                engine.fold_batch(seqs)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                engine.fold_batch(seqs)
+                wall = time.perf_counter() - t0
+                peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+                print(f"turn {turn} build {which} {label}: "
+                      f"{len(seqs) / wall:.4f} seqs/s ({wall:.4f} s a "
+                      f"batch), peak {peak:.3f} GiB above "
+                      f"{held / 2**30:.3f}")
+    finally:
+        M.FS = saved
 
 
 def ab_log(libs, dev, chip_smoke):

@@ -2,7 +2,8 @@
 ``FoldEngine.fold_batch`` or ``AlignEngine.match_probs_pairs`` per cell,
 on a CUDA GPU.
 
-    python scripts/profile_torch_cells.py [--trace-dir DIR]
+    python scripts/profile_torch_cells.py [--trace-dir DIR] [--generic-only]
+        [--scan-build CSRC]
 
 Cells as in chip_smoke.py: the six tRNAs tiled to B = 192 (bucket 128), 96
 seeded random 150-200 nt sequences (bucket 256), and the long tier's 32
@@ -13,7 +14,14 @@ and the Durbin pair-HMM on chip_smoke.py's three runs: the 630 pairs of
 the tRNAs tiled to 36 sequences (bucket 128) exact and parity, and the
 2,016 pairs of 64 random 150-200 nt sequences (bucket 256) exact; and the
 parity tier (``FoldEngine(numerics="parity")``, kernels K16-K19) on the
-tRNA and random 150-200 nt cells, both models.
+tRNA and random 150-200 nt cells, both models; and the generic-N scan's
+cells (kernels K20/K21, chip_smoke.py's batches): Turner exact on seq_1536
+and four random 1,409-1,536 nt sequences (bucket 1536), CONTRA exact on two
+random 2,817-2,944 nt sequences (bucket 2944), and parity on eight random
+300-384 nt sequences (bucket 384) for both models.  ``--generic-only``
+profiles those alone; ``--scan-build CSRC`` runs K20/K21 through the build
+of another checkout's ``csrc`` and its own ``ops/fold_scan.py`` beside it
+(as ``scripts/ab_kernels.py --scan`` does), to profile a parent build.
 For each it prints the unprofiled batch time (the mean of REPS batches in
 one CUDA-event window after two warm-ups, as chip_smoke.cuda_ms; every
 cell is timed before the first profiler session, whose instrumentation
@@ -44,7 +52,8 @@ KERNELS = ("skew_kernel", "contra_inside_kernel", "contra_outside_kernel",
            "turner_inside_cluster_kernel", "turner_outside_cluster_kernel",
            "pairhmm_prob_kernel", "pairhmm_log_kernel",
            "contra_inside_log_kernel", "contra_outside_log_kernel",
-           "turner_inside_log_kernel", "turner_outside_log_kernel")
+           "turner_inside_log_kernel", "turner_outside_log_kernel",
+           "scan_inside_kernel", "scan_outside_kernel")
 
 
 def _union(intervals):
@@ -102,6 +111,10 @@ def profile_once(call, trace_path=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("--generic-only", action="store_true",
+                    help="only the generic-N scan's cells")
+    ap.add_argument("--scan-build", default=None,
+                    help="csrc of another checkout for K20/K21")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_cells: no CUDA GPU available", file=sys.stderr)
@@ -111,6 +124,14 @@ def main(argv=None):
     from rna_algos_tpu_torch.parallel.runner import AlignEngine, FoldEngine
 
     print(torch.cuda.get_device_name(0), torch.__version__)
+    if args.scan_build:
+        sys.path.insert(0, str(ROOT / "scripts"))
+        import ab_kernels
+        from rna_algos_tpu_torch.models import mccaskill as M
+
+        ab_kernels.use(ab_kernels.load(args.scan_build, False))
+        M.FS = ab_kernels.fold_scan_module(args.scan_build)
+        print(f"K20/K21 through {args.scan_build}")
     trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
     cells = {"trna_N128_B192": trnas * 32,
              "rfam_N256_B96": chip_smoke.random_batch(96, 150, 200, seed=2024)}
@@ -138,7 +159,26 @@ def main(argv=None):
         aligner = AlignEngine(device="cuda", numerics=mode)
         calls[(path, key)] = (lambda a=aligner, d=dsets[key]:
                               a.match_probs_pairs(*d))
-    times = {k: batch_ms(call) for k, call in calls.items()}
+    g = np.load(ROOT / "tests" / "golden" / "longn_f64_1536.npz")
+    generic = {
+        ("turner", "generic_N1536_B5"): (False, "exact", [
+            [int(b) for b in g["seq_1536"]]] + chip_smoke.random_batch(
+                *chip_smoke.SCAN_TURNER[:3], seed=chip_smoke.SCAN_TURNER[3])),
+        ("contra", "generic_N2944_B2"): (True, "exact",
+                                         chip_smoke.random_batch(
+            *chip_smoke.SCAN_CONTRA[:3], seed=chip_smoke.SCAN_CONTRA[3]))}
+    for m in ("contra", "turner"):
+        generic[(f"{m}_parity", "generic_N384_B8")] = (
+            m == "contra", "parity", chip_smoke.random_batch(
+                *chip_smoke.SCAN_PARITY[:3], seed=chip_smoke.SCAN_PARITY[3]))
+    if args.generic_only:
+        calls = {}
+    for key, (contra, mode, seqs) in generic.items():
+        engine = FoldEngine(uses_contra_model=contra, device="cuda",
+                            numerics=mode)
+        calls[key] = (lambda e=engine, s=seqs: e.fold_batch(s))
+    times = {k: batch_ms(call, 2 if "generic" in k[1] else REPS)
+             for k, call in calls.items()}
     for (model, cell), call in calls.items():
         path = trace_dir / f"{model}_{cell}.json" if trace_dir else None
         r = profile_once(call, path)

@@ -394,7 +394,8 @@ def test_scan_kernels_match_plain(device, model, mode):
     """K20/K21 (the generic-N scan) against their plain versions on the
     edge batch at N = 160: bitwise on the live cells under exact, within
     RTOL_SCAN_FAST under fast; with NaN-poisoned state and dead cells,
-    and with blocks of 32 threads (more leaves a thread)."""
+    and with the narrowest groups on a small grid (the most leaves a
+    thread, lanes in many rounds)."""
     ((N, lengths),) = chip_smoke.SCAN_EDGE.items()
     x = chip_smoke.scan_inputs(model, N, len(lengths), seed=3 * N,
                                device=device, lengths=lengths)
@@ -403,7 +404,7 @@ def test_scan_kernels_match_plain(device, model, mode):
                           chip_smoke.scan_plain(x, mode))
     plain = chip_smoke.scan_plain(x, "exact")
     chip_smoke.check_scan(x, "exact", err, fast_err, plain, poison=True)
-    with chip_smoke.narrow_blocks(32):
+    with chip_smoke.narrow_groups(*chip_smoke.SCAN_NARROW):
         chip_smoke.check_scan(x, "exact", err, fast_err, plain)
     assert err == {"scan_inside": 0.0, "scan_outside": 0.0}
 
@@ -411,7 +412,7 @@ def test_scan_kernels_match_plain(device, model, mode):
 @pytest.mark.parametrize("contra", [True, False], ids=["contra", "turner"])
 def test_scan_path_launches_its_kernels(device, contra):
     """Under parity past 256 the engine runs the generic-N scan: K20 and
-    K21 N launches a pass, the plain scan never called, the BPPs equal to
+    K21 one launch a pass, the plain scan never called, the BPPs equal to
     the plain path's."""
     from rna_algos_tpu_torch.ops import fold_scan as FS
     from rna_algos_tpu_torch.parallel.runner import FoldEngine
@@ -423,7 +424,7 @@ def test_scan_path_launches_its_kernels(device, contra):
         c.reset()
     with chip_smoke.counted_plain_scan() as n_plain:
         out = engine.fold_batch(seqs)
-    assert FS.inside_launches.count == FS.outside_launches.count == 384
+    assert FS.inside_launches.count == FS.outside_launches.count == 1
     assert n_plain[0] == 0
     with chip_smoke.plain_kernels():
         plain = engine.fold_batch(seqs)
