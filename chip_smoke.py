@@ -32,7 +32,14 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    N = 32, 64 and 256 (n = 1, 2, 3 and lengths around powers of two),
    K16/K18 on the live cells (i + d < n) with the fills in the dead ones,
    and with NaN in every dead input cell and scratch word, each launch's
-   threads a lane printed); the generic-N scan's K20 (inside) and K21
+   threads a lane printed); K15's fast instance (the hardware log-add)
+   on the Durbin sets and edge batches within RTOL_LOG_FAST; the Durbin
+   row scan K22, forward and backward, bitwise under exact (planes and
+   corners, also NaN-filled) at the RNase P set's buckets (384, 512) and
+   (512, 384) and the SSU set's commonest bucket (all their pairs), fast
+   at (384, 512) within RTOL_LOG_FAST, and on the ROWS_EDGE batch (n = 2,
+   3, n = N, n1 != n2) under exact, parity and fast; the generic-N scan's
+   K20 (inside) and K21
    (outside), one cooperative launch a pass, both models, at N = 384,
    B = 8 and
    N = 1536, B = 2 (exact and fast) and on edge batches at N = 160 (n = 1,
@@ -74,7 +81,15 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    sequences (bucket 384), each with seqs/s and peak memory; and Turner
    exact on a seeded 5,600-nt sequence beside seq_1536
    (bucket 5632), seq_1536 against its float64 golden, the long one's BPPs
-   against the probability gates;
+   against the probability gates; K15's fast instance through
+   durbin_match_probs_batch_pallas(numerics="fast") on the 630 tRNA pairs;
+   the row scan's paths (K22; ROWS_RUNS), AlignEngine on all 496 pairs of
+   32 random 300-450 nt sequences (RNase P scale) under exact and parity,
+   all 28 pairs of 8 random 1,400-1,536 nt sequences (SSU rRNA scale)
+   under exact, and the 66 pairs of the tRNAs with six of the RNase P
+   sequences (K14 and K22 in one call), each counted on its own with the
+   plain versions never called, a subset held bitwise against the plain
+   path on the card, with pairs/s and peak memory;
 4. the centroid CLI on assets/sampled_trnas.fa: with -c byte for byte
    against tests/golden/c_baseline/centroid_contra/, without -c against
    centroid_turner/ under the gamma = 1 tie rule (``turner_centroid_verdict``);
@@ -88,7 +103,9 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    centroid goldens (CONTRA byte for byte, Turner under the tie rule);
    cli.mccaskill and cli.centroid_fold --numerics parity -c on a 400-nt
    record (the generic scan at bucket 512) on the card against
-   --device cpu;
+   --device cpu; cli.durbin under exact and parity on a tRNA and three
+   RNase P records (row-scan buckets), the card's output byte-identical
+   to --device cpu's;
 5. seqs/s (pairs/s for Durbin) of every main-path configuration, kernel
    path and plain path, and the peak device memory of each long batch.
 
@@ -195,7 +212,48 @@ DURBIN_RFAM = (64, 150, 200, 2016)   # count, shortest, longest, seed
 # Float operations per live cell and pass (forward, backward): K14's
 # multiply-adds of M, I, D (and the context ssum backward); K15's adds and
 # cubic log-adds (8 operations each: sub, 3 mul, 3 add, add).
-PAIRHMM_CELL_OPS = {"pairhmm_prob": (13, 17), "pairhmm_log": (42, 61)}
+# K15's fast instance counts a hardware log-add as 6 (max, sub, abs, exp,
+# log1p, add).
+PAIRHMM_CELL_OPS = {"pairhmm_prob": (13, 17), "pairhmm_log": (42, 61),
+                    "pairhmm_log_fast": (34, 49)}
+# K15's fast instance vs its plain version on the card: the -inf pattern
+# identical, finite cells within RTOL_LOG_FAST * max(1, |x|) (the card's
+# exp and log1p against torch.logaddexp's; a path's probabilities within
+# TOL_DURBIN_FAST).
+RTOL_LOG_FAST = 1e-5
+TOL_DURBIN_FAST = 1e-5
+# The Durbin row scan, kernel K22 (ops/pairhmm_rows.py): every pair the
+# wavefronts K14/K15 do not take (rectangular buckets, buckets past 256).
+# Kernel vs plain on the card under "exact" and "parity" (one cubic
+# instance): both round every add on its own and sum the delete state in
+# lax.associative_scan's tree, so bitwise is required, planes and corners
+# of both passes, also with the planes NaN-filled (every cell written
+# once); "fast" within RTOL_LOG_FAST.  The sets (count, shortest, longest,
+# seed of the random sequences): RNase P scale, all 496 pairs of 32 in
+# buckets (384 | 512)^2; SSU rRNA scale, all 28 pairs of 8; and the mixed
+# set, the 6 tRNAs with the first ROWS_MIXED RNase P sequences (66 pairs,
+# K14 and K22 in one call).  ROWS_EDGE: wrapped lengths (n1, n2) in one
+# rectangular bucket, n = 2 (no inner cell), 3, n = N, n1 != n2.
+ROWS_RNASEP = (32, 300, 450, 450)
+ROWS_SSU = (8, 1400, 1536, 1536)
+ROWS_MIXED = 6
+ROWS_EDGE = {(64, 96): ((2, 2), (3, 96), (64, 2), (64, 96), (33, 65),
+                        (2, 50), (17, 3), (63, 95), (40, 40))}
+# The buckets K22 is held at (the RNase P set's two rectangles and the SSU
+# set's commonest bucket), and the pairs of a path held against the plain
+# path (the first ROWS_SUBSET of its K22 bucket with the fewest rows, whose
+# plain passes cost the least; all of the mixed set's K14 pairs).
+ROWS_CHECK = (("rnasep_P496", (384, 512)), ("rnasep_P496", (512, 384)),
+              ("ssu_P28", None))
+ROWS_SUBSET = 3
+# Float operations of a K22 pass (the bound), a cubic log-add 8, an add 1,
+# as this run's data needs them: per live cell (n1 - 1)(n2 - 1) 33 forward
+# (M: 2 log-adds, 4 adds; I: 1 log-add, 3 adds; the scan's leaf: 2 adds),
+# 52 backward (and the context: 2 log-adds, 3 adds); per combine of the
+# associative-scan tree over a row's n2 - 1 live columns 9 (an add and a
+# log-add), the c tree's adds once a pass.
+ROWS_CELL_OPS = (33, 52)
+ROWS_COMBINE_OPS = 9
 # The parity tier's log kernels K16-K19 vs their plain versions on the card:
 # both round every add and multiply on its own (the kernels through _rn
 # intrinsics) and sum in the same tree order, so bitwise is required (and
@@ -1150,14 +1208,16 @@ def turner_centroid_verdict(ref_dir, out_dir):
     return verdict
 
 
-def durbin_sets(trnas):
-    """name -> (sentinel-wrapped sequences, all (i < j) pairs)."""
+def wrap(seqs):
+    """The sequences with PSEUDO_BASE sentinels at both ends."""
     from rna_algos_tpu_torch.constants import PSEUDO_BASE
 
-    def wrap(seqs):
-        return [np.concatenate([[PSEUDO_BASE], s, [PSEUDO_BASE]]).astype(
-            np.int32) for s in seqs]
+    return [np.concatenate([[PSEUDO_BASE], s, [PSEUDO_BASE]]).astype(
+        np.int32) for s in seqs]
 
+
+def durbin_sets(trnas):
+    """name -> (sentinel-wrapped sequences, all (i < j) pairs)."""
     count, lo, hi, seed = DURBIN_RFAM
     out = {}
     for name, seqs in (("trna_N128_P630", trnas * 6),
@@ -1178,7 +1238,8 @@ def durbin_inputs(seqs, pairs, device):
     from rna_algos_tpu_torch.parallel.runner import align_bucket, pad_seqs
     from rna_algos_tpu_torch.weights import align_tables
 
-    N = max(align_bucket(len(seqs[a]), len(seqs[b])) for a, b in pairs)
+    N = max(max(align_bucket(len(seqs[a]), len(seqs[b])))
+            for a, b in pairs)
 
     def dev(x):
         return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)
@@ -1195,22 +1256,28 @@ def durbin_inputs(seqs, pairs, device):
     zero = torch.zeros((), device=device)
     init = (at["init_match_score"], at["init_insert_score"])
     log_scal = (PA._scalars(at, *init), PA._scalars(at, zero, zero))
+    log_tables = (at["match_scores"].expand(P, 5, 5).contiguous(),
+                  at["insert_scores"].expand(P, 5).contiguous(), *log_scal)
     return dict(
         N=N, P=P, n1=n1, n2=n2, seq_args=(x1, x2, n1, n2),
         pairhmm_prob=(
             torch.exp(at["match_scores"][None] - 2.0 * ls[:, None, None]),
             torch.exp(at["insert_scores"][None] - ls[:, None]),
             *(torch.exp(s) for s in log_scal)),
-        pairhmm_log=(at["match_scores"].expand(P, 5, 5).contiguous(),
-                     at["insert_scores"].expand(P, 5).contiguous(),
-                     *log_scal),
+        pairhmm_log=log_tables, pairhmm_log_fast=log_tables,
     )
 
 
 def pairhmm_wrappers(kernel):
+    """(wrapper, plain version) of K14, K15 or K15's fast instance."""
+    import functools
+
     from rna_algos_tpu_torch.ops import pallas_align as PA
     from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
 
+    if kernel == "pairhmm_log_fast":
+        return (functools.partial(PA.pairhmm_log, fast=True),
+                functools.partial(PA.pairhmm_log_plain, fast=True))
     mod = PAP if kernel == "pairhmm_prob" else PA
     return getattr(mod, kernel), getattr(mod, kernel + "_plain")
 
@@ -1224,7 +1291,8 @@ def pairhmm_calls(kernel, x, fn):
 
 @contextlib.contextmanager
 def poisoned_planes():
-    """The pair-HMM wrappers' output planes NaN-filled before each launch."""
+    """The pair-HMM wrappers' (K14, K15, K22) output planes NaN-filled
+    before each launch."""
     from rna_algos_tpu_torch.ops import pallas_align as PA
 
     plane = PA._plane
@@ -1238,9 +1306,12 @@ def poisoned_planes():
 def check_pairhmm(x, kernel):
     """K14 or K15 bitwise equal to its plain version on both passes,
     planes and corners, with the output planes as allocated and
-    NaN-filled; returns the max abs error (0)."""
+    NaN-filled; K15's fast instance within RTOL_LOG_FAST.  Returns the
+    worst error (0 where bitwise)."""
     kern, plain = pairhmm_wrappers(kernel)
     label = LABELS[kernel]
+    fast = kernel == "pairhmm_log_fast"
+    worst = 0.0
     for direction, k_call, p_call in zip(
             ("forward", "backward"), pairhmm_calls(kernel, x, kern),
             pairhmm_calls(kernel, x, plain)):
@@ -1250,12 +1321,19 @@ def check_pairhmm(x, kernel):
         for how, got in (("", k_call()), (", planes NaN-filled", poisoned)):
             torch.cuda.synchronize()
             for part, g, w in zip(("plane", "corner"), got, want):
-                if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                if fast:
+                    ok, d = log_close(g, w, RTOL_LOG_FAST)
+                    worst = max(worst, d)
+                else:
+                    ok = torch.equal(g.view(torch.int32), w.view(torch.int32))
+                if not ok:
                     raise AssertionError(f"{label} {direction} {part}{how} "
                                          "differs from plain")
-        print(f"  {label} {direction}: planes and corners bitwise equal to "
-              "plain, also with the planes NaN-filled")
-    return 0.0
+        print(f"  {label} {direction}: planes and corners "
+              + (f"within {worst:.3e} (relative) of" if fast
+                 else "bitwise equal to")
+              + " plain, also with the planes NaN-filled")
+    return worst
 
 
 def durbin_edge_inputs(device):
@@ -1306,7 +1384,7 @@ def durbin_checks(dsets, device, err):
     for key, x in {**dinputs, **edges}.items():
         print(f"check Durbin {key}: N={x['N']} P={x['P']} at each pair's "
               "settled ln_sigma")
-        for k in ("pairhmm_prob", "pairhmm_log"):
+        for k in PAIRHMM_CELL_OPS:
             err[k] = max(err[k], check_pairhmm(x, k))
     return dinputs
 
@@ -1317,7 +1395,7 @@ def durbin_times(dinputs, times):
     them), and the bound, into ``times[kernel][shape]``."""
     for x in dinputs.values():
         shape = f"N{x['N']}_P{x['P']}"
-        for k in ("pairhmm_prob", "pairhmm_log"):
+        for k in PAIRHMM_CELL_OPS:
             kern, plain = pairhmm_wrappers(k)
             kc, pc = pairhmm_calls(k, x, kern), pairhmm_calls(k, x, plain)
             ms = cuda_ms(lambda: [c() for c in kc], 10) / 2
@@ -1424,6 +1502,333 @@ def durbin_throughput(dsets, aligners, stats, smi):
               f"pairs/s ({ms:.2f} ms/call) on {smi}")
 
 
+def tree_combines(n):
+    """Combines of lax.associative_scan's tree over n elements: the pairs,
+    the even outputs past the first, and the half's own tree."""
+    return 0 if n < 2 else n // 2 + (n + 1) // 2 - 1 + tree_combines(n // 2)
+
+
+def rows_sets(trnas):
+    """name -> (sentinel-wrapped sequences, all (i < j) pairs) of K22's
+    paths."""
+    rnasep = random_batch(*ROWS_RNASEP[:3], seed=ROWS_RNASEP[3])
+    ssu = random_batch(*ROWS_SSU[:3], seed=ROWS_SSU[3])
+    out = {}
+    for name, seqs in (("rnasep_P496", rnasep), ("ssu_P28", ssu),
+                       ("mixed_P66", trnas + rnasep[:ROWS_MIXED])):
+        w = wrap(seqs)
+        out[name] = (w, [(a, b) for a in range(len(w))
+                         for b in range(a + 1, len(w))])
+    return out
+
+
+def rows_buckets(seqs, pairs):
+    """{(N1, N2): [pairs]} by the engine's rule."""
+    from rna_algos_tpu_torch.parallel.runner import align_bucket
+
+    out = {}
+    for a, b in pairs:
+        out.setdefault(align_bucket(len(seqs[a]), len(seqs[b])), []).append(
+            (a, b))
+    return out
+
+
+def rows_inputs(seqs, pairs, key, device):
+    """The pairs of one row-scan bucket as the main path hands them to
+    K22: padded (P, N1) and (P, N2), lengths, the log-space tables and the
+    forward and backward scalars."""
+    from rna_algos_tpu_torch.ops import pallas_align as PA
+    from rna_algos_tpu_torch.params import build_align_scores
+    from rna_algos_tpu_torch.parallel.runner import pad_seqs
+    from rna_algos_tpu_torch.weights import align_tables
+
+    N1, N2 = key
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)
+
+    P = len(pairs)
+    at = align_tables(build_align_scores(), device)
+    zero = torch.zeros((), device=device)
+    return dict(
+        N1=N1, N2=N2, P=P,
+        x1=dev(pad_seqs([seqs[a] for a, _ in pairs], N1)),
+        x2=dev(pad_seqs([seqs[b] for _, b in pairs], N2)),
+        n1=dev([len(seqs[a]) for a, _ in pairs]),
+        n2=dev([len(seqs[b]) for _, b in pairs]),
+        ms=at["match_scores"].expand(P, 5, 5).contiguous(),
+        ins=at["insert_scores"].expand(P, 5).contiguous(),
+        scal=(PA._scalars(at, at["init_match_score"], at["init_insert_score"]),
+              PA._scalars(at, zero, zero)))
+
+
+def rows_edge_inputs(device):
+    """ROWS_EDGE: seeded random pairs of the listed wrapped lengths."""
+    from rna_algos_tpu_torch.constants import PSEUDO_BASE
+
+    out = {}
+    for key, lengths in ROWS_EDGE.items():
+        rng = np.random.default_rng(sum(key))
+
+        def one(n):
+            return np.concatenate([[PSEUDO_BASE], rng.integers(0, 4, n - 2),
+                                   [PSEUDO_BASE]]).astype(np.int32)
+
+        seqs = [s for n1, n2 in lengths for s in (one(n1), one(n2))]
+        pairs = [(2 * k, 2 * k + 1) for k in range(len(lengths))]
+        out[key] = rows_inputs(seqs, pairs, key, device)
+    return out
+
+
+def rows_call(x, backward, mode, fn=None):
+    from rna_algos_tpu_torch.ops import pairhmm_rows as PR
+
+    fn = fn or PR.pairhmm_rows
+    return fn(x["x1"], x["x2"], x["n1"], x["n2"], x["ms"], x["ins"],
+              x["scal"][int(backward)], backward, mode)
+
+
+def log_close(got, want, rtol):
+    """(ok, worst relative error): the -inf pattern identical and finite
+    cells within rtol * max(1, |x|)."""
+    if not torch.equal(torch.isinf(got), torch.isinf(want)):
+        return False, float("inf")
+    fin = torch.isfinite(want)
+    if not torch.isfinite(got[fin]).all():
+        return False, float("inf")
+    if not fin.any():
+        return True, 0.0
+    d = float(((got - want).abs()[fin] / want.abs()[fin].clamp(min=1)).max())
+    return d <= rtol, d
+
+
+def check_rows(x, label, modes, fast_err):
+    """K22 against its plain version on both passes, planes and corners:
+    bitwise under "exact" and "parity", also with the planes NaN-filled;
+    within RTOL_LOG_FAST under "fast".  Returns the plain versions' ms per
+    pass under the first mode (host clock, device synchronized)."""
+    from rna_algos_tpu_torch.ops import pairhmm_rows as PR
+
+    plain_ms = []
+    for mode in modes:
+        for backward in (False, True):
+            direction = "backward" if backward else "forward"
+            want, pms = host_ms(lambda: rows_call(x, backward, mode,
+                                                  PR.pairhmm_rows_plain))
+            if mode == modes[0]:
+                plain_ms.append(pms)
+            got = rows_call(x, backward, mode)
+            with poisoned_planes():
+                poisoned = rows_call(x, backward, mode)
+            torch.cuda.synchronize()
+            for how, out in (("", got), (", planes NaN-filled", poisoned)):
+                for part, g, w in zip(("plane", "corner"), out, want):
+                    if mode == "fast":
+                        ok, d = log_close(g, w, RTOL_LOG_FAST)
+                        fast_err["pairhmm_rows"] = max(
+                            fast_err.get("pairhmm_rows", 0.0), d)
+                    else:
+                        ok = torch.equal(g.view(torch.int32),
+                                         w.view(torch.int32))
+                    if not ok:
+                        raise AssertionError(f"K22 {label} {mode} {direction} "
+                                             f"{part}{how} differs from plain")
+            print(f"  K22 {label} {mode} {direction}: planes and corners "
+                  + ("within RTOL_LOG_FAST of" if mode == "fast"
+                     else "bitwise equal to")
+                  + " plain, also with the planes NaN-filled")
+    return plain_ms
+
+
+def rows_bound(x):
+    """(bound_ms, bound_by) of one K22 pass (the mean of the forward and the
+    backward pass): per pair the two sequences, lengths and tables read
+    once, the (N1, N2) plane and the 3 corner sums written once; the float
+    operations of this run's live cells and trees (ROWS_CELL_OPS,
+    ROWS_COMBINE_OPS)."""
+    P, N1, N2 = x["P"], x["N1"], x["N2"]
+    nbytes = P * (4 * (N1 + N2) + 2 * 4 + 4 * 30 + 4 * N1 * N2 + 4 * 3) + 4 * 5
+    ops = 0.0
+    for a, b in zip(x["n1"].tolist(), x["n2"].tolist()):
+        rows, cols = a - 1, b - 1
+        ops += rows * cols * sum(ROWS_CELL_OPS) / 2.0
+        ops += (rows * ROWS_COMBINE_OPS + 1) * tree_combines(cols)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rows_checks(rsets, fast_err, times, device):
+    """K22 against its plain version (phase 2): on ROWS_EDGE under exact,
+    parity and fast; at the RNase P set's two rectangular buckets and the
+    SSU set's commonest bucket (all their pairs) under exact, and fast at
+    the first; each pass timed beside the plain one and its bound, into
+    ``times["pairhmm_rows"]``."""
+    for key, x in rows_edge_inputs(device).items():
+        print(f"check K22 edge N1={key[0]} N2={key[1]} P={x['P']}")
+        check_rows(x, f"edge {key}", ("exact", "parity", "fast"), fast_err)
+    for k, (name, key) in enumerate(ROWS_CHECK):
+        seqs, pairs = rsets[name]
+        groups = rows_buckets(seqs, pairs)
+        if key is None:
+            key = max(groups, key=lambda g: len(groups[g]))
+        x = rows_inputs(seqs, groups[key], key, device)
+        shape = f"{name.split('_')[0]}_N{key[0]}x{key[1]}_P{x['P']}"
+        print(f"check K22 {shape}")
+        modes = ("exact", "fast") if k == 0 else ("exact",)
+        pms = check_rows(x, shape, modes, fast_err)
+        ms = cuda_ms(lambda: [rows_call(x, b, "exact") for b in (0, 1)],
+                     5) / 2
+        bms, by = rows_bound(x)
+        times["pairhmm_rows"][shape] = (ms, sum(pms) / 2, bms, by, None)
+        print(f"time {shape} pairhmm_rows: kernel {ms:.4f} ms, plain "
+              f"{sum(pms) / 2:.4f} ms, bound {bms:.4f} ms ({by}), share "
+              f"{bms / ms:.4f}")
+
+
+ROWS_RUNS = (("durbin_rows_exact", "exact", "rnasep_P496"),
+             ("durbin_rows_parity", "parity", "rnasep_P496"),
+             ("durbin_rows_exact", "exact", "ssu_P28"),
+             ("durbin_mixed", "exact", "mixed_P66"))
+
+
+def rows_paths(rsets, aligners, counted, counts, path_kernels, smi):
+    """K22's main paths (phase 3): each set through
+    ``AlignEngine.match_probs_pairs``, counted on its own (K22 launched, and
+    K14 on the mixed set; the plain row scan and wavefront never called),
+    timed on the host clock (the call ends in the copy to the host), its
+    peak memory read, and held against the plain path on the card on a
+    subset (ROWS_SUBSET pairs of the K22 bucket with the fewest rows
+    bitwise; the mixed set's K14 pairs within TOL_DURBIN).  Returns the
+    stats by run."""
+    stats = {}
+    for path, mode, key in ROWS_RUNS:
+        seqs, pairs = rsets[key]
+        label = f"{path}_{key}"
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with counted_plain_pairhmm(rows=True) as n_rows, \
+                counted_plain_pairhmm() as n_wave:
+            t0 = time.perf_counter()
+            got = counted(label, path,
+                          lambda: aligners[mode].match_probs_pairs(seqs, pairs))
+            wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        counts.setdefault(path, {k: 0 for k in counts[label]})
+        for k, v in counts[label].items():
+            counts[path][k] += v
+        if n_rows[0] or n_wave[0]:
+            raise AssertionError(f"{label}: a plain version ran on the "
+                                 "kernel path")
+        if list(got) != pairs:
+            raise AssertionError(f"{label}: the keys are not the pairs")
+        for (a, b) in pairs:
+            g = got[(a, b)]
+            if not (g.shape == (len(seqs[a]), len(seqs[b]))
+                    and np.isfinite(g).all() and (g >= -1e-3).all()
+                    and (g < 1.001).all() and g.max() > 0.0):
+                raise AssertionError(f"{label}: bad probabilities for {a},{b}")
+        groups = rows_buckets(seqs, pairs)
+        rows = {k: ps for k, ps in groups.items()
+                if not (k[0] == k[1] and k[0] <= 256)}
+        subset = rows[min(rows)][:ROWS_SUBSET]
+        wave = [p for k, ps in groups.items() if k not in rows for p in ps]
+        t0 = time.perf_counter()
+        with plain_kernels():
+            plain = aligners[mode].match_probs_pairs(seqs, subset + wave)
+        pwall = time.perf_counter() - t0
+        for k in subset:
+            if not np.array_equal(got[k].view(np.int32),
+                                  plain[k].view(np.int32)):
+                raise AssertionError(f"{label}: pair {k} differs from the "
+                                     "plain path")
+        worst = max([float(np.abs(got[k] - plain[k]).max()) for k in wave],
+                    default=0.0)
+        if not worst <= TOL_DURBIN[mode]:
+            raise AssertionError(f"{label}: K14 pairs differ from plain")
+        launches = {k: counts[label][k] for k in path_kernels[path]}
+        print(f"{label}: {len(pairs)} pairs in buckets "
+              f"{sorted((k, len(v)) for k, v in groups.items())}; "
+              f"{len(pairs) / wall:.2f} pairs/s ({wall:.3f} s, first call); "
+              f"{len(subset)} K22 pairs bitwise equal to the plain path"
+              + (f", {len(wave)} K14 pairs within {worst:.3e}" if wave else "")
+              + f" (plain path {pwall:.3f} s); launches {launches}, plain "
+              f"versions called 0 times; peak memory {peak:.3f} GiB above "
+              f"the {held / 2**30:.3f} GiB held before, on {smi}")
+        stats[label] = dict(pairs_per_s_first_call=len(pairs) / wall,
+                            peak_gib=peak, buckets=len(groups),
+                            plain_subset_s=pwall)
+    return stats
+
+
+def rows_throughput(rsets, aligners, stats, smi):
+    """pairs/s of each K22 run (phase 5): CUDA events around 3 calls after
+    a warm-up."""
+    for path, mode, key in ROWS_RUNS:
+        seqs, pairs = rsets[key]
+        ms = cuda_ms(lambda: aligners[mode].match_probs_pairs(seqs, pairs), 3)
+        stats[f"{path}_{key}"]["pairs_per_s"] = len(pairs) / (ms / 1e3)
+        print(f"throughput {path} {key} kernel: {len(pairs) / (ms / 1e3):.2f} "
+              f"pairs/s ({ms:.2f} ms/call) on {smi}")
+
+
+def rows_cli(du_cli, rsets):
+    """cli.durbin on a FASTA of a tRNA and three RNase P records (pairs in
+    row-scan buckets): the card's output byte-identical to --device cpu's,
+    under exact and parity."""
+    seqs, _ = rsets["mixed_P66"]
+    recs = [seqs[0]] + seqs[-3:]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "long.fa").write_text("".join(
+            f">r{k}\n" + "".join("ACGU"[b] for b in s[1:-1]) + "\n"
+            for k, s in enumerate(recs)))
+        for mode in ("exact", "parity"):
+            texts = []
+            for device in ("cuda", "cpu"):
+                out = tmp / f"{mode}_{device}.txt"
+                du_cli.main(["-i", str(tmp / "long.fa"), "-o", str(out),
+                             "--numerics", mode, "--device", device])
+                texts.append(out.read_text())
+            n_keys = sum(len(v) for v in parse_triples(texts[0]).values())
+            if texts[0] != texts[1]:
+                raise AssertionError(f"cli.durbin --numerics {mode}: the "
+                                     "card's output differs from the CPU's")
+            print(f"cli.durbin --numerics {mode} on records of "
+                  f"{[len(s) - 2 for s in recs]} nt: the card's output "
+                  f"byte-identical to --device cpu's ({n_keys} triples)")
+
+
+def k15_fast_path(args, counted, counts, smi):
+    """K15's fast instance through ``durbin_match_probs_batch_pallas``
+    (numerics="fast") on the tRNA pairs (phase 3), counted on its own,
+    against the plain path on the card within TOL_DURBIN_FAST."""
+    from rna_algos_tpu_torch.ops import pallas_align as PA
+    from rna_algos_tpu_torch.params import build_align_scores
+    from rna_algos_tpu_torch.weights import align_tables
+
+    at = align_tables(build_align_scores(), torch.device("cuda"))
+    x1, x2, n1, n2 = args
+    N = x1.shape[1]
+
+    def run():
+        return PA.durbin_match_probs_batch_pallas(x1, n1, x2, n2, at, N,
+                                                  numerics="fast")
+
+    with counted_plain_pairhmm() as n_plain:
+        got, ms = host_ms(lambda: counted("durbin_log_fast", "durbin_log_fast",
+                                          run))
+    with plain_kernels():
+        plain = run()
+    worst = float((got - plain).abs().max())
+    print(f"durbin_log_fast (K15 fast, {x1.shape[0]} pairs at N={N}): vs "
+          f"plain path max |dp| {worst:.3e}, {ms:.2f} ms, plain wavefront "
+          f"calls {n_plain[0]}, on {smi}")
+    if n_plain[0] or not worst <= TOL_DURBIN_FAST:
+        raise AssertionError("durbin_log_fast: main path disagrees with plain")
+    return worst
+
+
 def parse_triples(text):
     """{record id: {(i, j): p}} of a triples file (mccaskill / durbin)."""
     out, cur = {}, None
@@ -1483,6 +1888,7 @@ def plain_kernels():
     from rna_algos_tpu_torch.models import mccaskill as M
     from rna_algos_tpu_torch.ops import pallas_align as PA
     from rna_algos_tpu_torch.ops import fold_scan as FS
+    from rna_algos_tpu_torch.ops import pairhmm_rows as PR
     from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
     from rna_algos_tpu_torch.ops import pallas_fold as PF
     from rna_algos_tpu_torch.ops import pallas_fold_long as PL
@@ -1494,7 +1900,8 @@ def plain_kernels():
     swaps += [(mod, "skew_pq_batch", K3.skew_pq_batch_plain)
               for mod in (P8, PF, M)]
     swaps += [(PAP, "pairhmm_prob", PAP.pairhmm_prob_plain),
-              (PA, "pairhmm_log", PA.pairhmm_log_plain)]
+              (PA, "pairhmm_log", PA.pairhmm_log_plain),
+              (PR, "pairhmm_rows", PR.pairhmm_rows_plain)]
     swaps += [(PF, k, getattr(PF, k + "_plain")) for k in LOG_KERNELS]
     swaps += [(FS, k, getattr(FS, k + "_plain"))
               for k in ("scan_inside", "scan_outside")]
@@ -1509,22 +1916,25 @@ def plain_kernels():
 
 
 @contextlib.contextmanager
-def counted_plain_pairhmm():
+def counted_plain_pairhmm(rows=False):
     """Count the calls of the pair-HMM plain wavefront (K14's and K15's
-    plain versions) while the block runs: a one-item list."""
+    plain versions), or with ``rows`` of the plain row scan (K22's), while
+    the block runs: a one-item list."""
+    from rna_algos_tpu_torch.ops import pairhmm_rows as PR
     from rna_algos_tpu_torch.ops import pallas_align as PA
 
-    calls, orig = [0], PA._pairhmm_plain
+    mod, name = (PR, "_rows_pass") if rows else (PA, "_pairhmm_plain")
+    calls, orig = [0], getattr(mod, name)
 
     def plain(*args):
         calls[0] += 1
         return orig(*args)
 
-    PA._pairhmm_plain = plain
+    setattr(mod, name, plain)
     try:
         yield calls
     finally:
-        PA._pairhmm_plain = orig
+        setattr(mod, name, orig)
 
 
 @contextlib.contextmanager
@@ -2176,6 +2586,12 @@ REPLACES = {
                      "rna_algos_tpu/ops/pallas_align_prob.py:52"),
     "pairhmm_log": ("rna_algos_tpu_torch/csrc/pairhmm.cu",
                     "rna_algos_tpu/ops/pallas_align.py:66"),
+    # K15's fast instance: the JAX kernel traced under "fast"
+    "pairhmm_log_fast": ("rna_algos_tpu_torch/csrc/pairhmm.cu",
+                         "rna_algos_tpu/ops/pallas_align.py:66"),
+    # the Durbin row scan: no TPU kernel, the JAX package's XLA row scan
+    "pairhmm_rows": ("rna_algos_tpu_torch/csrc/pairhmm_rows.cu",
+                     "rna_algos_tpu/models/durbin.py:52"),
     # the parity tier's log-space fold kernels
     "contra_inside_log": ("rna_algos_tpu_torch/csrc/contra_inside_log.cu",
                           "rna_algos_tpu/ops/pallas_fold.py:167"),
@@ -2196,6 +2612,7 @@ LABELS = {"contra_inside": "K1", "contra_outside": "K2",
           "contra_inside_long": "K8", "contra_outside_long": "K9",
           "turner_inside_long": "K12", "turner_outside_long": "K13",
           "pairhmm_prob": "K14", "pairhmm_log": "K15",
+          "pairhmm_log_fast": "K15 fast", "pairhmm_rows": "K22",
           "contra_inside_log": "K16", "contra_outside_log": "K17",
           "turner_inside_log": "K18", "turner_outside_log": "K19",
           "scan_inside": "K20", "scan_outside": "K21"}
@@ -2211,6 +2628,7 @@ def main():
     from rna_algos_tpu_torch.ops import pallas_align as PA
     from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
     from rna_algos_tpu_torch.ops import fold_scan as FS
+    from rna_algos_tpu_torch.ops import pairhmm_rows as PR
     from rna_algos_tpu_torch.ops import pallas_fold as PF
     from rna_algos_tpu_torch.ops import pallas_fold_long as PL
     from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
@@ -2328,9 +2746,12 @@ def main():
             timed(x["kernels"][0], x, x["inside_args"], LONG_REPS, 1)
             timed(x["kernels"][1], x, x["outside_args"], LONG_REPS, 1)
     durbin_times(dinputs, times)
+    k15_args = dinputs["trna_N128_P630"]["seq_args"]
     del dinputs
-    log_checks(dev, err, rel, times, smi)
+    rsets = rows_sets(trnas)
     fast_err = {}
+    rows_checks(rsets, fast_err, times, dev)
+    log_checks(dev, err, rel, times, smi)
     scan_checks(dev, err, fast_err, times, smi)
 
     # phase 3: the main paths, each counted on its own
@@ -2348,7 +2769,8 @@ def main():
                 PL.contra_outside_long_launches,
                 PL.turner_inside_long_launches,
                 PL.turner_outside_long_launches,
-                PAP.prob_launches, PA.log_launches,
+                PAP.prob_launches, PA.log_launches, PA.log_fast_launches,
+                PR.launches,
                 PF.contra_inside_log_launches, PF.contra_outside_log_launches,
                 PF.turner_inside_log_launches, PF.turner_outside_log_launches,
                 FS.inside_launches, FS.outside_launches)
@@ -2359,6 +2781,10 @@ def main():
         "turner_long": ("skew", "turner_inside_long", "turner_outside_long"),
         "durbin_exact": ("pairhmm_prob",),
         "durbin_parity": ("pairhmm_log",),
+        "durbin_log_fast": ("pairhmm_log_fast",),
+        "durbin_rows_exact": ("pairhmm_rows",),
+        "durbin_rows_parity": ("pairhmm_rows",),
+        "durbin_mixed": ("pairhmm_prob", "pairhmm_rows"),
         "contra_parity": ("skew", "contra_inside_log", "contra_outside_log"),
         "turner_parity": ("skew", "turner_inside_log", "turner_outside_log"),
         "turner_scan": ("skew", "scan_inside", "scan_outside"),
@@ -2482,6 +2908,10 @@ def main():
                 for m in ("exact", "parity")}
     durbin_stats = durbin_paths(dsets, aligners, counted, counts,
                                 path_kernels, smi)
+    durbin_stats["log_fast_vs_plain"] = k15_fast_path(k15_args, counted,
+                                                      counts, smi)
+    rows_stats = rows_paths(rsets, aligners, counted, counts, path_kernels,
+                            smi)
     parity_engines = {
         model: FoldEngine(uses_contra_model=model == "contra", device="cuda",
                           numerics="parity")
@@ -2558,6 +2988,7 @@ def main():
           "records byte-identical to the tRNA-only run")
 
     durbin_clis(du_cli, fasta, golden)
+    rows_cli(du_cli, rsets)
     scan_stats["cli_parity_400_worst"] = scan_cli(mc_cli, cf_cli)
     verdict, tie_bpp = parity_clis(mc_cli, cf_cli, fasta, golden)
     parity_stats["turner_centroid_verdict"] = verdict
@@ -2576,11 +3007,13 @@ def main():
                       f"on {smi}")
 
     durbin_throughput(dsets, aligners, durbin_stats, smi)
+    rows_throughput(rsets, aligners, rows_stats, smi)
 
     kernels = []
     for k, (src, rep) in REPLACES.items():
         by_shape = times[k]
         head = ("N1024_B16" if k.endswith("_long") else
+                next(iter(by_shape)) if k == "pairhmm_rows" else
                 "N128_P630" if k.startswith("pairhmm") else
                 "N1536_B2_turner" if k.startswith("scan") else "N128_B192")
         paths = [m for m, ks in path_kernels.items() if k in ks]
@@ -2617,6 +3050,7 @@ def main():
         k: {"seqs_per_s": v[0], "retries": v[1], "peak_gib": v[2]}
         for k, v in long_stats.items()}}))
     print(json.dumps({"durbin_paths": durbin_stats}))
+    print(json.dumps({"rows_paths": rows_stats}))
     print(json.dumps({"parity_paths": parity_stats}))
     print(json.dumps({"scan_paths": scan_stats}))
     print(json.dumps({"kernels": kernels}))

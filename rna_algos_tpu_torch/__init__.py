@@ -20,9 +20,12 @@ The centroid-fold main path, both models, held against the JAX package:
 and the Durbin pair-HMM:
 
   FASTA -> cli.durbin -> parallel.runner.AlignEngine.match_probs_pairs
-        -> models.durbin.durbin_match_probs_batch_auto   (square buckets
-           64-256) -> ops.pallas_align_prob (kernel K14, exact and fast)
-           or ops.pallas_align (kernel K15, parity) -> triples file
+        -> models.durbin.durbin_match_probs_batch_auto
+        -> square buckets 64-256: ops.pallas_align_prob (kernel K14,
+           exact and fast) or ops.pallas_align (kernel K15, parity)
+           any other bucket (rectangular, or past 256): the row scan,
+           models.durbin.durbin_match_probs_batch (kernel K22 in
+           ops.pairhmm_rows, every mode) -> triples file
 
 Module names mirror the JAX package so each counterpart is easy to find.
 Every hand-written kernel (CUDA C++ under ``csrc/``) has a plain PyTorch

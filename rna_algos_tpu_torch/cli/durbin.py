@@ -4,9 +4,11 @@ Same flags and output bytes as the JAX CLI, plus ``--device``.  Every
 unordered record pair (i < j) is scored (bin/durbin_algo.rs:58-63); the
 sequences get PSEUDO_BASE sentinels at both ends (:49-50); the triples
 subtract the sentinel offset and keep only p > 0 (:76-89), row-major like
-the reference's dense matrix walk.  ``--numerics exact`` and ``fast`` run
-kernel K14 (scaled probabilities), ``parity`` runs K15 (log
-space with the reference's cubic log-add).
+the reference's dense matrix walk.  In a square bucket up to 256,
+``--numerics exact`` and ``fast`` run kernel K14 (scaled probabilities),
+``parity`` runs K15 (log space with the reference's cubic log-add); every
+other pair (a rectangular bucket, or one past 256) runs the row scan K22
+in the mode's log space.
 """
 
 import argparse
@@ -34,8 +36,9 @@ def build_parser():
     p.add_argument("-o", required=True, help="output file path")
     p.add_argument("-t", type=int, default=None, help="worker hint (compat)")
     add_numerics_flag(
-        p, "exact and fast run the probability-space kernel K14; parity "
-        "runs the log-space kernel K15 with the reference's cubics")
+        p, "in square buckets up to 256, exact and fast run the "
+        "probability-space kernel K14 and parity the log-space kernel K15 "
+        "with the reference's cubics; other buckets run the row scan K22")
     p.add_argument(
         "--device", default="cuda",
         help="torch device to align on (default cuda; no fallback to the CPU)",

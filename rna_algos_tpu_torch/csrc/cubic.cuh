@@ -1,6 +1,7 @@
 // CONTRAfold's piecewise-cubic log-add on the device (numerics/logsumexp.py),
-// shared by the log-space kernels: K15 (pairhmm.cu) and K16-K19
-// (*_log.cu).
+// shared by the log-space kernels: K15 (pairhmm.cu), K16-K19 (*_log.cu)
+// and K22 (pairhmm_rows.cu); and the hardware log-add of the "fast" mode
+// (rna_lse_pair_fast).
 //
 // Every add and multiply is a round-to-nearest intrinsic, so nvcc contracts
 // nothing into an FMA: the cubic's Horner steps and lse_pair's lo + f(z)
@@ -50,4 +51,14 @@ __device__ __forceinline__ float rna_lse_pair(float a, float b) {
   const float z = __fsub_rn(hi, lo);  // NaN or +inf when an operand is -inf
   if (z < RNA_LSE_THRESHOLD) return __fadd_rn(lo, rna_ln_exp_1p(z));
   return lo > -INFINITY ? __fadd_rn(lo, z) : hi;
+}
+
+// numerics.lse_pair in "fast" mode (torch.logaddexp): max + log1p(exp(-|a -
+// b|)) with the device's expf and log1pf, the survivor (or -inf) when an
+// operand is -inf.  Not bitwise the plain version's: the card's exp and
+// log1p round differently from the CPU's.
+__device__ __forceinline__ float rna_lse_pair_fast(float a, float b) {
+  if (isinf(a) && a == b) return a;
+  const float m = fmaxf(a, b);
+  return __fadd_rn(m, log1pf(expf(-fabsf(__fsub_rn(a, b)))));
 }

@@ -2,8 +2,10 @@
 //
 // Replaces rna_algos_tpu/ops/pallas_align_prob.py:52 _pairhmm_prob_kernel
 // (K14, scaled probability space) and rna_algos_tpu/ops/pallas_align.py:66
-// _pairhmm_kernel (K15, log space with the reference's cubic lse_pair),
-// the fill of `reference/src/durbin_algo.rs:79-199`.
+// _pairhmm_kernel (K15, log space with the reference's cubic lse_pair, and
+// its fast instance with the hardware log-add, which the JAX kernel
+// computes when traced under "fast"), the fill of
+// `reference/src/durbin_algo.rs:79-199`.
 //
 // The forward pass writes the match states M[i, j] and the three corner
 // sums (M, I, D at (n1-2, n2-2), the partition function); the backward
@@ -112,6 +114,26 @@ struct LogSemiring {  // K15: log space, cubic lse_pair
                                              float fd, float m2i) {
     return rna_lse_pair(rna_lse_pair(__fadd_rn(fm, tend), __fadd_rn(fi, m2i)),
                         __fadd_rn(fd, m2i));
+  }
+};
+
+// K15's fast instance: the same log space with the hardware log-add.
+struct LogFastSemiring : LogSemiring {
+  static __device__ __forceinline__ float match(float m2, float tmm, float i2,
+                                                float d2, float m2i) {
+    return rna_lse_pair_fast(
+        rna_lse_pair_fast(__fadd_rn(m2, tmm), __fadd_rn(i2, m2i)),
+        __fadd_rn(d2, m2i));
+  }
+  static __device__ __forceinline__ float pair(float a, float ta, float b,
+                                               float tb) {
+    return rna_lse_pair_fast(__fadd_rn(a, ta), __fadd_rn(b, tb));
+  }
+  static __device__ __forceinline__ float ss(float fm, float tend, float fi,
+                                             float fd, float m2i) {
+    return rna_lse_pair_fast(
+        rna_lse_pair_fast(__fadd_rn(fm, tend), __fadd_rn(fi, m2i)),
+        __fadd_rn(fd, m2i));
   }
 };
 
@@ -310,6 +332,13 @@ __global__ void pairhmm_log_kernel(PAIRHMM_PARAMS) {
     pairhmm_body<LogSemiring, false>(PAIRHMM_ARGS);
 }
 
+__global__ void pairhmm_log_fast_kernel(PAIRHMM_PARAMS) {
+  if (backward)
+    pairhmm_body<LogFastSemiring, true>(PAIRHMM_ARGS);
+  else
+    pairhmm_body<LogFastSemiring, false>(PAIRHMM_ARGS);
+}
+
 template <class K>
 static int rna_pairhmm_launch(K kernel, const int* x1, const int* x2,
                               const int* n1s, const int* n2s, const float* ms,
@@ -340,4 +369,14 @@ extern "C" int rna_pairhmm_log(const int* x1, const int* x2, const int* n1s,
                                void* stream) {
   return rna_pairhmm_launch(pairhmm_log_kernel, x1, x2, n1s, n2s, ms, ins,
                             scal, out, corner, P, N, backward, stream);
+}
+
+extern "C" int rna_pairhmm_log_fast(const int* x1, const int* x2,
+                                    const int* n1s, const int* n2s,
+                                    const float* ms, const float* ins,
+                                    const float* scal, float* out,
+                                    float* corner, int P, int N, int backward,
+                                    void* stream) {
+  return rna_pairhmm_launch(pairhmm_log_fast_kernel, x1, x2, n1s, n2s, ms,
+                            ins, scal, out, corner, P, N, backward, stream);
 }

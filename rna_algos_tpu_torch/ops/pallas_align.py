@@ -1,7 +1,9 @@
 """Kernel K15: the Durbin pair-HMM in log space (``rna_algos_tpu.ops.pallas_align``).
 
 The 3-state forward/backward fill of `reference/src/durbin_algo.rs:79-199`
-with the reference's piecewise-cubic ``lse_pair``, the parity tier.
+with the reference's piecewise-cubic ``lse_pair``, the parity tier, and
+its fast instance with the hardware log-add (``torch.logaddexp``), which
+the JAX kernel computes when traced under "fast".
 ``pairhmm_log`` launches ``csrc/pairhmm.cu`` for CUDA tensors and runs the
 plain version for CPU tensors.  The plain wavefront here (``_pairhmm_plain``)
 serves both K15 and K14 (``pallas_align_prob``): the two differ only in the
@@ -48,22 +50,29 @@ class ProbSemiring:
 class LogSemiring:
     """K15: log space with the cubic ``lse_pair``."""
     zero, one = NEG_INF, 0.0
+    mode = "parity"
 
-    @staticmethod
-    def match(m2, tmm, i2, d2, m2i):
-        return _lse3(m2 + tmm, i2 + m2i, d2 + m2i)
+    @classmethod
+    def match(cls, m2, tmm, i2, d2, m2i):
+        return _lse3(m2 + tmm, i2 + m2i, d2 + m2i, cls.mode)
 
-    @staticmethod
-    def pair(a, ta, b, tb):
-        return lse_pair(a + ta, b + tb, "parity")
+    @classmethod
+    def pair(cls, a, ta, b, tb):
+        return lse_pair(a + ta, b + tb, cls.mode)
 
     @staticmethod
     def emit(t, e):
         return t + e
 
-    @staticmethod
-    def ss(fm, tend, fi, fd, m2i):
-        return _lse3(fm + tend, fi + m2i, fd + m2i)
+    @classmethod
+    def ss(cls, fm, tend, fi, fd, m2i):
+        return _lse3(fm + tend, fi + m2i, fd + m2i, cls.mode)
+
+
+class FastLogSemiring(LogSemiring):
+    """K15's fast instance: log space with the hardware log-add
+    (``torch.logaddexp``)."""
+    mode = "fast"
 
 
 def _lse3(a, b, c, mode="parity"):
@@ -136,10 +145,10 @@ def _pairhmm_plain(x1, x2, n1, n2, ms, ins, scal, backward, sr):
     return flat[:, :N * N].reshape(P, N, N), corner
 
 
-def _plane(P, N, device):
-    """The (P, N, N) output planes of a kernel pass: uninitialised, the
-    kernel writes every cell once."""
-    return torch.empty((P, N, N), device=device)
+def _plane(P, N1, N2, device):
+    """The (P, N1, N2) output plane of a kernel pass (K14, K15, K22):
+    uninitialised, the kernel writes every cell once."""
+    return torch.empty((P, N1, N2), device=device)
 
 
 def _pairhmm_cuda(entry, x1, x2, n1, n2, ms, ins, scal, backward, sr):
@@ -152,7 +161,7 @@ def _pairhmm_cuda(entry, x1, x2, n1, n2, ms, ins, scal, backward, sr):
     shapes = dict(x1=(P, N), x2=(P, N), n1=(P,), n2=(P,), ms=(P, NB, NB),
                   ins=(P, NB), scal=(5,))
     _build.check_cuda(entry, ins_, shapes, dev, ints=("x1", "x2", "n1", "n2"))
-    out = _plane(P, N, dev)
+    out = _plane(P, N, N, dev)
     corner = torch.full((P, 3), sr.zero, device=dev)
     args = [x1, x2, n1, n2, ms, ins, scal, out, corner]
     _build.library().call(
@@ -175,15 +184,17 @@ def _dispatch(name, counter, x1, x2, n1, n2, ms, ins, scal, backward, sr):
 
 
 log_launches = _build.LaunchCounter("pairhmm_log")
+log_fast_launches = _build.LaunchCounter("pairhmm_log_fast")
 
 
-def pairhmm_log_plain(x1, x2, n1, n2, ms, ins, scal, backward):
+def pairhmm_log_plain(x1, x2, n1, n2, ms, ins, scal, backward, fast=False):
     return _pairhmm_plain(x1, x2, n1, n2, ms, ins, scal, backward,
-                          LogSemiring)
+                          FastLogSemiring if fast else LogSemiring)
 
 
-def pairhmm_log(x1, x2, n1, n2, ms, ins, scal, backward):
-    """K15, one pass over P pairs in log space.
+def pairhmm_log(x1, x2, n1, n2, ms, ins, scal, backward, fast=False):
+    """K15, one pass over P pairs in log space: the cubic log-add, or with
+    ``fast`` the instance with the hardware one (``torch.logaddexp``).
 
     x1, x2: (P, N) int32 sentinel-wrapped bases (forward coordinates);
     n1, n2: (P,) int32 lengths; ms (P, 5, 5) and ins (P, 5) float32 score
@@ -192,6 +203,9 @@ def pairhmm_log(x1, x2, n1, n2, ms, ins, scal, backward):
     corner M/I/D sums at (n1-2, n2-2); backward (the pair reversed, unit
     init scores), the posterior context ssum[i, j] in forward coordinates.
     -inf outside [0, n1-2] x [0, n2-2]."""
+    if fast:
+        return _dispatch("pairhmm_log_fast", log_fast_launches, x1, x2, n1,
+                         n2, ms, ins, scal, backward, FastLogSemiring)
     return _dispatch("pairhmm_log", log_launches, x1, x2, n1, n2, ms, ins,
                      scal, backward, LogSemiring)
 
@@ -200,13 +214,14 @@ def pairhmm_log(x1, x2, n1, n2, ms, ins, scal, backward):
 # Driver
 # ---------------------------------------------------------------------------
 
-def inner_mask(n1, n2, N):
-    """(P, N, N) True on [1, n1-2] x [1, n2-2], the posterior's support
-    (durbin_algo.rs:201-242)."""
+def inner_mask(n1, n2, N, N2=None):
+    """(P, N, N2) (N2 = N by default) True on [1, n1-2] x [1, n2-2], the
+    posterior's support (durbin_algo.rs:201-242)."""
     ii = torch.arange(N, device=n1.device)
+    jj = torch.arange(N if N2 is None else N2, device=n1.device)
     n1l, n2l = n1.long()[:, None, None], n2.long()[:, None, None]
     return ((ii[None, :, None] >= 1) & (ii[None, :, None] <= n1l - 2)
-            & (ii[None, None, :] >= 1) & (ii[None, None, :] <= n2l - 2))
+            & (jj[None, None, :] >= 1) & (jj[None, None, :] <= n2l - 2))
 
 
 def _scalars(at, init_m, init_i):
@@ -216,20 +231,23 @@ def _scalars(at, init_m, init_i):
     ]).to(torch.float32)
 
 
-def _durbin_pallas_body(seqs1, ns1, seqs2, ns2, at, N, numerics):
-    """Log-space forward + backward and the posterior finish
-    p = expf(FM + ssum - z), z the lse3 of the forward corner."""
-    P = seqs1.shape[0]
+def log_posterior(pass_fn, seqs1, ns1, seqs2, ns2, at, numerics):
+    """Log-space forward and backward passes through ``pass_fn`` (K15, or
+    the row scan K22: the kernels' contract, (x1, x2, n1, n2, ms, ins,
+    scal, backward) -> (plane, corner)) and the posterior finish
+    p = expf(FM + ssum - z), z the lse3 of the forward corner, zero
+    outside [1, n1-2] x [1, n2-2]."""
+    P, N1 = seqs1.shape
     ms = at["match_scores"].expand(P, NB, NB).contiguous()
     ins = at["insert_scores"].expand(P, NB).contiguous()
     zero = torch.zeros((), device=seqs1.device)
-    FM, corn = pairhmm_log(seqs1, seqs2, ns1, ns2, ms, ins, _scalars(
+    FM, corn = pass_fn(seqs1, seqs2, ns1, ns2, ms, ins, _scalars(
         at, at["init_match_score"], at["init_insert_score"]), False)
-    ssum, _ = pairhmm_log(seqs1, seqs2, ns1, ns2, ms, ins,
-                          _scalars(at, zero, zero), True)
+    ssum, _ = pass_fn(seqs1, seqs2, ns1, ns2, ms, ins,
+                      _scalars(at, zero, zero), True)
     z = _lse3(corn[:, 0], corn[:, 1], corn[:, 2], numerics)
     p = expf(FM + ssum - z[:, None, None], numerics)
-    return torch.where(inner_mask(ns1, ns2, N), p, 0.0)
+    return torch.where(inner_mask(ns1, ns2, N1, seqs2.shape[1]), p, 0.0)
 
 
 def durbin_match_probs_batch_pallas(seqs1, ns1, seqs2, ns2, at, N,
@@ -238,13 +256,12 @@ def durbin_match_probs_batch_pallas(seqs1, ns1, seqs2, ns2, at, N,
     sentinel-wrapped pairs, (P,) int32 lengths, ``at`` from
     ``weights.align_tables`` -> (P, N, N) float32, zero outside
     [1, n1-2] x [1, n2-2].  ``numerics`` "exact" or "parity" (the same
-    cubics); the hardware-transcendental variant of "fast" is not ported
-    (ROADMAP A10)."""
-    if check_mode(numerics) == "fast":
-        raise NotImplementedError(
-            "the log-space pair-HMM with hardware transcendentals (fast "
-            "mode) is not ported yet (ROADMAP A10)")
-    return _durbin_pallas_body(seqs1, ns1, seqs2, ns2, at, N, numerics)
+    cubics) or "fast" (K15's instance with the hardware log-add, and
+    ``torch.exp`` in the finish)."""
+    fast = check_mode(numerics) == "fast"
+    return log_posterior(
+        lambda *args: pairhmm_log(*args, fast=fast),
+        seqs1, ns1, seqs2, ns2, at, numerics)
 
 
 def pallas_available(N1, N2):

@@ -75,19 +75,19 @@ def resolve_device(device):
 
 
 def align_bucket(n1, n2):
-    """The square bucket the port aligns a pair of wrapped lengths (n1, n2)
-    in: the JAX runner's TPU rule, the least power of two >= 64 covering
-    the larger ``pick_bucket``.  Past 256 it raises: the JAX package runs
-    such pairs (and every non-square bucket) through its row scan, which
-    is not ported."""
+    """The (N1, N2) bucket the port aligns a pair of wrapped lengths
+    (n1, n2) in, the JAX runner's rules: where the least power of two
+    >= 64 covering the larger ``pick_bucket`` is a wavefront bucket
+    (K14/K15, <= 256), that square; otherwise (pick_bucket(n1),
+    pick_bucket(n2)), the key the JAX runner gives its row scan, which
+    the row scan K22 takes at any shape."""
     n = max(pick_bucket(n1), pick_bucket(n2))
     N = 64
     while N < n:
         N *= 2
-    if not PA.pallas_available(N, N):
-        raise NotImplementedError(
-            f"pair of lengths ({n1}, {n2}) in bucket {N} {D.GENERIC_ITEM}")
-    return N
+    if PA.pallas_available(N, N):
+        return N, N
+    return pick_bucket(n1), pick_bucket(n2)
 
 
 class AlignEngine:
@@ -108,19 +108,19 @@ class AlignEngine:
         results = dict.fromkeys(map(tuple, pairs))
         by_bucket = {}
         for k, (a, b) in enumerate(pairs):
-            N = align_bucket(len(seqs[a]), len(seqs[b]))
-            by_bucket.setdefault(N, []).append(k)
+            key = align_bucket(len(seqs[a]), len(seqs[b]))
+            by_bucket.setdefault(key, []).append(k)
 
         def dev(x):
             return torch.as_tensor(x, dtype=torch.int32, device=self.device)
 
-        for N, ks in by_bucket.items():
+        for (N1, N2), ks in by_bucket.items():
             firsts = [seqs[pairs[k][0]] for k in ks]
             seconds = [seqs[pairs[k][1]] for k in ks]
             probs = D.durbin_match_probs_batch_auto(
-                dev(pad_seqs(firsts, N)), dev([len(s) for s in firsts]),
-                dev(pad_seqs(seconds, N)), dev([len(s) for s in seconds]),
-                self.at, N1=N, N2=N, numerics=self.numerics,
+                dev(pad_seqs(firsts, N1)), dev([len(s) for s in firsts]),
+                dev(pad_seqs(seconds, N2)), dev([len(s) for s in seconds]),
+                self.at, N1=N1, N2=N2, numerics=self.numerics,
             ).cpu().numpy()
             for slot, k in enumerate(ks):
                 results[tuple(pairs[k])] = probs[slot, :len(firsts[slot]),

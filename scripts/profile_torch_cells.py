@@ -3,7 +3,7 @@
 on a CUDA GPU.
 
     python scripts/profile_torch_cells.py [--trace-dir DIR] [--generic-only]
-        [--scan-build CSRC]
+        [--rows-only] [--scan-build CSRC]
 
 Cells as in chip_smoke.py: the six tRNAs tiled to B = 192 (bucket 128), 96
 seeded random 150-200 nt sequences (bucket 256), and the long tier's 32
@@ -18,8 +18,13 @@ tRNA and random 150-200 nt cells, both models; and the generic-N scan's
 cells (kernels K20/K21, chip_smoke.py's batches): Turner exact on seq_1536
 and four random 1,409-1,536 nt sequences (bucket 1536), CONTRA exact on two
 random 2,817-2,944 nt sequences (bucket 2944), and parity on eight random
-300-384 nt sequences (bucket 384) for both models.  ``--generic-only``
-profiles those alone; ``--scan-build CSRC`` runs K20/K21 through the build
+300-384 nt sequences (bucket 384) for both models; and the Durbin row
+scan's cells (kernel K22, chip_smoke.ROWS_RUNS): the 496 pairs of 32
+random 300-450 nt sequences (RNase P scale, buckets (384 | 512)^2) exact
+and parity, the 28 pairs of 8 random 1,400-1,536 nt sequences (SSU rRNA
+scale) exact, and the 66 pairs of the tRNAs with six of the RNase P
+sequences (K14 and K22 in one call).  ``--generic-only`` and
+``--rows-only`` profile the generic-N or the row-scan cells alone; ``--scan-build CSRC`` runs K20/K21 through the build
 of another checkout's ``csrc`` and its own ``ops/fold_scan.py`` beside it
 (as ``scripts/ab_kernels.py --scan`` does), to profile a parent build.
 For each it prints the unprofiled batch time (the mean of REPS batches in
@@ -53,7 +58,8 @@ KERNELS = ("skew_kernel", "contra_inside_kernel", "contra_outside_kernel",
            "pairhmm_prob_kernel", "pairhmm_log_kernel",
            "contra_inside_log_kernel", "contra_outside_log_kernel",
            "turner_inside_log_kernel", "turner_outside_log_kernel",
-           "scan_inside_kernel", "scan_outside_kernel")
+           "scan_inside_kernel", "scan_outside_kernel",
+           "pairhmm_log_fast_kernel", "pairhmm_rows_kernel")
 
 
 def _union(intervals):
@@ -113,6 +119,8 @@ def main(argv=None):
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("--generic-only", action="store_true",
                     help="only the generic-N scan's cells")
+    ap.add_argument("--rows-only", action="store_true",
+                    help="only the Durbin row scan's cells")
     ap.add_argument("--scan-build", default=None,
                     help="csrc of another checkout for K20/K21")
     args = ap.parse_args(argv)
@@ -171,12 +179,19 @@ def main(argv=None):
         generic[(f"{m}_parity", "generic_N384_B8")] = (
             m == "contra", "parity", chip_smoke.random_batch(
                 *chip_smoke.SCAN_PARITY[:3], seed=chip_smoke.SCAN_PARITY[3]))
-    if args.generic_only:
+    if args.generic_only or args.rows_only:
         calls = {}
-    for key, (contra, mode, seqs) in generic.items():
+    for key, (contra, mode, seqs) in ({} if args.rows_only
+                                      else generic).items():
         engine = FoldEngine(uses_contra_model=contra, device="cuda",
                             numerics=mode)
         calls[key] = (lambda e=engine, s=seqs: e.fold_batch(s))
+    if not args.generic_only:
+        rsets = chip_smoke.rows_sets(trnas)
+        for path, mode, key in chip_smoke.ROWS_RUNS:
+            aligner = AlignEngine(device="cuda", numerics=mode)
+            calls[(path, key)] = (lambda a=aligner, d=rsets[key]:
+                                  a.match_probs_pairs(*d))
     times = {k: batch_ms(call, 2 if "generic" in k[1] else REPS)
              for k, call in calls.items()}
     for (model, cell), call in calls.items():

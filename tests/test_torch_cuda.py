@@ -1,4 +1,4 @@
-"""Kernels K1-K5, K8, K9, K12-K21 against their plain versions on a
+"""Kernels K1-K5, K8, K9, K12-K22 against their plain versions on a
 CUDA GPU: the checks of chip_smoke.py, at the main paths' buckets (K1/K2
 and K4/K5 on live cells with their dead cells 0, also on edge batches at
 each bucket <= 256 and with NaN in their dead input cells and scratch; the long
@@ -7,7 +7,9 @@ with their dead cells 0, at every cluster size the check shapes take; the pair-H
 bitwise at each pair's settled ln_sigma, also with NaN-filled output
 planes and on edge batches at N = 64 and 256; the parity tier's log kernels
 on a few random sequences at N = 128 and 256; the generic-N scan's K20/K21
-on the N = 160 edge batch and one parity path past 256).  Skipped without
+on the N = 160 edge batch and one parity path past 256; K15's fast
+instance; the Durbin row scan K22 on its edge batch and through
+AlignEngine beside K14).  Skipped without
 a GPU; run on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
 import numpy as np
@@ -287,6 +289,47 @@ def test_durbin_path_launches_its_kernel(device, numerics):
     assert list(out) == pairs
     assert all(p.shape == (len(seqs[a]), len(seqs[b])) and np.isfinite(p).all()
                for (a, b), p in out.items())
+
+
+def test_pairhmm_log_fast_matches_plain(durbin_inputs):
+    """K15's fast instance within RTOL_LOG_FAST of its plain version
+    (check_pairhmm raises otherwise)."""
+    assert chip_smoke.check_pairhmm(durbin_inputs,
+                                    "pairhmm_log_fast") <= chip_smoke.RTOL_LOG_FAST
+
+
+def test_rows_kernel_on_edge_batch(device):
+    """K22 on chip_smoke.ROWS_EDGE (n = 2, 3, n = N, n1 != n2 in one
+    rectangular bucket): bitwise under exact and parity, also with the
+    planes NaN-filled, and within RTOL_LOG_FAST under fast."""
+    fast_err = {}
+    for key, x in chip_smoke.rows_edge_inputs(device).items():
+        chip_smoke.check_rows(x, f"edge {key}", ("exact", "parity", "fast"),
+                              fast_err)
+    assert fast_err["pairhmm_rows"] <= chip_smoke.RTOL_LOG_FAST
+
+
+def test_rows_path_launches_its_kernel(device):
+    """A short pair (K14) and a pair with a 300-nt sequence (K22) through
+    AlignEngine: each kernel launched, the result cropped, the K22 pair
+    bitwise the plain path's."""
+    from rna_algos_tpu_torch.ops import pairhmm_rows as PR
+    from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
+    from rna_algos_tpu_torch.parallel.runner import AlignEngine
+
+    engine = AlignEngine(device=device)
+    seqs = [np.array([4] + s + [4], np.int32)
+            for s in (chip_smoke.random_batch(2, 60, 200, seed=7)
+                      + chip_smoke.random_batch(1, 300, 300, seed=8))]
+    pairs = [(0, 1), (0, 2)]
+    PR.launches.reset()
+    PAP.prob_launches.reset()
+    out = engine.match_probs_pairs(seqs, pairs)
+    assert PR.launches.count == 2 and PAP.prob_launches.count >= 2
+    with chip_smoke.plain_kernels():
+        plain = engine.match_probs_pairs(seqs, [(0, 2)])
+    assert out[(0, 2)].shape == (len(seqs[0]), 302)
+    np.testing.assert_array_equal(out[(0, 2)], plain[(0, 2)])
 
 
 @pytest.fixture(scope="module", params=[("contra", 128), ("turner", 128),

@@ -24,6 +24,7 @@ from rna_algos_tpu_torch.utils.io import read_fasta
 from rna_algos_tpu_torch.weights import align_tables
 
 from .conftest import REPO_ROOT
+from .scan_cases import single_torch_thread  # noqa: F401
 from .test_reference_golden import _parse_triples
 from .test_torch_durbin_kernels import jax_scores, random_pairs
 from .test_torch_durbin_paths import _jax_prob_ls, port_prob_ls
@@ -63,44 +64,62 @@ def test_align_tables_randomized_scores():
 
 
 def test_align_bucket_matches_jax_rule():
-    """The JAX runner's TPU rule for lengths 3..258: one square power of two
-    >= 64 over the larger pick_bucket; past 256 the port raises (A10)."""
-    for n1 in range(3, 259):
-        for n2 in (3, n1 // 2 + 3, n1, 64, 129, 257):
+    """The JAX runner's two rules for lengths 3..600: its TPU rule (one
+    square power of two >= 64 over the larger pick_bucket) wherever that
+    square is a wavefront bucket (<= 256), else the key it gives its row
+    scan, (pick_bucket(n1), pick_bucket(n2))."""
+    for n1 in range(3, 601):
+        for n2 in (3, n1 // 2 + 3, n1, 64, 129, 257, 300, 513, 600):
             n = max(j_pick_bucket(n1), j_pick_bucket(n2))
             N = 64
             while N < n:
                 N *= 2
-            if N <= 256:
-                assert align_bucket(n1, n2) == N, (n1, n2)
-            else:
-                with pytest.raises(NotImplementedError, match="A10"):
-                    align_bucket(n1, n2)
+            want = ((N, N) if N <= 256
+                    else (j_pick_bucket(n1), j_pick_bucket(n2)))
+            assert align_bucket(n1, n2) == want, (n1, n2)
 
 
-def test_dispatch_by_numerics():
+def test_dispatch_by_numerics(monkeypatch):
     """exact and fast run K14 (the same probabilities), parity K15 (within
-    the 5e-4 golden budget of them); K15 has no fast variant and the row
-    scan's buckets are not ported (A10)."""
-    from rna_algos_tpu_torch.models.durbin import durbin_match_probs_batch_auto
+    the 5e-4 golden budget of them), K15's fast instance as close; a
+    bucket that is not a square power of two <= 256 runs the row scan
+    (K22) in every mode."""
+    from rna_algos_tpu_torch.models import durbin as TD
+    from rna_algos_tpu_torch.ops import pairhmm_rows as PR
     from rna_algos_tpu_torch.ops import pallas_align as PA
 
     s1, n1, s2, n2 = (torch.as_tensor(x) for x in random_pairs(
         np.random.default_rng(51), 4, 64, 20, 60))
     at = align_tables(JCA.build_align_scores(), "cpu")
-    got = {m: durbin_match_probs_batch_auto(s1, n1, s2, n2, at, 64, 64,
-                                            numerics=m)
+    got = {m: TD.durbin_match_probs_batch_auto(s1, n1, s2, n2, at, 64, 64,
+                                               numerics=m)
            for m in ("exact", "fast", "parity")}
     assert torch.equal(got["exact"], got["fast"])
     assert float((got["exact"] - got["parity"]).abs().max()) < 5e-4
-    with pytest.raises(NotImplementedError, match="A10"):
-        PA.durbin_match_probs_batch_pallas(s1, n1, s2, n2, at, 64,
-                                           numerics="fast")
-    with pytest.raises(NotImplementedError, match="A10"):
-        durbin_match_probs_batch_auto(s1, n1, s2, n2, at, 64, 128)
+    fast15 = PA.durbin_match_probs_batch_pallas(s1, n1, s2, n2, at, 64,
+                                                numerics="fast")
+    assert float((fast15 - got["parity"]).abs().max()) < 5e-4
+    calls = []
+    rows = PR.pairhmm_rows
+
+    def counted(*args):
+        calls.append(args[7])
+        return rows(*args)
+
+    monkeypatch.setattr(PR, "pairhmm_rows", counted)
+    wide = torch.full((4, 128), PSEUDO_BASE, dtype=torch.int32)
+    wide[:, :64] = s2
+    for m in ("exact", "fast", "parity"):
+        calls.clear()
+        rect = TD.durbin_match_probs_batch_auto(s1, n1, wide, n2, at, 64,
+                                                128, numerics=m)
+        assert calls == [False, True] and rect.shape == (4, 64, 128)
+        assert (rect[:, :, 64:] == 0).all()
+        # the row scan's box is the wavefront's within the golden budget
+        assert float((rect[:, :, :64] - got[m]).abs().max()) < 5e-4
     with pytest.raises(ValueError):
-        durbin_match_probs_batch_auto(s1, n1, s2, n2, at, 64, 64,
-                                      numerics="turbo")
+        TD.durbin_match_probs_batch_auto(s1, n1, s2, n2, at, 64, 64,
+                                         numerics="turbo")
 
 
 def _wrapped(seqs):
@@ -108,11 +127,11 @@ def _wrapped(seqs):
             for s in seqs]
 
 
-def test_align_engine_crop_and_order():
+def test_align_engine_crop_and_order(single_torch_thread):
     """Pairs of two buckets (64, 128) in mixed order, a reversed and a
     repeated pair: a dict keyed by pair, as the JAX engine returns, each
     result cropped to its pair's lengths and bitwise the pair's result
-    alone."""
+    alone; a 300-nt pair (the row scan at bucket (384, 384)) cropped too."""
     rng = np.random.default_rng(31)
     lens = (20, 100, 35, 58)
     seqs = _wrapped([rng.integers(0, 4, n) for n in lens])
@@ -127,9 +146,12 @@ def test_align_engine_crop_and_order():
         np.testing.assert_array_equal(mat, alone)
     np.testing.assert_array_equal(got[(0, 2)].T.shape, got[(2, 0)].shape)
     assert np.isfinite(got[(1, 2)]).all() and got[(1, 2)].max() > 0.05
-    with pytest.raises(NotImplementedError, match="A10"):
-        engine.match_probs_pairs(_wrapped([np.zeros(300, np.int32)] * 2),
-                                 [(0, 1)])
+    # a 300-nt pair: bucket (384, 384), the row scan, cropped
+    long = _wrapped([rng.integers(0, 4, 300), rng.integers(0, 4, 296)])
+    mat = engine.match_probs_pairs(long, [(0, 1)])[(0, 1)]
+    assert mat.shape == (302, 298) and np.isfinite(mat).all()
+    assert (mat[0] == 0).all() and (mat[:, -1] == 0).all()
+    assert mat.max() > 0.05 and (mat.sum(axis=1) < 1.001).all()
 
 
 def _dense(triples, shape):

@@ -62,10 +62,12 @@ def jax_scores(sc):
     return {k: jnp.asarray(v) for k, v in sc.items()}
 
 
-def _jax_pass(s1, n1, s2, n2, ms, ins, scal, N, backward, prob):
+def _jax_pass(s1, n1, s2, n2, ms, ins, scal, N, backward, prob,
+              mode="parity"):
     """One pass of the JAX kernel on the port's tables (ms (P, 5, 5), ins
-    (P, 5), scal (5,), numpy), padded to one 128-lane block: (out (P, N, N),
-    corner (P, 3)) in the port's contract."""
+    (P, 5), scal (5,), numpy), padded to one 128-lane block, traced under
+    the numerics ``mode``: (out (P, N, N), corner (P, 3)) in the port's
+    contract."""
     P = s1.shape[0]
     G = 1
 
@@ -88,7 +90,7 @@ def _jax_pass(s1, n1, s2, n2, ms, ins, scal, N, backward, prob):
     sc8 = np.zeros(8, np.float32)
     sc8[:5] = scal
     call = JPAP._pairhmm_prob_call if prob else JPA._pairhmm_call
-    with JN.force_mode("parity"):
+    with JN.force_mode(mode):
         out, corn = call(jnp.asarray(sc8)[None, None],
                          JPA._to_blocks(jnp.asarray(NN), G), blocks[0],
                          blocks[1], blocks[2], blocks[3], G, N, backward, True)
@@ -150,6 +152,31 @@ def test_pass_matches_jax_kernel(pairs32, prob, backward):
         assert np.abs(got[fin] - want[fin]).max() <= 1e-4
         if not backward:
             assert np.abs(gcorn.numpy() - wcorn).max() <= 1e-4
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_log_fast_pass_matches_jax_kernel(pairs32, backward):
+    """K15's fast instance (the plain log wavefront with ``torch.logaddexp``)
+    against the JAX log kernel traced under "fast" in interpret mode: the
+    -inf pattern identical, finite cells within 1e-4 (measured: 3.8e-6 on
+    log values up to ~60; torch's and XLA's logaddexp round differently)."""
+    s1, n1, s2, n2 = pairs32
+    P, N = s1.shape
+    ms, ins, scal = _port_tables(False, None, P, backward)
+    got, gcorn = PA.pairhmm_log(*to_torch(s1, s2, n1, n2), ms, ins, scal,
+                                backward, fast=True)
+    want, wcorn = _jax_pass(s1, n1, s2, n2, ms.numpy(), ins.numpy(),
+                            scal.numpy(), N, backward, False, mode="fast")
+    got = got.numpy()
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    assert fin.sum() > 1000
+    assert np.abs(got[fin] - want[fin]).max() <= 1e-4
+    if not backward:
+        assert np.abs(gcorn.numpy() - wcorn).max() <= 1e-4
+    cubic, _ = PA.pairhmm_log(*to_torch(s1, s2, n1, n2), ms, ins, scal,
+                              backward)
+    assert not np.array_equal(cubic.numpy(), got)
 
 
 @pytest.mark.parametrize("label,z", [

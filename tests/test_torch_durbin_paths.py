@@ -127,3 +127,16 @@ def test_log_path_matches_jax():
     assert (got >= 0).all() and (got < 1.001).all()
 
 
+def test_log_fast_path_matches_jax():
+    """K15's whole path in fast mode (its fast instance, ``torch.exp`` in
+    the finish) vs the JAX log-space kernel traced under "fast", within
+    1e-5 (measured: 1.6e-7)."""
+    pairs = random_pairs(np.random.default_rng(6), 6, 32, same=1)
+    got = PA.durbin_match_probs_batch_pallas(
+        *to_torch(pairs[0], pairs[1], pairs[2], pairs[3]),
+        align_tables(SC, "cpu"), 32, numerics="fast").numpy()
+    with JN.force_mode("fast"):
+        want = np.asarray(JPA.durbin_match_probs_batch_pallas(
+            *to_jax(*pairs), jax_scores(SC), N=32, interpret=True))
+    assert np.abs(got - want).max() <= 1e-5
+    assert (got >= 0).all() and (got < 1.001).all() and got.max() > 0.05

@@ -336,3 +336,40 @@ def test_log_checks_reach_every_thread_group():
     and LOG_EDGE hold every one of them against the plain version."""
     shapes = {N for N, _B in chip_smoke.SHAPES_MAIN} | set(chip_smoke.LOG_EDGE)
     assert {min(32, 1024 // n) for n in shapes} == {4, 8, 16, 32}
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 64, 65, 383, 1535])
+def test_tree_combines_counts_the_scan_tree(n, monkeypatch):
+    """``chip_smoke.tree_combines`` is the number of combines (log-adds)
+    of the row scan's associative-scan tree over n columns, counted on
+    the plain replica."""
+    from rna_algos_tpu_torch.ops import pairhmm_rows as PR
+
+    seen, real = [], PR.lse_pair
+
+    def counting(a, b, mode):
+        seen.append(a.numel())
+        return real(a, b, mode)
+
+    monkeypatch.setattr(PR, "lse_pair", counting)
+    x = torch.zeros((1, n))
+    PR._linrec_lse(x, x, "exact")
+    assert sum(seen) == chip_smoke.tree_combines(n)
+
+
+def test_rows_bound_counts_this_runs_cells():
+    """K22's bound on the edge batch: the live cells (n1 - 1)(n2 - 1) and
+    each row's tree over its n2 - 1 live columns, by brute force."""
+    x = next(iter(chip_smoke.rows_edge_inputs(torch.device("cpu")).values()))
+    ops = 0.0
+    for a, b in zip(x["n1"].tolist(), x["n2"].tolist()):
+        for _ in range(a - 1):
+            ops += (b - 1) * sum(chip_smoke.ROWS_CELL_OPS) / 2.0
+            ops += chip_smoke.ROWS_COMBINE_OPS * chip_smoke.tree_combines(b - 1)
+        ops += chip_smoke.tree_combines(b - 1)
+    nbytes = x["P"] * (4 * (x["N1"] + x["N2"]) + 8 + 120
+                       + 4 * x["N1"] * x["N2"] + 12) + 20
+    want = max((nbytes / chip_smoke.PEAK_BYTES_PER_S * 1e3, "bytes"),
+               (ops / chip_smoke.PEAK_FP32_PER_S * 1e3, "operations"))
+    got = chip_smoke.rows_bound(x)
+    assert got[1] == want[1] and got[0] == pytest.approx(want[0], rel=1e-12)
