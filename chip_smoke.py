@@ -37,8 +37,11 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    row scan K22, forward and backward, bitwise under exact (planes and
    corners, also NaN-filled) at the RNase P set's buckets (384, 512) and
    (512, 384) and the SSU set's commonest bucket (all their pairs), fast
-   at (384, 512) within RTOL_LOG_FAST, and on the ROWS_EDGE batch (n = 2,
-   3, n = N, n1 != n2) under exact, parity and fast; the generic-N scan's
+   at (384, 512) within RTOL_LOG_FAST, and on the ROWS_EDGE batches (n = 2,
+   3, n = N, n1 != n2; a tRNA against 4,100-4,224-nt records at (128,
+   4224), past what K22 held before its redesign; a few rows against
+   33,000-40,000-nt records, past what its registers hold) under exact,
+   parity and fast; the generic-N scan's
    K20 (inside) and K21
    (outside), one cooperative launch a pass, both models, at N = 384,
    B = 8 and
@@ -104,8 +107,9 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    cli.mccaskill and cli.centroid_fold --numerics parity -c on a 400-nt
    record (the generic scan at bucket 512) on the card against
    --device cpu; cli.durbin under exact and parity on a tRNA and three
-   RNase P records (row-scan buckets), the card's output byte-identical
-   to --device cpu's;
+   RNase P records (row-scan buckets), and on a tRNA and a 4,100-nt
+   record (bucket (96, 4224)), the card's output byte-identical to
+   --device cpu's;
 5. seqs/s (pairs/s for Durbin) of every main-path configuration, kernel
    path and plain path, and the peak device memory of each long batch.
 
@@ -233,12 +237,20 @@ TOL_DURBIN_FAST = 1e-5
 # buckets (384 | 512)^2; SSU rRNA scale, all 28 pairs of 8; and the mixed
 # set, the 6 tRNAs with the first ROWS_MIXED RNase P sequences (66 pairs,
 # K14 and K22 in one call).  ROWS_EDGE: wrapped lengths (n1, n2) in one
-# rectangular bucket, n = 2 (no inner cell), 3, n = N, n1 != n2.
+# rectangular bucket, n = 2 (no inner cell), 3, n = N, n1 != n2; a tRNA
+# against 4,100-4,224-nt records (the (128, 4224) bucket, a cluster of 8
+# blocks a pair); a few rows against 33,000-40,000-nt records (65,536
+# columns: the runs in the global scratch).  ROWS_LONG_RECORD: the length
+# of the record that cli.durbin aligns against a tRNA past 4,096 nt.
 ROWS_RNASEP = (32, 300, 450, 450)
 ROWS_SSU = (8, 1400, 1536, 1536)
 ROWS_MIXED = 6
 ROWS_EDGE = {(64, 96): ((2, 2), (3, 96), (64, 2), (64, 96), (33, 65),
-                        (2, 50), (17, 3), (63, 95), (40, 40))}
+                        (2, 50), (17, 3), (63, 95), (40, 40)),
+             (128, 4224): ((78, 4224), (78, 4100), (128, 4097), (2, 4224),
+                           (100, 2)),
+             (8, 40000): ((8, 40000), (6, 33000), (3, 40000))}
+ROWS_LONG_RECORD = 4100
 # The buckets K22 is held at (the RNase P set's two rectangles and the SSU
 # set's commonest bucket), and the pairs of a path held against the plain
 # path (the first ROWS_SUBSET of its K22 bucket with the fewest rows, whose
@@ -1663,9 +1675,13 @@ def rows_checks(rsets, fast_err, times, device):
     parity and fast; at the RNase P set's two rectangular buckets and the
     SSU set's commonest bucket (all their pairs) under exact, and fast at
     the first; each pass timed beside the plain one and its bound, into
-    ``times["pairhmm_rows"]``."""
+    ``times["pairhmm_rows"]``.  Prints each bucket's launch
+    (``pairhmm_rows.rows_plan``)."""
+    from rna_algos_tpu_torch.ops.pairhmm_rows import rows_plan
+
     for key, x in rows_edge_inputs(device).items():
-        print(f"check K22 edge N1={key[0]} N2={key[1]} P={x['P']}")
+        print(f"check K22 edge N1={key[0]} N2={key[1]} P={x['P']}, "
+              f"launch {rows_plan(key[1])}")
         check_rows(x, f"edge {key}", ("exact", "parity", "fast"), fast_err)
     for k, (name, key) in enumerate(ROWS_CHECK):
         seqs, pairs = rsets[name]
@@ -1674,7 +1690,7 @@ def rows_checks(rsets, fast_err, times, device):
             key = max(groups, key=lambda g: len(groups[g]))
         x = rows_inputs(seqs, groups[key], key, device)
         shape = f"{name.split('_')[0]}_N{key[0]}x{key[1]}_P{x['P']}"
-        print(f"check K22 {shape}")
+        print(f"check K22 {shape}, launch {rows_plan(key[1])}")
         modes = ("exact", "fast") if k == 0 else ("exact",)
         pms = check_rows(x, shape, modes, fast_err)
         ms = cuda_ms(lambda: [rows_call(x, b, "exact") for b in (0, 1)],
@@ -1774,10 +1790,18 @@ def rows_throughput(rsets, aligners, stats, smi):
 
 def rows_cli(du_cli, rsets):
     """cli.durbin on a FASTA of a tRNA and three RNase P records (pairs in
-    row-scan buckets): the card's output byte-identical to --device cpu's,
+    row-scan buckets), and on one of a tRNA and a ROWS_LONG_RECORD-nt
+    record (the bucket (96, 4224), past the 4,096 columns K22 took before
+    its redesign): the card's output byte-identical to --device cpu's,
     under exact and parity."""
     seqs, _ = rsets["mixed_P66"]
-    recs = [seqs[0]] + seqs[-3:]
+    long_rec = wrap(random_batch(1, ROWS_LONG_RECORD, ROWS_LONG_RECORD,
+                                 seed=ROWS_LONG_RECORD))[0]
+    for recs in ([seqs[0]] + seqs[-3:], [seqs[0], long_rec]):
+        rows_cli_run(du_cli, recs)
+
+
+def rows_cli_run(du_cli, recs):
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         (tmp / "long.fa").write_text("".join(

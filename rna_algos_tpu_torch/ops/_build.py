@@ -49,7 +49,8 @@ SIGNATURES = {
     "rna_pairhmm_prob": [_P] * 9 + [_I, _I, _I, _P],
     "rna_pairhmm_log": [_P] * 9 + [_I, _I, _I, _P],
     "rna_pairhmm_log_fast": [_P] * 9 + [_I, _I, _I, _P],
-    "rna_pairhmm_rows": [_P] * 9 + [_I] * 5 + [_P],
+    "rna_pairhmm_rows": [_P] * 10 + [_I] * 5 + [_P],
+    "rna_pairhmm_rows_plan": [_I, _I, ctypes.POINTER(_I)],
     "rna_contra_inside_log": [ctypes.POINTER(_P)] + [_P] * 8 + [_I, _I, _P],
     "rna_contra_outside_log": [ctypes.POINTER(_P)] + [_P] * 12
     + [_I, _I, _I, _P],

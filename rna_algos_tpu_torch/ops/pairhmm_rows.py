@@ -15,11 +15,15 @@ tree, so the two agree bit for bit under "exact" and "parity" (the same
 cubics), and both equal the JAX row scan run eagerly.
 
 ``pairhmm_rows`` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors.  A pass returns two planes' worth of what the
+version for CPU tensors.  The kernel takes any N1 and N2: a pair's columns
+go to a cluster of blocks (``rows_plan``), in registers up to 8,192
+columns and past that in a scratch the wrapper allocates.  A pass returns two planes' worth of what the
 JAX body keeps six of: forward, the match states FM and the corner sums;
 backward (the pair reversed, zero init scores), the posterior context
 ``ssum`` already in forward coordinates.
 """
+
+import ctypes
 
 import torch
 
@@ -30,7 +34,9 @@ from . import _build
 from . import pallas_align as PA
 from .pallas_align import NB, _lse3, _pass_seqs
 
-MAX_N2 = 4096    # RNA_ROWS_MAX_N2 in csrc/pairhmm_rows.cu: columns (seq 2)
+# Scratch rows of W floats a pair when the runs live in global memory
+# (RNA_ROWS_SCRATCH).
+SCRATCH_ROWS = 7
 
 
 def _shift_right(v):
@@ -179,23 +185,35 @@ def pairhmm_rows_plain(x1, x2, n1, n2, ms, ins, scal, backward,
                       check_mode(mode))
 
 
+def rows_plan(N2, mode="exact"):
+    """The kernel's launch of a pass at N2 columns, as
+    ``csrc/pairhmm_rows.cu`` chooses it on this card: dict(W, T, C, R,
+    scratch) (W columns as C blocks of T threads of R columns each, a
+    cluster a pair; ``scratch`` when the runs live in global memory)."""
+    plan = (ctypes.c_int * 5)()
+    _build.library().call("rna_pairhmm_rows_plan", N2, int(mode == "fast"),
+                          plan)
+    return dict(zip(("W", "T", "C", "R", "scratch"), plan))
+
+
 def _rows_cuda(x1, x2, n1, n2, ms, ins, scal, backward, mode):
     dev = x1.device
     P, N1 = x1.shape
     N2 = x2.shape[1]
-    if N2 > MAX_N2:
-        raise ValueError(f"pairhmm_rows: N2 = {N2}, at most {MAX_N2} "
-                         "columns (the second sequence of each pair)")
     ins_ = dict(x1=x1, x2=x2, n1=n1, n2=n2, ms=ms, ins=ins, scal=scal)
     shapes = dict(x1=(P, N1), x2=(P, N2), n1=(P,), n2=(P,), ms=(P, NB, NB),
                   ins=(P, NB), scal=(5,))
     _build.check_cuda("pairhmm_rows", ins_, shapes, dev,
                       ints=("x1", "x2", "n1", "n2"))
+    plan = rows_plan(N2, mode)
+    scratch = torch.empty((P, SCRATCH_ROWS, plan["W"]) if plan["scratch"]
+                          else (0,), device=dev)
     out = PA._plane(P, N1, N2, dev)
     corner = torch.full((P, 3), NEG_INF, device=dev)
     args = [x1, x2, n1, n2, ms, ins, scal, out, corner]
     _build.library().call(
-        "rna_pairhmm_rows", *[_build.ptr(t) for t in args], P, N1, N2,
+        "rna_pairhmm_rows", *[_build.ptr(t) for t in args],
+        _build.ptr(scratch) if plan["scratch"] else None, P, N1, N2,
         int(backward), int(mode == "fast"), _build.stream_ptr(dev),
     )
     return out, corner
@@ -208,7 +226,7 @@ def pairhmm_rows(x1, x2, n1, n2, ms, ins, scal, backward, mode="exact"):
     """K22, one row-scan pass over P pairs.
 
     x1 (P, N1), x2 (P, N2): int32 sentinel-wrapped bases (forward
-    coordinates), any N1 and N2 <= MAX_N2; n1, n2: (P,) int32 lengths,
+    coordinates), any N1 and N2; n1, n2: (P,) int32 lengths,
     at least 2; ms (P, 5, 5) and ins (P, 5) float32 score tables; scal
     (5,) [m2m, m2i, ext, init_m, init_i].  ``mode`` "exact" or "parity"
     (the cubic log-add) or "fast" (the hardware one).  Returns (plane

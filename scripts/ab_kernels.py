@@ -2,7 +2,8 @@
 a CUDA GPU, in turns (A, B, B, A), on the same inputs.
 
     python scripts/ab_kernels.py --a OLD_CSRC_DIR [--b NEW_CSRC_DIR]
-        [--a-split] [--short-only | --pairhmm | --log] [--paths]
+        [--a-split] [--short-only | --pairhmm | --log | --scan | --rows]
+        [--paths]
 
 ``--b`` defaults to the package's own ``csrc/``.  Each build goes into the
 ``_build`` directory beside its sources.  A build from before the cluster
@@ -62,6 +63,17 @@ the same turns, with their seqs/s and peak memory.  A build whose K17/K19
 entry points take the separate pm and pm2 scratches of before is handed
 them; one whose K18 entry point takes no (ext, one) scratch is not handed
 it (K16's two scratches fit the rm and rmmb histories it took before).
+``--rows`` times the Durbin row scan K22 instead: ``--a`` is the ``csrc``
+of a checkout, driven by that checkout's own ``ops/pairhmm_rows.py`` (its C
+entry point may differ from today's).  A pass (a forward and a backward
+launch, halved; CUDA events, the mean of ROWS_REPS after a warm-up) per
+build in turns A, B, B, A at chip_smoke.py's K22 buckets (``ROWS_CHECK``:
+the RNase P set's (384, 512) and (512, 384), the SSU set's commonest
+bucket), whether the two builds' planes and corners are bitwise equal
+there (exact), then the row scan's main paths (``AlignEngine``,
+chip_smoke.py's ``ROWS_RUNS``) through each build in the same turns, with
+their pairs/s (CUDA events around 3 calls after a warm-up, each ending in
+the copy to the host) and peak memory.
 Entry points a build does not define are not bound.  Needs a GPU.
 """
 
@@ -91,6 +103,9 @@ LEGACY_SIGNATURES = {
 SCAN_REPS = 3
 SCAN_SHAPES = (("contra", 1536, 2, "exact"), ("turner", 1536, 2, "exact"),
                ("contra", 384, 8, "parity"), ("turner", 384, 8, "parity"))
+ROWS_REPS = 3
+# K22's entry point before its redesign (no scratch, no cluster size)
+ROWS_LEGACY = [_P] * 9 + [_I] * 5 + [_P]
 # Ring rows a sequence of an older build's ring scratch: CONTRA's window
 # ring, Turner's three 32-slot rings and its 8-slot ring.
 RING_ROWS = {"rna_contra_inside": 32, "rna_contra_outside": 32,
@@ -221,6 +236,9 @@ def load(csrc, split):
                                                   k18_decl.group(1))
         if no_eo:
             sigs[k18] = [*saved[k18][:9], *saved[k18][10:]]
+        rows_decl = re.search(r'"C" int rna_pairhmm_rows\(([^)]*)\)', text)
+        if rows_decl and "scratch" not in rows_decl.group(1):
+            sigs["rna_pairhmm_rows"] = ROWS_LEGACY
     _build.SIGNATURES = sigs
     try:
         lib = _build.library()
@@ -236,13 +254,18 @@ def load(csrc, split):
 
 
 def fold_scan_module(csrc):
-    """The ``ops/fold_scan.py`` beside ``csrc`` as a module of this
-    package: its relative imports resolve here, and it launches through
+    """The ``ops/fold_scan.py`` beside ``csrc`` (see ``tree_module``)."""
+    return tree_module(csrc, "fold_scan")
+
+
+def tree_module(csrc, stem):
+    """The ``ops/<stem>.py`` beside ``csrc`` as a module of this package:
+    its relative imports resolve here, and it launches through
     ``_build.library()`` (see ``use``)."""
     import importlib.util
 
-    path = pathlib.Path(csrc).resolve().parent / "ops" / "fold_scan.py"
-    name = f"rna_algos_tpu_torch.ops._fold_scan_{abs(hash(str(path)))}"
+    path = pathlib.Path(csrc).resolve().parent / "ops" / f"{stem}.py"
+    name = f"rna_algos_tpu_torch.ops._{stem}_{abs(hash(str(path)))}"
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -271,6 +294,8 @@ def main(argv=None):
                     help="the parity tier's kernels K16-K19 instead")
     ap.add_argument("--scan", action="store_true",
                     help="the generic-N scan's kernels K20/K21 instead")
+    ap.add_argument("--rows", action="store_true",
+                    help="the Durbin row scan K22 instead")
     ap.add_argument("--paths", action="store_true",
                     help="then the exact main paths through each build")
     args = ap.parse_args(argv)
@@ -290,11 +315,15 @@ def main(argv=None):
         for name, line in ptxas_lines(lib.compiler_output):
             if args.scan and "scan_" not in name:
                 continue
+            if args.rows and "rows" not in name:
+                continue
             if not args.log or "_log_kernel" in name:
                 print(f"  {k} ptxas: {name}: {line}")
     use(libs["B"])
     if args.scan:
         return ab_scan(libs, args, dev, chip_smoke)
+    if args.rows:
+        return ab_rows(libs, args, dev, chip_smoke)
     if args.pairhmm:
         return ab_pairhmm(libs, dev, chip_smoke)
     if args.log:
@@ -570,6 +599,82 @@ def ab_scan(libs, args, dev, chip_smoke):
     grid_barrier_probe(chip_smoke)
     ab_scan_paths(libs, mods, chip_smoke)
     return 0
+
+
+def ab_rows(libs, args, dev, chip_smoke):
+    """K22 of the two builds in turns A, B, B, A (each build's own
+    ops/pairhmm_rows.py), whether their planes and corners are bitwise
+    equal, then the row scan's main paths through each build."""
+    from rna_algos_tpu_torch.ops import pairhmm_rows
+    from rna_algos_tpu_torch.utils.io import read_fasta
+
+    mods = {"A": tree_module(args.a, "pairhmm_rows"), "B": pairhmm_rows}
+    trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
+    rsets = chip_smoke.rows_sets(trnas)
+    times, same = {}, {}
+    for name, key in chip_smoke.ROWS_CHECK:
+        seqs, pairs = rsets[name]
+        groups = chip_smoke.rows_buckets(seqs, pairs)
+        if key is None:
+            key = max(groups, key=lambda g: len(groups[g]))
+        x = chip_smoke.rows_inputs(seqs, groups[key], key, dev)
+        label = f"{name.split('_')[0]}_N{key[0]}x{key[1]}_P{x['P']}"
+        outs = {}
+        for turn, which in enumerate(("A", "B", "B", "A")):
+            use(libs[which])
+            calls = [lambda b=b: mods[which]._rows_cuda(
+                x["x1"], x["x2"], x["n1"], x["n2"], x["ms"], x["ins"],
+                x["scal"][b], b, "exact") for b in (0, 1)]
+            ms = chip_smoke.cuda_ms(lambda: [c() for c in calls],
+                                    ROWS_REPS) / 2
+            outs[which] = [t for c in calls for t in c()]
+            times.setdefault(label, {}).setdefault(which, []).append(ms)
+            print(f"turn {turn} build {which} {label} K22: {ms:.4f} ms a "
+                  "pass")
+        same[label] = all(torch.equal(a.view(torch.int32),
+                                      b.view(torch.int32))
+                          for a, b in zip(outs["A"], outs["B"]))
+        print(f"{label} K22: planes and corners of A and B bitwise equal: "
+              f"{same[label]}")
+        del x, outs
+        torch.cuda.empty_cache()
+    for label, ms in times.items():
+        a_ms, b_ms = (sum(ms[k]) / len(ms[k]) for k in ("A", "B"))
+        print(f"mean {label} K22: A {a_ms:.4f} ms, B {b_ms:.4f} ms, A / B "
+              f"{a_ms / b_ms:.4f}")
+    ab_rows_paths(libs, mods, chip_smoke, rsets)
+    return 0 if all(same.values()) else 1
+
+
+def ab_rows_paths(libs, mods, chip_smoke, rsets):
+    """The row scan's main paths of chip_smoke.py (``AlignEngine`` on
+    ``ROWS_RUNS``) through each build in turns A, B, B, A: pairs/s (CUDA
+    events around 3 calls after a warm-up) and the peak device memory of
+    one call above what was held before it."""
+    from rna_algos_tpu_torch.ops import pairhmm_rows
+    from rna_algos_tpu_torch.parallel.runner import AlignEngine
+
+    saved = pairhmm_rows._rows_cuda
+    fns = {"A": mods["A"]._rows_cuda, "B": saved}
+    try:
+        for turn, which in enumerate(("A", "B", "B", "A")):
+            use(libs[which])
+            pairhmm_rows._rows_cuda = fns[which]
+            for path, mode, key in chip_smoke.ROWS_RUNS:
+                seqs, pairs = rsets[key]
+                engine = AlignEngine(device="cuda", numerics=mode)
+                ms = chip_smoke.cuda_ms(
+                    lambda: engine.match_probs_pairs(seqs, pairs), 3)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                engine.match_probs_pairs(seqs, pairs)
+                peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+                print(f"turn {turn} build {which} {path}_{key}: {ms:.4f} ms "
+                      f"a call, {1e3 * len(pairs) / ms:.2f} pairs/s, peak "
+                      f"{peak:.3f} GiB above {held / 2**30:.3f}")
+    finally:
+        pairhmm_rows._rows_cuda = saved
 
 
 def ab_scan_paths(libs, mods, chip_smoke):

@@ -37,6 +37,46 @@ scan shapes: CONTRA and Turner at N = 1536 B = 2 (exact) and N = 384 B = 8
 also the launch and base passes captured once in a CUDA graph and
 replayed (the same launches without the host).  Prints the card's name
 and power limit and the base build's ptxas lines first.  Needs a GPU.
+
+    python scripts/scan_probes.py --rows --tree DIR
+
+makes knock-out copies of the Durbin row scan K22 instead
+(``csrc/pairhmm_rows.cu``, driven through DIR's own
+``ops/pairhmm_rows.py``), each differing from it in ``pairhmm_rows.cu``
+alone:
+
+  base       unchanged
+  nobarrier  the block barriers of the row loop removed (one after the
+             cells, one after the leaves, one a level of each sweep in a
+             build of one block a pair; the three a row of a build with
+             the tree in registers and shuffles)
+  nolse      every log-add a max (``rows_lse``): the cubic's share
+  both       nobarrier and nolse: what is left (the loads, the stores, the
+             adds and the loop)
+
+and, for the redesign (runs of columns a thread, its own branch-free
+log-add):
+
+  cubich     cubic.cuh's log-add (rna_lse_pair, branching on z) instead
+  r4, r1     runs of 4 and 1 columns a thread instead of 2
+  t512       blocks of up to 512 threads before a cluster (not 256)
+  c1 .. c8   a pair on a cluster of 1, 2, 4 or 8 blocks (where the runs
+             fit; a launch that is refused is reported)
+  phases     clock64() marks in warps 0 and 1 of block 0: a row's cycles
+             by phase (the cells, the forward stores, the wait at each of
+             the two barriers, the leaves with the previous row's backward
+             outputs and the sweeps up, the block's levels, the carries'
+             shuffles, the sweeps down, the row's end), and the loop's
+             %globaltimer nanoseconds
+
+``--variants a,b`` times only those (and base).
+
+and times a forward and a backward pass of each (CUDA events, the mean of
+ROWS_REPS after a warm-up) at chip_smoke.py's K22 shapes (``ROWS_CHECK``:
+the RNase P set's (384, 512) and (512, 384) buckets and the SSU set's
+commonest bucket, all their pairs); then the base build again with the
+bucket's pairs repeated to as many pairs as the card has SMs (one block a
+pair on every SM in the first form).
 """
 
 import argparse
@@ -234,10 +274,17 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", required=True,
                     help="unpacked checkout with rna_algos_tpu_torch/")
+    ap.add_argument("--rows", action="store_true",
+                    help="the Durbin row scan K22 instead of K20/K21")
+    ap.add_argument("--variants", default="",
+                    help="with --rows: only these variants (and base)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("scan_probes: no CUDA GPU available", file=sys.stderr)
         return 2
+    if args.rows:
+        return rows_main(pathlib.Path(args.tree).resolve(),
+                         [v for v in args.variants.split(",") if v])
     import ab_kernels
     import chip_smoke
     from rna_algos_tpu_torch.ops import _build
@@ -323,6 +370,234 @@ def kind_marks(lib, k20, k21):
             f"({c[4 * k + s] / max(total, 1):.3f})"
             for s, name in enumerate(names) if name))
     return "; ".join(parts)
+
+
+ROWS_REPS = 3
+# The row loop's block barriers of PR 15's K22 (one block a pair, the
+# tree in shared memory), each with the text around it
+ROWS_OLD_SYNCS = [
+    ("      if (!B) plane[(long long)i * N2 + j] = fm;\n    }\n"
+     "    __syncthreads();\n",
+     "      if (!B) plane[(long long)i * N2 + j] = fm;\n    }\n"),
+    ("      sd[1 + j] = b;\n    }\n    __syncthreads();\n",
+     "      sd[1 + j] = b;\n    }\n"),
+    ("      ofs += Wp >> (l - 1);\n      __syncthreads();\n",
+     "      ofs += Wp >> (l - 1);\n"),
+    ("__fadd_rn(hc[o + 2 * k], sd[pos - s]));\n      }\n"
+     "      __syncthreads();\n",
+     "__fadd_rn(hc[o + 2 * k], sd[pos - s]));\n      }\n")]
+# The row loop's three block barriers of the redesign (rows_sync)
+ROWS_NEW_SYNCS = [("__device__ __forceinline__ void rows_sync(int C) {\n",
+                   "__device__ __forceinline__ void rows_sync(int C) {\n"
+                   "  if (C > 0) return;\n")]
+ROWS_LSE = ("  if constexpr (FAST)\n    return {}(a, b);\n"
+            "  else\n    return {}(a, b);\n")
+ROWS_MAX = "  return fmaxf(a, b);\n"
+ROWS_RUN = "#define RNA_ROWS_R 2 "
+ROWS_CLUSTER = "    C = units > RNA_ROWS_T ? units / RNA_ROWS_T : 1;\n"
+ROWS_PHASE_DECL = r"""
+// clock64() marks: [w][k] the cycles of phase k in warp w of block 0,
+// [w][9] the row loop's %globaltimer nanoseconds
+__device__ unsigned long long rna_rows_probe[2][10];
+extern "C" int rna_rows_probe_read(unsigned long long* host, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, rna_rows_probe,
+                                       sizeof(rna_rows_probe));
+  if (e == cudaSuccess && reset) {
+    unsigned long long zero[20] = {0};
+    e = cudaMemcpyToSymbol(rna_rows_probe, zero, sizeof(zero));
+  }
+  return (int)e;
+}
+__device__ __forceinline__ unsigned long long rows_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define ROWS_WATCH (blockIdx.x == 0 && (threadIdx.x == 0 || threadIdx.x == 32))
+#define ROWS_MARK(k)                                                 \
+  if (ROWS_WATCH) {                                                  \
+    const long long tn = clock64();                                  \
+    rna_rows_probe[threadIdx.x >> 5][k] += tn - rows_t;              \
+    rows_t = tn;                                                     \
+  }
+"""
+ROWS_PHASES = [
+    ('#include "cubic.cuh"\n', '#include "cubic.cuh"\n' + ROWS_PHASE_DECL),
+    ("  for (int i = 0; i < rows; ++i) {\n",
+     "  long long rows_t = clock64();\n"
+     "  const unsigned long long rows_g = rows_now();\n"
+     "  for (int i = 0; i < rows; ++i) {\n    ROWS_MARK(8)\n"),
+    ("    if (!B) {\n", "    ROWS_MARK(0)\n    if (!B) {\n"),
+    ("    rows_sync(C);  // the edges' M and I\n",
+     "    ROWS_MARK(1)\n    rows_sync(C);  // the edges' M and I\n"
+     "    ROWS_MARK(2)\n"),
+    ("    rows_sync(1);  // the warps' aggregates\n",
+     "    ROWS_MARK(3)\n    rows_sync(1);  // the warps' aggregates\n"
+     "    ROWS_MARK(4)\n"),
+    ("    // D final before warp q and at its last column\n",
+     "    ROWS_MARK(5)\n    // D final before warp q and at its last column\n"),
+    ("    if (live) {\n      // down-sweep: the warp's levels, then the run's\n",
+     "    ROWS_MARK(6)\n    if (live) {\n"
+     "      // down-sweep: the warp's levels, then the run's\n"),
+    ("    // the corner; backward, the row's outputs",
+     "    ROWS_MARK(7)\n    // the corner; backward, the row's outputs"),
+    ("  // the rows past the box\n",
+     "  if (ROWS_WATCH) rna_rows_probe[threadIdx.x >> 5][9] += "
+     "rows_now() - rows_g;\n  // the rows past the box\n")]
+ROWS_PHASE_NAMES = ("cells", "forward stores", "wait (edges)",
+                    "leaves, outputs and up", "wait (aggregates)",
+                    "block levels", "carries", "down", "row's end")
+
+
+def rows_variants(text):
+    """name -> substitutions for the K22 source ``text``."""
+    if "RNA_ROWS_MAX_N2" in text:   # PR 15's form
+        syncs, extra = ROWS_OLD_SYNCS, {}
+        lse = ROWS_LSE.format("rna_lse_pair_fast", "rna_lse_pair")
+    else:
+        syncs = ROWS_NEW_SYNCS
+        lse = ROWS_LSE.format("rows_fast_lse", "rows_cubic_lse")
+        extra = {"cubich": [(lse, ROWS_LSE.format("rows_fast_lse",
+                                                  "rna_lse_pair"))],
+                 "r4": [(ROWS_RUN, ROWS_RUN.replace("2", "4"))],
+                 "r1": [(ROWS_RUN, ROWS_RUN.replace("2", "1"))],
+                 "t512": [("#define RNA_ROWS_T 256 ",
+                           "#define RNA_ROWS_T 512 ")],
+                 "phases": ROWS_PHASES,
+                 **{f"c{C}": [(ROWS_CLUSTER, f"    C = {C};\n")]
+                    for C in (1, 2, 4, 8)}}
+    return {"base": [], "nobarrier": syncs, "nolse": [(lse, ROWS_MAX)],
+            "both": syncs + [(lse, ROWS_MAX)], **extra}
+
+
+def make_rows_variant(tree, name, subs):
+    """DIR/_probes/rows_<name>/csrc: pairhmm_rows.cu with the
+    substitutions (each must occur once), skew.cu and the headers."""
+    src = tree / "rna_algos_tpu_torch" / "csrc"
+    dst = tree / "_probes" / f"rows_{name}" / "csrc"
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir(parents=True)
+    for p in src.iterdir():
+        if p.suffix == ".cuh" or p.name == "skew.cu":
+            shutil.copy(p, dst / p.name)
+    text = (src / "pairhmm_rows.cu").read_text()
+    for old, new in subs:
+        if text.count(old) != 1:
+            raise RuntimeError(f"rows_{name}: {old[:60]!r} occurs "
+                               f"{text.count(old)} times in pairhmm_rows.cu")
+        text = text.replace(old, new)
+    (dst / "pairhmm_rows.cu").write_text(text)
+    return dst
+
+
+def rows_shapes(dev, sms):
+    """label -> inputs: chip_smoke.py's K22 buckets, and each with its
+    pairs repeated to ``sms`` pairs."""
+    import chip_smoke
+    from rna_algos_tpu_torch.utils.io import read_fasta
+
+    trnas = [r.seq for r in read_fasta(ROOT / "assets" / "sampled_trnas.fa")]
+    rsets = chip_smoke.rows_sets(trnas)
+    out = {}
+    for name, key in chip_smoke.ROWS_CHECK:
+        seqs, pairs = rsets[name]
+        groups = chip_smoke.rows_buckets(seqs, pairs)
+        if key is None:
+            key = max(groups, key=lambda g: len(groups[g]))
+        ps = groups[key]
+        label = f"{name.split('_')[0]}_N{key[0]}x{key[1]}"
+        out[f"{label}_P{len(ps)}"] = chip_smoke.rows_inputs(seqs, ps, key,
+                                                            dev)
+        full = [ps[k % len(ps)] for k in range(sms)]
+        out[f"{label}_P{sms}"] = chip_smoke.rows_inputs(seqs, full, key, dev)
+    return out
+
+
+def rows_pass_ms(PR, x):
+    """Mean ms of a pass (a forward and a backward launch, halved)."""
+    import chip_smoke
+
+    def run():
+        for b in (0, 1):
+            PR._rows_cuda(x["x1"], x["x2"], x["n1"], x["n2"], x["ms"],
+                          x["ins"], x["scal"][b], b, "exact")
+    return chip_smoke.cuda_ms(run, ROWS_REPS) / 2
+
+
+def rows_phases(lib, PR, x):
+    """One forward and one backward pass of ``x`` through a ``phases``
+    build: each watched warp's cycles a row by phase, and the clock."""
+    from rna_algos_tpu_torch.ops import _build
+
+    fn = lib.lib.rna_rows_probe_read
+    fn.argtypes = [_build._P, _build._I]
+    fn.restype = _build._I
+    counts = (_build.ctypes.c_ulonglong * 20)()
+    out = []
+    for b in (0, 1):
+        fn(counts, 1)
+        torch.cuda.synchronize()
+        PR._rows_cuda(x["x1"], x["x2"], x["n1"], x["n2"], x["ms"], x["ins"],
+                      x["scal"][b], b, "exact")
+        torch.cuda.synchronize()
+        if fn(counts, 1):
+            raise RuntimeError("scan_probes: probe read failed")
+        rows = int(x["n1"][0]) - 1
+        for w in (0, 1):
+            c = list(counts)[10 * w:10 * w + 10]
+            cyc = sum(c[:9])
+            out.append(f"{'backward' if b else 'forward'} warp {w}: "
+                       + ", ".join(f"{n} {c[k] / rows:.0f}"
+                                   for k, n in enumerate(ROWS_PHASE_NAMES))
+                       + f" cycles a row ({cyc / rows:.0f} in all, "
+                       f"{c[9] / rows:.1f} ns a row, "
+                       f"{cyc / max(c[9], 1):.3f} GHz)")
+    return "; ".join(out)
+
+
+def rows_main(tree, only=None):
+    """The K22 knock-outs of DIR (module docstring)."""
+    import ab_kernels
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    csrc = tree / "rna_algos_tpu_torch" / "csrc"
+    PR = ab_kernels.tree_module(csrc, "pairhmm_rows")
+    variants = rows_variants((csrc / "pairhmm_rows.cu").read_text())
+    if only:
+        variants = {k: v for k, v in variants.items()
+                    if k == "base" or k in only}
+    libs = {}
+    for name, subs in variants.items():
+        try:
+            libs[name] = ab_kernels.load(make_rows_variant(tree, name, subs),
+                                         False)
+        except RuntimeError as err:   # a variant that does not build
+            print(f"{name}: does not build ({str(err)[-2000:]})")
+    for kernel, line in ab_kernels.ptxas_lines(libs["base"].compiler_output):
+        if "rows" in kernel:
+            print(f"ptxas {kernel}: {line}")
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, x in rows_shapes(dev, sms).items():
+        own = x["P"] != sms
+        for name, lib in libs.items():
+            if name != "base" and not own:
+                continue
+            ab_kernels.use(lib)
+            try:
+                ms = rows_pass_ms(PR, x)
+            except RuntimeError as err:   # a refused launch
+                print(f"{label} {name}: does not launch ({err})")
+                continue
+            print(f"{label} {name}: {ms:.4f} ms a pass")
+            if name.startswith("phases"):
+                print(f"{label} {name}: {rows_phases(lib, PR, x)}")
+        del x
+        torch.cuda.empty_cache()
+    return 0
 
 
 if __name__ == "__main__":

@@ -8,8 +8,10 @@ bitwise at each pair's settled ln_sigma, also with NaN-filled output
 planes and on edge batches at N = 64 and 256; the parity tier's log kernels
 on a few random sequences at N = 128 and 256; the generic-N scan's K20/K21
 on the N = 160 edge batch and one parity path past 256; K15's fast
-instance; the Durbin row scan K22 on its edge batch and through
-AlignEngine beside K14).  Skipped without
+instance; the Durbin row scan K22 on its edge batch, past 4,096 columns
+(a cluster of blocks a pair, and the runs in the global scratch), on two
+SSU pairs that each span a cluster, and through AlignEngine beside K14 and
+on a 4,100-nt record).  Skipped without
 a GPU; run on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
 import numpy as np
@@ -299,14 +301,73 @@ def test_pairhmm_log_fast_matches_plain(durbin_inputs):
 
 
 def test_rows_kernel_on_edge_batch(device):
-    """K22 on chip_smoke.ROWS_EDGE (n = 2, 3, n = N, n1 != n2 in one
-    rectangular bucket): bitwise under exact and parity, also with the
-    planes NaN-filled, and within RTOL_LOG_FAST under fast."""
+    """K22 on chip_smoke.ROWS_EDGE's batch at (64, 96) (n = 2, 3, n = N,
+    n1 != n2 in one rectangular bucket): bitwise under exact and parity,
+    also with the planes NaN-filled, and within RTOL_LOG_FAST under
+    fast."""
     fast_err = {}
-    for key, x in chip_smoke.rows_edge_inputs(device).items():
-        chip_smoke.check_rows(x, f"edge {key}", ("exact", "parity", "fast"),
-                              fast_err)
+    x = chip_smoke.rows_edge_inputs(device)[(64, 96)]
+    chip_smoke.check_rows(x, "edge (64, 96)", ("exact", "parity", "fast"),
+                          fast_err)
     assert fast_err["pairhmm_rows"] <= chip_smoke.RTOL_LOG_FAST
+
+
+@pytest.mark.parametrize("key,scratch", [((128, 4224), 0), ((8, 40000), 1)],
+                         ids=["N128x4224", "N8x40000"])
+def test_rows_kernel_past_the_old_width_cap(device, key, scratch):
+    """K22 past 4,096 columns (fault C5): a tRNA against 4,100-4,224-nt
+    records at (128, 4224), a cluster of blocks a pair with the runs in
+    registers; a few rows against 33,000-40,000-nt records, the runs in
+    the global scratch.  Bitwise under exact and parity (planes and
+    corners, also NaN-filled), within RTOL_LOG_FAST under fast."""
+    from rna_algos_tpu_torch.ops.pairhmm_rows import rows_plan
+
+    x = chip_smoke.rows_edge_inputs(device)[key]
+    plan = rows_plan(key[1])
+    assert plan["scratch"] == scratch and plan["C"] > 1
+    fast_err = {}
+    chip_smoke.check_rows(x, f"edge {key}", ("exact", "parity", "fast"),
+                          fast_err)
+    assert fast_err["pairhmm_rows"] <= chip_smoke.RTOL_LOG_FAST
+
+
+def test_rows_kernel_ssu_pair_spans_a_cluster(device):
+    """Two pairs of the SSU set's (1536, 1536) bucket: each pair's columns
+    over a cluster of blocks; bitwise under exact and parity (also
+    NaN-filled), within RTOL_LOG_FAST under fast."""
+    from rna_algos_tpu_torch.ops.pairhmm_rows import rows_plan
+    from rna_algos_tpu_torch.utils.io import read_fasta
+
+    trnas = [r.seq for r in read_fasta(chip_smoke.ROOT / "assets"
+                                       / "sampled_trnas.fa")]
+    seqs, pairs = chip_smoke.rows_sets(trnas)["ssu_P28"]
+    ssu = chip_smoke.rows_buckets(seqs, pairs)[(1536, 1536)][:2]
+    x = chip_smoke.rows_inputs(seqs, ssu, (1536, 1536), device)
+    assert rows_plan(1536)["C"] > 1
+    fast_err = {}
+    chip_smoke.check_rows(x, "ssu P2", ("exact", "parity", "fast"), fast_err)
+    assert fast_err["pairhmm_rows"] <= chip_smoke.RTOL_LOG_FAST
+
+
+def test_rows_path_past_4096_columns(device):
+    """A tRNA against a 4,100-nt record through AlignEngine (bucket (96,
+    4224)): K22 launched once a pass, the result cropped and bitwise the
+    plain path's."""
+    from rna_algos_tpu_torch.ops import pairhmm_rows as PR
+    from rna_algos_tpu_torch.parallel.runner import AlignEngine, align_bucket
+
+    engine = AlignEngine(device=device)
+    seqs = [np.array([4] + s + [4], np.int32)
+            for s in (chip_smoke.random_batch(1, 76, 76, seed=9)
+                      + chip_smoke.random_batch(1, 4100, 4100, seed=10))]
+    assert align_bucket(len(seqs[0]), len(seqs[1]))[1] == 4224
+    PR.launches.reset()
+    out = engine.match_probs_pairs(seqs, [(0, 1)])
+    assert PR.launches.count == 2
+    with chip_smoke.plain_kernels():
+        plain = engine.match_probs_pairs(seqs, [(0, 1)])
+    assert out[(0, 1)].shape == (78, 4102)
+    np.testing.assert_array_equal(out[(0, 1)], plain[(0, 1)])
 
 
 def test_rows_path_launches_its_kernel(device):

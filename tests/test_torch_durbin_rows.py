@@ -5,9 +5,14 @@ against the JAX package's XLA row scan on the CPU.
 * ``_linrec_lse``, the replica of ``lax.associative_scan``'s tree, bitwise
   against ``lax.associative_scan`` with the cubic combine at widths 1-70.
 * K22's schedule (``csrc/pairhmm_rows.cu``: the c tree summed once, the
-  in-place up-sweep and down-sweep over the least power of two >= the live
-  columns, the items of a level dealt to T threads) replayed in plain
-  torch, bitwise against the replica at every width the kernel takes.
+  in-place up-sweep and down-sweep over a power of two >= the live
+  columns, a thread's run of R columns holding the tree's lowest levels,
+  the next five across a warp's lanes by shuffles, then over a block's
+  warps and a cluster's blocks, the sweeps down with each warp's and
+  block's carry; past what registers hold, longer runs) replayed in plain
+  torch, bitwise against the replica at every power of two up to 65,536
+  columns, each level's tree nodes computed once; a level, a shuffle
+  level or the cluster's exchange left out gives other bits.
 * The whole row scan (against the JAX body run eagerly: in
   ``test_torch_durbin_rows_eager.py``) against the jitted JAX batch within
   TOL_JIT (jitted XLA
@@ -39,7 +44,6 @@ from .oracle.durbin_oracle import durbin_oracle
 SC = build_align_scores()
 SCJ = {k: jnp.asarray(v) for k, v in SC.items()}
 TOL_JIT = 2e-5          # vs the jitted JAX batch (fused multiply-adds)
-MAX_N2 = PR.MAX_N2
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,70 +91,234 @@ def test_linrec_replica_matches_associative_scan(widths):
                                       want.view(np.int32), err_msg=str(n))
 
 
-def k22_scan(b, c, L, T, skip_down=None):
-    """K22's scan of one row, as the kernel's loops run it: b, c (R, Wp)
-    leaves (columns >= L are the kernel's -inf pads); T threads, item k of
-    a level to thread k mod T.  Checks that no item of a level reads a
-    slot another item of the level writes, and that the items of a level
-    are dealt to the threads once each.  Returns the scanned b.
-    ``skip_down``: a down-sweep level left out (a mutation)."""
-    R, Wp = b.shape
-    lg = Wp.bit_length() - 1
-    assert 1 << lg == Wp
-    # the c tree, level l at ofs(l) = 2 (Wp - Wp / 2^l)
-    hc = torch.full((R, 2 * Wp), float("-inf"))
-    hc[:, :Wp] = c
-    ofs = 0
-    for l in range(1, lg + 1):
-        prev, ofs = ofs, ofs + (Wp >> (l - 1))
-        assert ofs == 2 * (Wp - (Wp >> l))
-        k = torch.arange(Wp >> l)
-        hc[:, ofs + k] = hc[:, prev + 2 * k] + hc[:, prev + 2 * k + 1]
-    sd = b.clone()
+def _shfl_up(v, s, dim):
+    """__shfl_up_sync along ``dim``: unit u takes unit u - s, units below s
+    keep their own."""
+    u = torch.arange(v.shape[dim])
+    return v.index_select(dim, torch.where(u >= s, u - s, u))
 
-    def level(pos, left, cidx):
-        dealt = [list(range(t, len(pos), T)) for t in range(T)]
-        assert sorted(sum(dealt, [])) == list(range(len(pos)))
-        assert not set(pos.tolist()) & set(left.tolist())
-        sd[:, pos] = lse_pair(sd[:, pos], hc[:, cidx] + sd[:, left], "exact")
 
-    ofs = 0
-    for l in range(1, lg + 1):
+def _up_nodes(n, m):
+    """Units of n that combine at level m of the sweeps up."""
+    return ((torch.arange(n) + 1) & ((2 << m) - 1)) == 0
+
+
+def _down_nodes(n, m):
+    """Units of n that combine at level m of the sweeps down (the first
+    such unit's left operand is the unit before the group: its carry)."""
+    s = 1 << m
+    return ((torch.arange(n) + 1) & (2 * s - 1)) == s
+
+
+def k22_layout(W, T, C=None):
+    """(R, T, C) of K22 (csrc/pairhmm_rows.cu rows_plan) at a power of two
+    W >= 64 with at most T threads a block: runs of R = 2 columns in
+    registers over the fewest blocks (or C, given) while W <= 2 * T * 8;
+    past that 8 blocks of T threads and runs of W / (8 T) columns (the
+    global scratch)."""
+    if W <= 2 * T * 8:
+        units = W // 2
+        C = C or max(1, units // T)
+        return 2, units // C, C
+    C = C or 8
+    return W // (T * C), T, C
+
+
+def k22_scan(b, c, L, T, C=None, skip=None, check=True):
+    """K22's scan of rows (b, c) as the kernel deals it (rows_body): the
+    columns padded with -inf to the layout's W = R T C (``k22_layout``),
+    thread g of the pair owning the run [g R, (g + 1) R); the tree's
+    levels in the run, across a warp's lanes by shuffles, over a block's
+    warps, over the cluster's blocks (each block summing the block
+    aggregates itself); the sweeps down with each warp's and block's
+    carry.  ``check``: every level computes each of its tree nodes once
+    and reads no position it writes.  ``skip``: a mutation, ("down", l)
+    leaves out global down-sweep level l, ("shfl_up", m) / ("shfl_down",
+    m) a warp's shuffle level, ("cluster",) the exchange of the block
+    aggregates.  Returns the scanned b on b's columns."""
+    R0, L0 = b.shape
+    Wp = 1
+    while Wp < max(L0, 64):
+        Wp *= 2
+    R, T, C = k22_layout(Wp, T, C)
+    NW = T // 32
+    lr, lw, lc = (x.bit_length() - 1 for x in (R, NW, C))
+    assert R * T * C == Wp and NW * 32 == T
+    pad = torch.full((R0, Wp - L0), float("-inf"))
+    shape = (R0, C, NW, 32, R)
+    d = torch.cat([b, pad], 1).view(shape).clone()
+    cl = torch.cat([c, pad], 1).view(shape)
+    pos = torch.arange(Wp).view(C, NW, 32, R)
+    levels = {}
+
+    def lse(x, cv, y):
+        return lse_pair(x, cv + y, "exact")
+
+    def record(key, nodes, lefts):
+        w, r = levels.setdefault(key, ([], []))
+        w.append(nodes.flatten())
+        r.append(lefts.flatten())
+
+    # the c sums: the run's tree, then the warps', blocks' and cluster's
+    ct = [cl]
+    for _ in range(lr):
+        ct.append(ct[-1][..., 0::2] + ct[-1][..., 1::2])
+
+    def csums(s, dim, n, lv):
+        sums = []
+        for m in range(lv):
+            sums.append(s)
+            mask = _up_nodes(n, m).view([-1] + [1] * (s.dim() - dim - 1))
+            s = torch.where(mask, _shfl_up(s, 1 << m, dim) + s, s)
+        return sums, s
+
+    cw, s = csums(ct[lr][..., 0], 3, 32, 5)
+    cb, s = csums(s[..., 31], 2, NW, lw)
+    cc, _ = csums(s[..., NW - 1], 1, C, lc)
+
+    def up(v, vpos, cs, dim, n, lv, l0, key=None):
+        """The sweeps up over n units along dim (levels l0 + 1 + m)."""
+        for m in range(lv):
+            if skip == (key, m):
+                continue
+            mask = _up_nodes(n, m)
+            view = [-1] + [1] * (v.dim() - dim - 1)
+            u = _shfl_up(v, 1 << m, dim)
+            v = torch.where(mask.view(view), lse(v, cs[m], u), v)
+            sel = [slice(None)] * (dim - 1) + [mask]
+            record(("up", l0 + 1 + m), vpos[tuple(sel)],
+                   _shfl_up(vpos, 1 << m, dim - 1)[tuple(sel)])
+        return v
+
+    def down(v, vpos, cs, dim, n, lv, l0, carry, cpos, has, key=None):
+        """The sweeps down over n units along dim (levels l0 + m); the
+        first unit's carry ``carry`` (at position cpos) where ``has``."""
+        for m in reversed(range(lv)):
+            if skip in (("down", l0 + m), (key, m)):
+                continue
+            s = 1 << m
+            mask = _down_nodes(n, m)
+            inside = mask & (torch.arange(n) >= s)
+            edge = mask & (torch.arange(n) < s)
+            view = [-1] + [1] * (v.dim() - dim - 1)
+            u = _shfl_up(v, s, dim)
+            v = torch.where(inside.view(view), lse(v, cs[m], u), v)
+            cview = carry.unsqueeze(dim).expand_as(v)
+            hv = has.view(list(has.shape) + [1] * (v.dim() - 1 - has.dim()))
+            v = torch.where(edge.view(view) & hv, lse(v, cs[m], cview), v)
+            sel = [slice(None)] * (dim - 1) + [inside]
+            record(("down", l0 + m), vpos[tuple(sel)],
+                   _shfl_up(vpos, s, dim - 1)[tuple(sel)])
+            if edge.any() and has.any():
+                sel = [slice(None)] * (dim - 1) + [edge]
+                hp = has.view(list(has.shape)
+                              + [1] * (vpos.dim() - has.dim()))
+                nodes = vpos[tuple(sel)][hp.expand_as(vpos)[tuple(sel)]]
+                lefts = cpos.unsqueeze(dim - 1).expand_as(vpos)[tuple(sel)]
+                record(("down", l0 + m), nodes,
+                       lefts[hp.expand_as(vpos)[tuple(sel)]])
+        return v
+
+    # up: the run's levels, the warp's (shuffles), the block's, the cluster's
+    for l in range(1, lr + 1):
         h = 1 << (l - 1)
-        k = torch.arange(Wp >> l)
-        pos = (k + 1) * 2 * h - 1
-        level(pos, pos - h, ofs + 2 * k + 1)
-        ofs += Wp >> (l - 1)
-    for l in range(lg - 1, -1, -1):
-        s, m = 1 << l, Wp >> (l + 1)
-        if m < 2 or l == skip_down:
+        k = torch.arange(2 * h - 1, R, 2 * h)
+        d[..., k] = lse(d[..., k], ct[l - 1][..., k >> (l - 1)], d[..., k - h])
+        record(("up", l), pos[..., k], pos[..., k - h])
+    lastpos = pos[..., R - 1]                        # (C, NW, 32)
+    top = up(d[..., R - 1], lastpos, cw, 3, 32, 5, lr, "shfl_up")
+    wpos = lastpos[..., 31]                          # (C, NW)
+    wv = up(top[..., 31], wpos, cb, 2, NW, lw, lr + 5)
+    bpos = wpos[..., NW - 1]                         # (C,)
+    bv = wv[..., NW - 1]
+    first_block = torch.arange(C) == 0
+    if skip == ("cluster",) or C == 1:
+        bfinal = bv
+        bcarry = torch.full_like(bv, float("-inf"))
+    else:
+        u = up(bv, bpos, cc, 1, C, lc, lr + 5 + lw)
+        u = down(u, bpos, cc, 1, C, lc, lr + 5 + lw, torch.zeros(R0),
+                 bpos, torch.zeros(C, dtype=torch.bool))
+        bfinal = u
+        bcarry = torch.cat([torch.full_like(u[:, :1], float("-inf")),
+                            u[:, :-1]], 1)
+    # down: the block's levels with its carry, the warp's, the run's
+    cprev = torch.cat([bpos[:1], bpos[:-1]])        # position before block
+    wv = down(wv, wpos, cb, 2, NW, lw, lr + 5, bcarry, cprev, ~first_block)
+    if C > 1:
+        wv[..., NW - 1] = bfinal
+    fin = torch.cat([bcarry.unsqueeze(2), wv], 2)   # fin[q]: before warp q
+    wprev = torch.cat([cprev.unsqueeze(1), wpos[:, :-1]], 1)
+    lead_warp = torch.zeros(C, NW, dtype=torch.bool)
+    lead_warp[0, 0] = True
+    top = top.clone()
+    top[..., 31] = fin[..., 1:]
+    top = down(top, lastpos, cw, 3, 32, 5, lr, fin[..., :-1], wprev,
+               ~lead_warp, "shfl_down")
+    d[..., R - 1] = top
+    prev = _shfl_up(top, 1, 3)
+    prev[..., 0] = fin[..., :-1]
+    ppos = _shfl_up(lastpos, 1, 2)
+    ppos[..., 0] = wprev
+    lead = torch.zeros(C, NW, 32, dtype=torch.bool)
+    lead[0, 0, 0] = True
+    for l in reversed(range(lr)):
+        if skip == ("down", l):
             continue
-        k = torch.arange(1, m)
-        pos = (2 * k + 1) * s - 1
-        level(pos, pos - s, 2 * (Wp - (Wp >> l)) + 2 * k)
-    return sd
+        s = 1 << l
+        for k in range(s - 1, R, 2 * s):
+            cv = ct[l][..., k >> l]
+            if k >= s:
+                d[..., k] = lse(d[..., k], cv, d[..., k - s])
+                record(("down", l), pos[..., k], pos[..., k - s])
+            else:
+                d[..., k] = torch.where(~lead, lse(d[..., k], cv, prev),
+                                        d[..., k])
+                record(("down", l), pos[..., k][~lead], ppos[~lead])
+    if check:
+        lg = Wp.bit_length() - 1
+        for l in range(1, lg + 1):
+            want = torch.arange(1, Wp // (1 << l) + 1) * (1 << l) - 1
+            _check_level(levels, ("up", l), want)
+        for l in range(lg):
+            s = 1 << l
+            want = (2 * torch.arange(1, Wp // (2 * s)) + 1) * s - 1
+            _check_level(levels, ("down", l), want)
+    return d.view(R0, Wp)[:, :L0]
 
 
-def _pads(b, c, Wp):
-    R, L = b.shape
-    pad = torch.full((R, Wp - L), float("-inf"))
-    return torch.cat([b, pad], 1), torch.cat([c, pad], 1)
+def _check_level(levels, key, want):
+    """A level's nodes are the tree's, each computed once, and none is a
+    left operand of the same level."""
+    w, r = levels.get(key, ([torch.empty(0, dtype=torch.long)],
+                            [torch.empty(0, dtype=torch.long)]))
+    w, r = torch.cat(w), torch.cat(r)
+    assert w.numel() == want.numel(), key
+    assert torch.equal(w.sort().values, want), key
+    assert not torch.isin(r, w).any(), key
+
+
+WIDEST = 65536     # the replays' widest row (K22 takes any width)
 
 
 @pytest.mark.parametrize("T", [32, 1024])
 def test_k22_schedule_matches_replica(T):
-    """Every width the kernel takes (Wp = 1 .. MAX_N2), live widths at and
-    around its edges: the kernel's tree over Wp equals the replica over
-    the live columns, bit for bit, on the live columns."""
+    """Every power of two up to WIDEST as the tree's width Wp (the kernel
+    pads to 64 and more), live widths at and around its edges, T threads
+    a block at most: the kernel's deal (runs, shuffles, warps, a cluster of
+    blocks, past 4 T 8 columns the scratch's longer runs) equals the
+    replica over the live columns, bit for bit; a handful of rows past
+    4,096."""
     Wp = 1
-    while Wp <= MAX_N2:
+    while Wp <= WIDEST:
         # the live widths the kernel sums over Wp: (Wp / 2, Wp]
         lives = sorted({L for L in (Wp // 2 + 1, Wp - 1, Wp)
                         if Wp // 2 < L <= Wp})
         for L in lives:
-            b, c = (torch.as_tensor(x) for x in _rows(L, Wp + L))
+            rows = 6 if Wp <= 4096 else 3
+            b, c = (torch.as_tensor(x) for x in _rows(L, Wp + L, rows))
             want = PR._linrec_lse(b, c, "exact")
-            got = k22_scan(*_pads(b, c, Wp), L, T)[:, :L]
+            got = k22_scan(b, c, L, T)
             assert torch.equal(got.view(torch.int32),
                                want.view(torch.int32)), (Wp, L)
         Wp *= 2
@@ -163,8 +331,23 @@ def test_k22_schedule_fails_with_a_level_skipped(skip):
     b, c = (torch.as_tensor(x) for x in _rows(64, 7))
     want = PR._linrec_lse(b, c, "exact")
     assert torch.equal(k22_scan(b, c, 64, 32), want)
-    got = k22_scan(b, c, 64, 32, skip_down=skip)
+    got = k22_scan(b, c, 64, 32, skip=("down", skip), check=False)
     assert not torch.equal(got[:2], want[:2])
+
+
+@pytest.mark.parametrize("skip", [("shfl_up", 2), ("shfl_down", 1),
+                                  ("cluster",)],
+                         ids=["shuffle-up", "shuffle-down", "cluster"])
+def test_k22_schedule_fails_without_a_shuffle_or_the_cluster(skip):
+    """A shuffle level of the warps, up or down, or the exchange of the
+    block aggregates over a cluster of 8 blocks left out gives other bits
+    on the live columns."""
+    b, c = (torch.as_tensor(x) for x in _rows(512, 11, 3))
+    want = PR._linrec_lse(b, c, "exact")
+    assert k22_layout(512, 32) == (2, 32, 8)
+    assert torch.equal(k22_scan(b, c, 512, 32), want)
+    got = k22_scan(b, c, 512, 32, skip=skip, check=False)
+    assert not torch.equal(got, want)
 
 
 def random_rect(N1, N2, P, seed, lengths=None):
