@@ -111,7 +111,21 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    record (bucket (96, 4224)), the card's output byte-identical to
    --device cpu's;
 5. seqs/s (pairs/s for Durbin) of every main-path configuration, kernel
-   path and plain path, and the peak device memory of each long batch.
+   path and plain path, and the peak device memory of each long batch;
+6. the eval pipeline, eval.pipeline.run_all on assets/synth_rfam_seed.sth
+   (both models, both programs, the 18 gammas), its fold counted (K1/K2,
+   K4/K5 and K3 launched, their plain versions never called): 18 rows a
+   column, strict JSON, each column's best F1 at the floors of the
+   committed report's test and best MCC above 0.3; the largest per-gamma
+   gap of PPV, sensitivity, F1 and MCC to eval_artifacts/eval_report.json,
+   the PhaseTimer split and the wall time printed;
+7. both engines over a data mesh of one entry on the card and of two
+   entries on the one card, against the engines without a mesh: CONTRA on
+   the tRNA tile (B = 192) and 32 sequences of 300-500 nt (bucket 512),
+   Turner on the tRNA tile, AlignEngine on the 630 tRNA pairs and the
+   mixed set; each mesh run counted; bitwise with one entry, and with two
+   wherever a sequence or pair settles on the same ln_sigma with the same
+   launch shape, else within TOL_MAIN_VS_PLAIN, the counts printed.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and prints
@@ -2582,6 +2596,343 @@ def scan_cli(mc_cli, cf_cli):
 
 KERNELS_P8 = ("contra_inside", "contra_outside", "turner_inside",
               "turner_outside")
+# The eval phase: the committed seed set through eval.pipeline.run_all on
+# the card, each column's best F1 at the floors of
+# tests/test_eval_synth.py::test_committed_eval_artifact_sanity, best MCC
+# above EVAL_MCC, and the per-gamma gaps to the committed JAX report printed
+# (a gap above EVAL_GAP_NOTE is traced to its families in PERF.md).
+EVAL_SEED_SET = "assets/synth_rfam_seed.sth"
+EVAL_REPORT = "eval_artifacts/eval_report.json"
+EVAL_F1_FLOORS = {"centroid_estimator_turner": 0.68,
+                  "centroid_estimator_contra": 0.66,
+                  "threshold_estimator_turner": 0.68,
+                  "threshold_estimator_contra": 0.66}
+EVAL_MCC = 0.3
+EVAL_GAP_NOTE = 0.01
+EVAL_METRICS = ("ppv", "sens", "f1", "mcc")
+# The mesh phase: each engine over a mesh of one entry on the card (bitwise
+# the engine without a mesh) and of two entries on the one card (bitwise
+# where a sequence or pair settles on the same ln_sigma with the same launch
+# shape, else within TOL_MAIN_VS_PLAIN).
+MESHES = (("mesh1", ("cuda:0",)), ("mesh2", ("cuda:0", "cuda:0")))
+
+
+@contextlib.contextmanager
+def counted_plain_prob():
+    """Count the calls of the probability wavefronts' plain versions (K1,
+    K2, K4 and K5's) while the block runs: a one-item list."""
+    from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
+
+    calls = [0]
+    saved = {k: getattr(P8, k + "_plain") for k in KERNELS_P8}
+
+    def counting(fn):
+        def call(*args, **kw):
+            calls[0] += 1
+            return fn(*args, **kw)
+        return call
+
+    for k, fn in saved.items():
+        setattr(P8, k + "_plain", counting(fn))
+    try:
+        yield calls
+    finally:
+        for k, fn in saved.items():
+            setattr(P8, k + "_plain", fn)
+
+
+def strict_json(text):
+    """Parse JSON that must hold no NaN or Infinity literal."""
+    def refuse(name):
+        raise AssertionError(f"eval report: non-strict JSON literal {name}")
+    return json.loads(text, parse_constant=refuse)
+
+
+def eval_phase(counted, counts, smi):
+    """The accuracy-evaluation pipeline on the card: ``run_all`` on the
+    committed seed set, both models, both programs, the 18 gammas; its
+    fold counted (K1/K2 and K4/K5 launched, their plain versions never
+    called).  Fatal: 18 rows a column, strict JSON, the F1 floors, best
+    MCC.  Printed: the largest per-gamma gap of PPV, sensitivity, F1 and
+    MCC to the committed JAX report, the PhaseTimer split, the wall time.
+    Returns the phase's record."""
+    from rna_algos_tpu_torch.eval.pipeline import best, run_all
+
+    with tempfile.TemporaryDirectory() as work, \
+            counted_plain_prob() as n_plain:
+        t0 = time.perf_counter()
+        report = counted("eval", "eval", lambda: run_all(
+            str(ROOT / EVAL_SEED_SET), work, device="cuda"))
+        wall = time.perf_counter() - t0
+        saved = strict_json(
+            (pathlib.Path(work) / "eval_report.json").read_text())
+    if n_plain[0]:
+        raise AssertionError(f"eval: the plain wavefronts ran {n_plain[0]} "
+                             "times on the card")
+    ref = strict_json((ROOT / EVAL_REPORT).read_text())
+    rec = {"num_families": saved["num_families"], "wall_s": wall,
+           "phases": saved["phases"], "columns": {}}
+    for col, floor in EVAL_F1_FLOORS.items():
+        rows, want = saved["curves"][col], ref["curves"][col]
+        if len(rows) != 18:
+            raise AssertionError(f"eval {col}: {len(rows)} rows, not 18")
+        f1, mcc = best(rows, "f1"), best(rows, "mcc")
+        def gap(k, m):
+            a, b = rows[k][m], want[k][m]
+            return 0.0 if a is None or b is None else abs(a - b)
+
+        gaps = {m: max(gap(k, m) for k in range(18)) for m in EVAL_METRICS}
+        g_at = max(range(18), key=lambda k: max(gap(k, m)
+                                                for m in EVAL_METRICS))
+        # a cell with no value (0 / 0) in one report only: at gamma = 1 the
+        # MEA pairs only where a BPP exceeds 1 in float32 (a tie)
+        undefined = [rows[k]["gamma"] for k in range(18) if any(
+            (rows[k][m] is None) != (want[k][m] is None)
+            for m in EVAL_METRICS)]
+        worst = max(gaps.values())
+        print(f"eval {col}: best F1 {f1:.4f} (floor {floor}), best MCC "
+              f"{mcc:.4f}; gap to {EVAL_REPORT}: " + ", ".join(
+                  f"{m} {gaps[m]:.4e}" for m in EVAL_METRICS)
+              + f" (largest at gamma {rows[g_at]['gamma']:g})"
+              + (f" > {EVAL_GAP_NOTE}" if worst > EVAL_GAP_NOTE else "")
+              + f"; a metric undefined in one report only at gammas "
+              f"{undefined}")
+        if not (f1 >= floor and mcc > EVAL_MCC):
+            raise AssertionError(f"eval {col}: best F1 {f1} or MCC {mcc} "
+                                 "under the floor")
+        rec["columns"][col] = {"best_f1": f1, "best_mcc": mcc,
+                               "max_gap": gaps, "undefined_in_one": undefined,
+                               "timing_s": saved["timings_s"][col]}
+    for name, ph in saved["phases"].items():
+        print(f"eval phase {name}: {ph['seconds']:.4f} s over {ph['calls']} "
+              f"calls, {ph['items']} items")
+    print(f"eval: {saved['num_families']} families, run_all "
+          f"{saved['wall_s']:.3f} s inside, {wall:.3f} s around it; fold "
+          f"launches {counts['eval']}; plain wavefront calls 0; on {smi}")
+    return rec
+
+
+@contextlib.contextmanager
+def retry_records():
+    """Record each retry loop's (ns, settled ln_sigma), from whatever host
+    thread runs it, while the block runs: a list of (tuple, tuple)."""
+    from rna_algos_tpu_torch.ops import pallas_fold_prob as PP
+
+    seen, orig = [], PP._retrying
+
+    def retrying(run, ns, **kw):
+        bppo, ls = orig(run, ns, **kw)
+        seen.append((tuple(ns.cpu().tolist()), tuple(ls.cpu().tolist())))
+        return bppo, ls
+
+    PP._retrying = retrying
+    try:
+        yield seen
+    finally:
+        PP._retrying = orig
+
+
+def settled(records, groups):
+    """Each item's settled ln_sigma, where a retry record names it: groups
+    is a list of (items, their ns tuple) as the engine hands them to one
+    retry loop; an item whose ns tuple matches records that disagree, or
+    none, maps to None."""
+    by_ns = {}
+    for ns, ls in records:
+        by_ns.setdefault(ns, set()).add(ls)
+    out = {}
+    for items, ns in groups:
+        found = by_ns.get(ns, set())
+        ls = next(iter(found)) if len(found) == 1 else None
+        for k, item in enumerate(items):
+            out[item] = None if ls is None else ls[k]
+    return out
+
+
+def fold_groups(engine, seqs, entries):
+    """(sequence indices, their lengths) of each retry loop a fold over
+    ``entries`` shards runs: the engine's buckets in sorted order, each
+    split into contiguous shards; and each shard's launch shape (N, B)."""
+    from rna_algos_tpu_torch.parallel.mesh import shard_bounds
+    from rna_algos_tpu_torch.parallel.runner import kernel_bucket
+
+    order = sorted(range(len(seqs)), key=lambda k: len(seqs[k]))
+    buckets = {}
+    for k in order:
+        buckets.setdefault(kernel_bucket(len(seqs[k]), engine.contra,
+                                         engine.numerics), []).append(k)
+    groups, shapes = [], {}
+    for N, idxs in buckets.items():
+        for lo, hi in shard_bounds(len(idxs), entries):
+            part = idxs[lo:hi]
+            if part:
+                groups.append((part, tuple(len(seqs[k]) for k in part)))
+                for k in part:
+                    shapes[k] = (N, len(part))
+    return groups, shapes
+
+
+def launch_shape(model, N, B):
+    """The launch parameters that set a fold's summation order at (N, B):
+    K1/K2's or K4/K5's threads a sequence, or the long kernels' cluster
+    sizes."""
+    from rna_algos_tpu_torch.ops import pallas_fold_long as PL
+    from rna_algos_tpu_torch.ops import pallas_fold_prob8 as P8
+
+    if N <= P8.MAX_N:
+        return getattr(P8, f"{model}_block_threads")(B, N)
+    return getattr(PL, f"{model}_cluster_sizes")(B, N)
+
+
+def mesh_compare(label, items, want, got, ls_w, ls_g, shape_same, diff):
+    """Bitwise where an item settled on the same ln_sigma with the same
+    launch shape, else within TOL_MAIN_VS_PLAIN; the counts printed."""
+    n_bitwise, n_ls, n_shape, worst, bad = 0, 0, 0, 0.0, []
+    for item in items:
+        w, g = want[item], got[item]
+        same_ls = ls_w.get(item) is not None and ls_w.get(item) == ls_g.get(
+            item)
+        n_ls += not same_ls
+        n_shape += same_ls and not shape_same(item)
+        if same_ls and shape_same(item):
+            n_bitwise += 1
+            if not all(a.tobytes() == b.tobytes() for a, b in zip(w, g)):
+                bad.append(item)
+        else:
+            worst = max(worst, diff(w, g))
+    print(f"  {label}: {n_bitwise} of {len(items)} bitwise (same ln_sigma, "
+          f"same launch shape), {len(bad)} of them not; {n_ls} settled on "
+          f"another ln_sigma, {n_shape} on the same one under another launch "
+          f"shape: max |d| {worst:.3e} over those")
+    if bad or not worst <= TOL_MAIN_VS_PLAIN:
+        raise AssertionError(f"{label}: the mesh run disagrees with the "
+                             f"engine (items {bad[:5]}, max |d| {worst})")
+    return {"bitwise": n_bitwise, "settled_differently": n_ls,
+            "other_launch_shape": n_shape, "max_abs_diff": worst}
+
+
+def mesh_times(label, calls, reps=3):
+    """Host-clock seconds of each engine's call (it ends in the copy to the
+    host), ``reps`` a call after the comparison runs, in turns: the
+    engine without a mesh first and last."""
+    names = list(calls)
+    order = names + names[::-1]
+    spent = dict.fromkeys(names, 0.0)
+    for name in order:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            calls[name]()
+        spent[name] += time.perf_counter() - t0
+    out = {n: spent[n] / (2 * reps) for n in names}
+    print(f"  {label} seconds a call: " + ", ".join(
+        f"{n} {v:.6f}" for n, v in out.items()))
+    return out
+
+
+def mesh_phase(trnas, dsets, rsets, counted, counts, smi):
+    """Both engines over a mesh of one card and of two shards on the one
+    card, against the same engines without a mesh: CONTRA on the tRNA tile
+    (K1/K2) and 32 sequences of 300-500 nt (bucket 512, K8/K9), Turner on
+    the tRNA tile (K4/K5), AlignEngine on the 630 tRNA pairs (K14) and on
+    the mixed set (K14 + K22).  Each mesh run is counted.  Returns the
+    phase's record."""
+    from rna_algos_tpu_torch.ops import pallas_align as PA
+    from rna_algos_tpu_torch.parallel.mesh import data_mesh, shard_bounds
+    from rna_algos_tpu_torch.parallel.runner import (AlignEngine, FoldEngine,
+                                                     align_bucket)
+
+    rec = {}
+    fold_sets = (("contra", "trna_N128_B192", trnas * 32),
+                 ("contra_long", "N512_B32",
+                  random_batch(*LONG_BATCHES[512], seed=512)),
+                 ("turner", "trna_N128_B192", trnas * 32))
+    for path, key, seqs in fold_sets:
+        model = path.split("_")[0]
+        base = FoldEngine(uses_contra_model=model == "contra", device="cuda")
+        with retry_records() as records:
+            want = base.fold_batch(seqs)
+        groups, shapes_w = fold_groups(base, seqs, 1)
+        ls_w = settled(records, groups)
+        engines = {"no_mesh": base}
+        for name, devs in MESHES:
+            engine = FoldEngine(uses_contra_model=model == "contra",
+                                mesh=data_mesh(list(devs)))
+            label = f"{name}_{path}_{key}"
+            with retry_records() as records:
+                got = counted(label, path, lambda: engine.fold_batch(seqs))
+            groups, shapes_g = fold_groups(engine, seqs, len(devs))
+            ls_g = settled(records, groups)
+            print(f"mesh {label}: {len(devs)} entries {devs}, launches "
+                  f"{counts[label]}")
+
+            def shape_same(k):
+                return (launch_shape(model, *shapes_w[k])
+                        == launch_shape(model, *shapes_g[k]))
+
+            rec[label] = mesh_compare(
+                label, range(len(seqs)), dict(enumerate(want)),
+                dict(enumerate(got)), ls_w, ls_g,
+                shape_same if len(devs) > 1 else (lambda k: True),
+                lambda w, g: float(np.abs(w[0] - g[0]).max()))
+            engines[name] = engine
+        rec[f"{path}_{key}_seconds"] = mesh_times(f"{path}_{key}", {
+            n: (lambda e=e: e.fold_batch(seqs)) for n, e in engines.items()})
+    align_sets = (("durbin_exact", "trna_N128_P630", dsets["trna_N128_P630"]),
+                  ("durbin_mixed", "mixed_P66", rsets["mixed_P66"]))
+    base = AlignEngine(device="cuda")
+    for path, key, (seqs, pairs) in align_sets:
+        def align_groups(entries):
+            """The retry loops' groups (K14's buckets, split into shards),
+            and the pairs of the row scan K22, which has no retry loop
+            (log space): those map to one common mark."""
+            by_bucket = {}
+            for a, b in pairs:
+                by_bucket.setdefault(align_bucket(len(seqs[a]),
+                                                  len(seqs[b])), []).append(
+                    (a, b))
+            groups, log_space = [], {}
+            for (N1, N2), plist in by_bucket.items():
+                if not PA.pallas_available(N1, N2):
+                    log_space.update(dict.fromkeys(plist, "log space"))
+                    continue
+                for lo, hi in shard_bounds(len(plist), entries):
+                    part = plist[lo:hi]
+                    if part:
+                        groups.append((part, tuple(len(seqs[a])
+                                                   for a, _ in part)))
+            return groups, log_space
+
+        with retry_records() as records:
+            want = base.match_probs_pairs(seqs, pairs)
+        groups, log_space = align_groups(1)
+        ls_w = {**settled(records, groups), **log_space}
+        engines = {"no_mesh": base}
+        for name, devs in MESHES:
+            engine = AlignEngine(mesh=data_mesh(list(devs)))
+            label = f"{name}_{path}_{key}"
+            with retry_records() as records:
+                got = counted(label, path,
+                              lambda: engine.match_probs_pairs(seqs, pairs))
+            if list(got) != list(want):
+                raise AssertionError(f"{label}: other keys than the engine's")
+            groups, log_space = align_groups(len(devs))
+            ls_g = {**settled(records, groups), **log_space}
+            print(f"mesh {label}: {len(devs)} entries {devs}, launches "
+                  f"{counts[label]}")
+            rec[label] = mesh_compare(
+                label, pairs, {k: (v,) for k, v in want.items()},
+                {k: (v,) for k, v in got.items()}, ls_w, ls_g,
+                lambda k: True,
+                lambda w, g: float(np.abs(w[0] - g[0]).max()))
+            engines[name] = engine
+        rec[f"{path}_{key}_seconds"] = mesh_times(f"{path}_{key}", {
+            n: (lambda e=e: e.match_probs_pairs(seqs, pairs))
+            for n, e in engines.items()})
+    print(f"mesh: one H100 shows no NCCL and no speed-up across cards; "
+          f"on {smi}")
+    return rec
+
+
 KERNELS_LONG = ("contra_inside_long", "contra_outside_long",
                 "turner_inside_long", "turner_outside_long")
 # kernel -> (its source, the TPU kernel it replaces)
@@ -2676,6 +3027,13 @@ def main():
     print(f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
+    laps = [time.perf_counter()]
+
+    def lap(phase):
+        """Print the seconds since the last phase ended."""
+        laps.append(time.perf_counter())
+        print(f"phase {phase}: {laps[-1] - laps[-2]:.1f} s")
+
     # phase 1: build
     lib = _build.library()
     print(f"build: {lib.build_seconds:.1f} s -> {lib.path.name}")
@@ -2683,6 +3041,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
 
+    lap("build")
     # phase 2: kernels vs plain
     err = {k: 0.0 for k in REPLACES}
     rel = {k: 0.0 for k in REPLACES
@@ -2778,6 +3137,7 @@ def main():
     log_checks(dev, err, rel, times, smi)
     scan_checks(dev, err, fast_err, times, smi)
 
+    lap("kernels")
     # phase 3: the main paths, each counted on its own
     batches = {
         "trna_N128_B192": trnas * 32,
@@ -2816,6 +3176,8 @@ def main():
         "contra_parity_scan": ("skew", "scan_inside", "scan_outside"),
         "turner_parity_scan": ("skew", "scan_inside", "scan_outside"),
         "turner_scan_long": ("skew", "scan_inside", "scan_outside"),
+        "eval": ("skew", "contra_inside", "contra_outside", "turner_inside",
+                 "turner_outside"),
     }
     results, counts = {}, {}
 
@@ -2962,6 +3324,7 @@ def main():
             if not worst <= tol:  # NaN fails too
                 raise AssertionError(f"{model} n={n} outside the golden budget")
 
+    lap("main paths")
     # phase 4: the centroid CLI, both models
     golden = ROOT / "tests" / "golden" / "c_baseline"
     fasta = str(ROOT / "assets" / "sampled_trnas.fa")
@@ -3018,6 +3381,7 @@ def main():
     parity_stats["turner_centroid_verdict"] = verdict
     parity_stats["turner_tie_bpp"] = tie_bpp
 
+    lap("CLIs")
     # phase 5: main-path throughput, kernel path and plain path
     for model, engine in engines.items():
         for key, seqs in batches.items():
@@ -3032,6 +3396,14 @@ def main():
 
     durbin_throughput(dsets, aligners, durbin_stats, smi)
     rows_throughput(rsets, aligners, rows_stats, smi)
+
+    lap("throughput")
+    # phase 6: the eval pipeline on the card
+    eval_stats = eval_phase(counted, counts, smi)
+    lap("eval")
+    # phase 7: both engines over a data mesh on the card
+    mesh_stats = mesh_phase(trnas, dsets, rsets, counted, counts, smi)
+    lap("mesh")
 
     kernels = []
     for k, (src, rep) in REPLACES.items():
@@ -3077,6 +3449,8 @@ def main():
     print(json.dumps({"rows_paths": rows_stats}))
     print(json.dumps({"parity_paths": parity_stats}))
     print(json.dumps({"scan_paths": scan_stats}))
+    print(json.dumps({"eval": eval_stats}))
+    print(json.dumps({"mesh": mesh_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -11,14 +11,11 @@ import argparse
 import os
 import sys
 
-import numpy as np
-import torch
-
 from ..utils.io import read_fasta
-from ..utils.output import _fmt, fold_str
 
-from ..models.centroid import DEFAULT_GAMMAS, mea_fill_gammas, traceback
-from ..parallel.runner import FoldEngine, pick_bucket
+from ..models.centroid import (DEFAULT_GAMMAS, centroid_structures,
+                               write_gamma_files)
+from ..parallel.runner import FoldEngine
 from .common import add_port_flags, numerics_of
 
 
@@ -41,22 +38,6 @@ def build_parser():
     return p
 
 
-def centroid_structures(results, gammas, device):
-    """{gamma: [dot-bracket per record]} from (bpp, presence, n) results."""
-    out = {g: [] for g in gammas}
-    for bpp, _presence, n in results:
-        N = pick_bucket(n)
-        padded = np.zeros((N, N), dtype=np.float32)
-        padded[:n, :n] = bpp
-        fills = mea_fill_gammas(
-            torch.as_tensor(padded, device=device), gammas, N
-        ).cpu().numpy()
-        for g, M in zip(gammas, fills):
-            pairs, _ = traceback(M, padded, g, n)
-            out[g].append(fold_str(pairs, n))
-    return out
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
     records = read_fasta(args.i)
@@ -76,12 +57,8 @@ def main(argv=None):
     ]
     os.makedirs(args.o, exist_ok=True)
     gammas = [args.g] if args.g is not None else list(DEFAULT_GAMMAS)
-    structures = centroid_structures(results, gammas, engine.device)
-    for gamma in gammas:
-        path = os.path.join(args.o, f"centroid_threshold={_fmt(gamma)}.fa")
-        recs = structures[gamma]
-        with open(path, "w") as f:
-            f.write("\n".join(f">{k}\n{s}" for k, s in enumerate(recs)))
+    write_gamma_files(args.o, centroid_structures(results, gammas,
+                                                  engine.device))
     return 0
 
 

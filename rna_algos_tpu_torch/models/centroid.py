@@ -7,10 +7,14 @@ form), because the host traceback re-derives every choice by float32
 equality.  The traceback is a NumPy loop on the host.
 """
 
+import contextlib
+import os
+
 import numpy as np
 import torch
 
 from ..constants import NEG_INF
+from ..utils.output import _fmt, fold_str
 
 # Reference CLI gamma grid: 2^-7 .. 2^10.
 MIN_POW_2 = -7
@@ -108,3 +112,47 @@ def centroid_fold(bpp, n, gamma):
     (pairs, expected accuracy)."""
     M = mea_fill(bpp, gamma, bpp.shape[0]).cpu().numpy()
     return traceback(M, bpp.cpu().numpy(), gamma, n)
+
+
+def centroid_structures(results, gammas, device, timer=None, tag=""):
+    """{gamma: [dot-bracket per record]} from (bpp, presence, n) results:
+    each record's BPPs padded to ``pick_bucket(n)``, the fill for all
+    gammas at once on ``device``, the traceback on the host.  ``timer``: a
+    ``utils.trace.PhaseTimer`` that then times the fills (phase
+    ``"mea_fill" + tag``, CUDA events on a CUDA device) and the tracebacks
+    (``"traceback" + tag``)."""
+    from ..parallel.runner import pick_bucket
+
+    def phase(name):
+        if timer is None:
+            return contextlib.nullcontext()
+        return timer.phase(name + tag, items=len(gammas),
+                           device=device if name == "mea_fill" else None)
+
+    out = {g: [] for g in gammas}
+    for bpp, _presence, n in results:
+        N = pick_bucket(n)
+        padded = np.zeros((N, N), dtype=np.float32)
+        padded[:n, :n] = bpp
+        with phase("mea_fill"):
+            fills = mea_fill_gammas(
+                torch.as_tensor(padded, device=device), gammas, N
+            ).cpu().numpy()
+        with phase("traceback"):
+            for g, M in zip(gammas, fills):
+                pairs, _ = traceback(M, padded, g, n)
+                out[g].append(fold_str(pairs, n))
+    return out
+
+
+def gamma_file_name(gamma):
+    return f"centroid_threshold={_fmt(gamma)}.fa"
+
+
+def write_gamma_files(out_dir, structures):
+    """One ``centroid_threshold={gamma}.fa`` a gamma of ``structures``
+    (``centroid_structures``' dict) in ``out_dir``: ``>{index}`` records,
+    the bytes of the JAX package's ``write_gamma_file``."""
+    for gamma, recs in structures.items():
+        with open(os.path.join(out_dir, gamma_file_name(gamma)), "w") as f:
+            f.write("\n".join(f">{k}\n{s}" for k, s in enumerate(recs)))

@@ -16,6 +16,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
@@ -80,11 +81,17 @@ def source_hash():
 class LaunchCounter:
     """Launches of one kernel: its wrapper adds one where it launches the
     kernel and nowhere else; a run resets the count before and reads it
-    after."""
+    after.  ``add`` holds a lock, since a mesh's shards launch from a host
+    thread each."""
 
     def __init__(self, name):
         self.name = name
         self.count = 0
+        self._lock = threading.Lock()
+
+    def add(self):
+        with self._lock:
+            self.count += 1
 
     def reset(self):
         self.count = 0
@@ -116,9 +123,19 @@ def _nvcc():
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+_library_lock = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def library():
-    """Build (if needed) and load the kernel library; cached per process."""
+    """Build (if needed) and load the kernel library; cached per process.
+    Host threads that call it at once build it once: the build runs under a
+    lock, and a later caller finds the library built."""
+    with _library_lock:
+        return _load_library()
+
+
+def _load_library():
     BUILD_DIR.mkdir(exist_ok=True)
     so = BUILD_DIR / f"librna_kernels_{source_hash()}.so"
     log = so.with_suffix(".log")    # the compiler's output of that build

@@ -517,7 +517,7 @@ def scan_inside(seqs, ns, tbl, pre, contra, allows_short_hairpins=False,
     st = _state(INSIDE_STATE, B, N, seqs.device, INSIDE_FILLS)
     _pass(True, seqs, ns, tbl, pre, st, INSIDE_STATE, contra,
           allows_short_hairpins, mode)
-    inside_launches.count += 1
+    inside_launches.add()
     return st
 
 
@@ -536,5 +536,5 @@ def scan_outside(seqs, ns, tbl, pre, inside, contra,
     both = dict(st, **{k: inside[k] for k in names[:4]})
     _pass(False, seqs, ns, tbl, pre, both, names, contra,
           allows_short_hairpins, mode)
-    outside_launches.count += 1
+    outside_launches.add()
     return st

@@ -241,5 +241,5 @@ def pairhmm_rows(x1, x2, n1, n2, ms, ins, scal, backward, mode="exact"):
     if dev.type != "cuda":
         raise ValueError(f"pairhmm_rows: no kernel for device {dev}")
     out = _rows_cuda(x1, x2, n1, n2, ms, ins, scal, backward, mode)
-    launches.count += 1
+    launches.add()
     return out

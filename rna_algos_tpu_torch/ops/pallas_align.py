@@ -179,7 +179,7 @@ def _dispatch(name, counter, x1, x2, n1, n2, ms, ins, scal, backward, sr):
         raise ValueError(f"{name}: no kernel for device {dev}")
     out = _pairhmm_cuda(f"rna_{name}", x1, x2, n1, n2, ms, ins, scal,
                         backward, sr)
-    counter.count += 1
+    counter.add()
     return out
 
 

@@ -800,7 +800,7 @@ def contra_inside_log(mats, LEN, scal, ns):
         _build.ptr_array(mats, CONTRA_INSIDE_LOG_TABLES),
         *[_build.ptr(t) for t in args], B, N, _build.stream_ptr(dev),
     )
-    contra_inside_log_launches.count += 1
+    contra_inside_log_launches.add()
     return close, ext, one
 
 
@@ -834,7 +834,7 @@ def contra_outside_log(mo, ONEP, QONE, B0LO, EXTL, EXTR, LEN, scal, ns,
         *[_build.ptr(t) for t in args], B, N, int(min_span),
         _build.stream_ptr(dev),
     )
-    contra_outside_log_launches.count += 1
+    contra_outside_log_launches.add()
     return bppo
 
 
@@ -1000,7 +1000,7 @@ def turner_inside_log(mats, LENB, LENI, scal, ns):
         _build.ptr_array(mats, TURNER_INSIDE_LOG_TABLES),
         *[_build.ptr(t) for t in args], B, N, _build.stream_ptr(dev),
     )
-    turner_inside_log_launches.count += 1
+    turner_inside_log_launches.add()
     return close, ext, one
 
 
@@ -1031,7 +1031,7 @@ def turner_outside_log(mo, ONEP, QONE, EXTL, EXTR, LENB, LENI, scal, ns,
         *[_build.ptr(t) for t in args], B, N, int(min_span),
         _build.stream_ptr(dev),
     )
-    turner_outside_log_launches.count += 1
+    turner_outside_log_launches.add()
     return bppo
 
 

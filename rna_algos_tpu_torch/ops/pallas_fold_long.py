@@ -80,7 +80,7 @@ def contra_inside_long(mi, KW, scal, ns):
         raise ValueError(f"contra_inside_long: no kernel for device {dev}")
     _check_n("contra_inside_long", mi["H"].shape[1], True)
     out = P8._contra_inside_cuda(mi, KW, scal, ns)
-    contra_inside_long_launches.count += 1
+    contra_inside_long_launches.add()
     return out
 
 
@@ -98,7 +98,7 @@ def contra_outside_long(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
     _check_n("contra_outside_long", one.shape[1], True)
     bppo = P8._contra_outside_cuda(mo, one, QONE, extR, b0lo, KW, scal, ns,
                                    min_span)
-    contra_outside_long_launches.count += 1
+    contra_outside_long_launches.add()
     return bppo
 
 
@@ -113,7 +113,7 @@ def turner_inside_long(mi, KT, scal, ns):
         raise ValueError(f"turner_inside_long: no kernel for device {dev}")
     _check_n("turner_inside_long", mi["H"].shape[1], False)
     out = P8._turner_inside_cuda(mi, KT, scal, ns)
-    turner_inside_long_launches.count += 1
+    turner_inside_long_launches.add()
     return out
 
 
@@ -130,7 +130,7 @@ def turner_outside_long(mo, one, QONE, extR, KT, scal, ns, min_span):
     _check_n("turner_outside_long", one.shape[1], False)
     bppo = P8._turner_outside_cuda(mo, one, QONE, extR, KT, scal, ns,
                                    min_span)
-    turner_outside_long_launches.count += 1
+    turner_outside_long_launches.add()
     return bppo
 
 

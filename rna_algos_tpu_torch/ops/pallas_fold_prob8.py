@@ -275,7 +275,7 @@ def contra_inside(mi, KW, scal, ns):
     if N > MAX_N or N % 32:
         raise ValueError(f"contra_inside: N = {N} (need N <= 256, N % 32 == 0)")
     out = _contra_inside_cuda(mi, KW, scal, ns)
-    inside_launches.count += 1
+    inside_launches.add()
     return out
 
 
@@ -447,7 +447,7 @@ def contra_outside(mo, one, QONE, extR, b0lo, KW, scal, ns, min_span):
         raise ValueError(f"contra_outside: N = {N} (need N <= 256, N % 32 == 0)")
     bppo = _contra_outside_cuda(mo, one, QONE, extR, b0lo, KW, scal, ns,
                                 min_span)
-    outside_launches.count += 1
+    outside_launches.add()
     return bppo
 
 
@@ -582,7 +582,7 @@ def turner_inside(mi, KT, scal, ns):
     if N > MAX_N or N % 32:
         raise ValueError(f"turner_inside: N = {N} (need N <= 256, N % 32 == 0)")
     out = _turner_inside_cuda(mi, KT, scal, ns)
-    turner_inside_launches.count += 1
+    turner_inside_launches.add()
     return out
 
 
@@ -665,7 +665,7 @@ def turner_outside(mo, one, QONE, extR, KT, scal, ns, min_span):
     if N > MAX_N or N % 32:
         raise ValueError(f"turner_outside: N = {N} (need N <= 256, N % 32 == 0)")
     bppo = _turner_outside_cuda(mo, one, QONE, extR, KT, scal, ns, min_span)
-    turner_outside_launches.count += 1
+    turner_outside_launches.add()
     return bppo
 
 

@@ -10,6 +10,7 @@ import torch
 
 from . import _build
 from . import diag
+from ..utils.platform import on_cuda
 
 MAX_TABLES = 32  # RNA_SKEW_MAX_TABLES in csrc/skew.cu (Turner skews 18)
 
@@ -31,7 +32,7 @@ def skew_pq_batch(mats, inv=False):
     device = mats[0].device
     if device.type == "cpu":
         return skew_pq_batch_plain(mats, inv=inv)
-    if device.type != "cuda":
+    if not on_cuda(device):
         raise ValueError(f"skew_pq_batch: no kernel for device {device}")
     T = len(mats)
     if T > MAX_TABLES:
@@ -49,5 +50,5 @@ def skew_pq_batch(mats, inv=False):
     _build.library().call(
         "rna_skew", ins, ots, T, B, N, int(inv), _build.stream_ptr(device)
     )
-    launches.count += 1
+    launches.add()
     return outs

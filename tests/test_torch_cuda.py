@@ -535,3 +535,44 @@ def test_scan_path_launches_its_kernels(device, contra):
     for (bk, pk), (bp, pp) in zip(out, plain):
         np.testing.assert_array_equal(bk, bp)
         np.testing.assert_array_equal(pk, pp)
+
+
+@pytest.mark.parametrize("contra", [True, False], ids=["contra", "turner"])
+def test_one_device_mesh_is_bitwise_the_engine(device, contra):
+    """A mesh of one card runs each bucket as the engine without a mesh
+    does: bitwise the same BPPs and presence, the same kernels launched;
+    and AlignEngine's probabilities bitwise too."""
+    from rna_algos_tpu_torch.constants import PSEUDO_BASE
+    from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
+    from rna_algos_tpu_torch.parallel.mesh import data_mesh
+    from rna_algos_tpu_torch.parallel.runner import AlignEngine, FoldEngine
+
+    mesh = data_mesh(["cuda:0"])
+    seqs = chip_smoke.random_batch(12, 60, 200, seed=6)
+    want = FoldEngine(uses_contra_model=contra, device=device).fold_batch(seqs)
+    got = FoldEngine(uses_contra_model=contra, mesh=mesh).fold_batch(seqs)
+    for (wb, wp), (gb, gp) in zip(want, got):
+        assert wb.tobytes() == gb.tobytes() and (wp == gp).all()
+    wrapped = [np.concatenate([[PSEUDO_BASE], s, [PSEUDO_BASE]])
+               for s in seqs[:6]]
+    pairs = [(a, b) for a in range(6) for b in range(a + 1, 6)]
+    PAP.prob_launches.reset()
+    got = AlignEngine(mesh=mesh).match_probs_pairs(wrapped, pairs)
+    assert PAP.prob_launches.count >= 2
+    want = AlignEngine(device=device).match_probs_pairs(wrapped, pairs)
+    assert list(got) == list(want)
+    assert all(got[k].tobytes() == want[k].tobytes() for k in want)
+
+
+def test_phase_timer_times_a_cuda_phase_with_events(device):
+    from rna_algos_tpu_torch.utils.trace import PhaseTimer, force, force_last
+
+    t = PhaseTimer()
+    x = torch.ones(2048, 2048, device=device)
+    with t.phase("matmul", items=4, device=device):
+        for _ in range(4):
+            x = x @ x / 2048.0
+    s = t.summary()["matmul"]
+    assert s["calls"] == 1 and s["seconds"] > 0
+    assert force({"a": x, "b": [x[:0], torch.ones(1)]}) == 2
+    assert force_last([x, None]) == 1

@@ -67,6 +67,16 @@ def test_port_imports_no_jax_and_builds_nothing():
         "rna_algos_tpu_torch.models.durbin",
         "rna_algos_tpu_torch.cli.durbin",
         "rna_algos_tpu_torch.cli.generate_align_scores",
+        "rna_algos_tpu_torch.utils.platform",
+        "rna_algos_tpu_torch.utils.debug",
+        "rna_algos_tpu_torch.utils.trace",
+        "rna_algos_tpu_torch.eval.stats",
+        "rna_algos_tpu_torch.eval.rfam",
+        "rna_algos_tpu_torch.eval.synth",
+        "rna_algos_tpu_torch.eval.baseline",
+        "rna_algos_tpu_torch.eval.plots",
+        "rna_algos_tpu_torch.eval.pipeline",
+        "rna_algos_tpu_torch.parallel.mesh",
     }
     assert expected <= set(got["mods"]), got["mods"]
     assert got["jax"] == []
