@@ -50,7 +50,10 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    under exact and parity (within RTOL_SCAN_FAST under fast), under exact
    also with NaN in every state cell and every dead score-table cell and
    with the narrowest groups the spans allow on a grid of SCAN_NARROW[1]
-   blocks (lanes taken in many rounds); and each
+   blocks (lanes taken in many rounds); the gamma-centroid MEA fill K23
+   with the 18 gammas on records of different n at buckets 96 and 256
+   (its state in shared memory) and 384 (in the output), bitwise, also
+   with its output NaN-filled and with one NaN BPP cell; and each
    one's time
    beside the plain version's, its bound and, for K3, the time of one
    torch.gather computing the same skew, at the main paths' shapes;
@@ -93,7 +96,8 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    sequences (K14 and K22 in one call), each counted on its own with the
    plain versions never called, a subset held bitwise against the plain
    path on the card, with pairs/s and peak memory;
-4. the centroid CLI on assets/sampled_trnas.fa: with -c byte for byte
+4. the centroid CLI on assets/sampled_trnas.fa, each run counted (K23
+   launched, its plain version never called): with -c byte for byte
    against tests/golden/c_baseline/centroid_contra/, without -c against
    centroid_turner/ under the gamma = 1 tie rule (``turner_centroid_verdict``);
    and cli.mccaskill -c on the tRNAs mixed with a 400-nt and a 900-nt
@@ -113,8 +117,9 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
 5. seqs/s (pairs/s for Durbin) of every main-path configuration, kernel
    path and plain path, and the peak device memory of each long batch;
 6. the eval pipeline, eval.pipeline.run_all on assets/synth_rfam_seed.sth
-   (both models, both programs, the 18 gammas), its fold counted (K1/K2,
-   K4/K5 and K3 launched, their plain versions never called): 18 rows a
+   (both models, both programs, the 18 gammas), its fold and MEA fill
+   counted (K1/K2, K4/K5, K3 and K23 launched, their plain versions never
+   called): 18 rows a
    column, strict JSON, each column's best F1 at the floors of the
    committed report's test and best MCC above 0.3; the largest per-gamma
    gap of PPV, sensitivity, F1 and MCC to eval_artifacts/eval_report.json,
@@ -2594,6 +2599,131 @@ def scan_cli(mc_cli, cf_cli):
           f"cli.centroid_fold: {len(names)} files byte-identical")
     return worst
 
+# K23, the gamma-centroid MEA fill, against its plain version with the 18
+# gammas: (bucket N, records R), the records of different n in the bucket;
+# 96 and 256 keep the fill's state in shared memory, 384 in the output.
+MEA_CHECK = ((96, 6), (256, 4), (384, 2))
+# share of the BPP cells i < j < n that are nonzero in mea_inputs
+MEA_NONZERO = 0.5
+
+
+def mea_inputs(N, R, seed, device):
+    """(R, N, N) float32 BPP-like matrices padded to bucket N, record r of
+    length N - r * N // 16: symmetric, MEA_NONZERO of the cells i < j < n
+    nonzero, each a uniform variate to the sixth power (mostly small, as a
+    fold's BPPs are)."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((R, N, N), np.float32)
+    for r in range(R):
+        n = N - r * (N // 16)
+        v = rng.random((n, n)) ** 6 * (rng.random((n, n)) < MEA_NONZERO)
+        up = np.triu(v, 1).astype(np.float32)
+        out[r, :n, :n] = up + up.T
+    return torch.as_tensor(out, device=device)
+
+
+def mea_bound(R, G, N):
+    """(bound_ms, bound_by) of R x G fills at bucket N: each live cell
+    (i < j) of the BPPs, the gammas and the square fills moved once, and
+    two operations (an add and a max) a bifurcation term, (N - d)(d - 1)
+    terms at span d."""
+    terms = sum((N - d) * (d - 1) for d in range(2, N))
+    nbytes = 4 * (R * N * (N - 1) // 2 + G + R * G * N * N)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * terms * R * G / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def nan_filled_fills():
+    """K23's output allocated NaN-filled (the kernel must write every
+    cell)."""
+    from rna_algos_tpu_torch.ops import mea_fill as MF
+
+    orig = MF._fills
+    MF._fills = lambda *a: orig(*a).fill_(float("nan"))
+    try:
+        yield
+    finally:
+        MF._fills = orig
+
+
+def mea_bitwise(got, want, label):
+    """Raise unless ``got`` is ``want`` bit for bit, NaN at the same cells;
+    the number of NaN cells."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    gn, wn = np.isnan(g), np.isnan(w)
+    if g.shape != w.shape or not (gn == wn).all() or not np.array_equal(
+            g[~gn].view(np.int32), w[~wn].view(np.int32)):
+        raise AssertionError(f"K23 {label}: not bitwise its plain version")
+    return int(gn.sum())
+
+
+def check_mea(x, label):
+    """K23 on ``x`` against its plain version, bitwise: as allocated, with
+    its output NaN-filled, and with one NaN BPP cell (NaN at the same cells
+    of both).  Returns the plain version's output on ``x``."""
+    from rna_algos_tpu_torch.models.centroid import DEFAULT_GAMMAS
+    from rna_algos_tpu_torch.ops import mea_fill as MF
+
+    want = MF.mea_fill_batch_plain(x, DEFAULT_GAMMAS)
+    mea_bitwise(MF.mea_fill_batch(x, DEFAULT_GAMMAS), want, label)
+    with nan_filled_fills():
+        mea_bitwise(MF.mea_fill_batch(x, DEFAULT_GAMMAS), want,
+                    f"{label}, NaN-filled output")
+    y = x.clone()
+    y[0, 1, x.shape[1] // 2] = float("nan")
+    nans = mea_bitwise(MF.mea_fill_batch(y, DEFAULT_GAMMAS),
+                       MF.mea_fill_batch_plain(y, DEFAULT_GAMMAS),
+                       f"{label}, one NaN BPP cell")
+    print(f"check K23 {label}: bitwise, also NaN-filled and with one NaN "
+          f"BPP cell ({nans} NaN fill cells in both)")
+    return want
+
+
+def mea_checks(device, err, times, smi):
+    """Phase 2 for K23: at each MEA_CHECK shape, ``check_mea``, then the
+    kernel's time (CUDA events, 5 launches after a warm-up) beside the
+    plain loop's (one call) and the bound, into ``times["mea_fill"]``."""
+    from rna_algos_tpu_torch.models.centroid import DEFAULT_GAMMAS
+    from rna_algos_tpu_torch.ops import mea_fill as MF
+
+    G = len(DEFAULT_GAMMAS)
+    for N, R in MEA_CHECK:
+        x = mea_inputs(N, R, seed=N + R, device=device)
+        shape = f"N{N}_R{R}"
+        state = "shared memory" if MF.state_in_shared(N) else "the output"
+        check_mea(x, f"{shape} G={G} (state in {state})")
+        err["mea_fill"] = 0.0
+        ms = cuda_ms(lambda: MF.mea_fill_batch(x, DEFAULT_GAMMAS), 5)
+        pms = cuda_ms(lambda: MF.mea_fill_batch_plain(x, DEFAULT_GAMMAS), 1,
+                      warmup=False)
+        bms, by = mea_bound(R, G, N)
+        times["mea_fill"][shape] = (ms, pms, bms, by, None)
+        print(f"time {shape} G={G} mea_fill: kernel {ms:.4f} ms "
+              f"({ms / R:.4f} ms a record), plain {pms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}), share {bms / ms:.4f}, on {smi}")
+
+
+@contextlib.contextmanager
+def counted_plain_mea():
+    """Count the calls of K23's plain version while the block runs: a
+    one-item list."""
+    from rna_algos_tpu_torch.ops import mea_fill as MF
+
+    calls, orig = [0], MF.mea_fill_batch_plain
+
+    def plain(*args):
+        calls[0] += 1
+        return orig(*args)
+
+    MF.mea_fill_batch_plain = plain
+    try:
+        yield calls
+    finally:
+        MF.mea_fill_batch_plain = orig
+
+
 KERNELS_P8 = ("contra_inside", "contra_outside", "turner_inside",
               "turner_outside")
 # The eval phase: the committed seed set through eval.pipeline.run_all on
@@ -2651,24 +2781,25 @@ def strict_json(text):
 def eval_phase(counted, counts, smi):
     """The accuracy-evaluation pipeline on the card: ``run_all`` on the
     committed seed set, both models, both programs, the 18 gammas; its
-    fold counted (K1/K2 and K4/K5 launched, their plain versions never
-    called).  Fatal: 18 rows a column, strict JSON, the F1 floors, best
+    fold and MEA fill counted (K1/K2, K4/K5 and K23 launched, their plain
+    versions never called).  Fatal: 18 rows a column, strict JSON, the F1 floors, best
     MCC.  Printed: the largest per-gamma gap of PPV, sensitivity, F1 and
     MCC to the committed JAX report, the PhaseTimer split, the wall time.
     Returns the phase's record."""
     from rna_algos_tpu_torch.eval.pipeline import best, run_all
 
     with tempfile.TemporaryDirectory() as work, \
-            counted_plain_prob() as n_plain:
+            counted_plain_prob() as n_plain, counted_plain_mea() as n_mea:
         t0 = time.perf_counter()
         report = counted("eval", "eval", lambda: run_all(
             str(ROOT / EVAL_SEED_SET), work, device="cuda"))
         wall = time.perf_counter() - t0
         saved = strict_json(
             (pathlib.Path(work) / "eval_report.json").read_text())
-    if n_plain[0]:
+    if n_plain[0] or n_mea[0]:
         raise AssertionError(f"eval: the plain wavefronts ran {n_plain[0]} "
-                             "times on the card")
+                             f"times and the plain MEA fill {n_mea[0]} times "
+                             "on the card")
     ref = strict_json((ROOT / EVAL_REPORT).read_text())
     rec = {"num_families": saved["num_families"], "wall_s": wall,
            "phases": saved["phases"], "columns": {}}
@@ -2708,7 +2839,8 @@ def eval_phase(counted, counts, smi):
               f"calls, {ph['items']} items")
     print(f"eval: {saved['num_families']} families, run_all "
           f"{saved['wall_s']:.3f} s inside, {wall:.3f} s around it; fold "
-          f"launches {counts['eval']}; plain wavefront calls 0; on {smi}")
+          f"launches {counts['eval']}; plain wavefront and MEA fill calls "
+          f"0; on {smi}")
     return rec
 
 
@@ -2981,6 +3113,9 @@ REPLACES = {
                     "rna_algos_tpu/models/mccaskill.py:72"),
     "scan_outside": ("rna_algos_tpu_torch/csrc/fold_scan.cu",
                      "rna_algos_tpu/models/mccaskill.py:179"),
+    # the gamma-centroid MEA fill: no TPU kernel, the JAX package's XLA loop
+    "mea_fill": ("rna_algos_tpu_torch/csrc/mea_fill.cu",
+                 "rna_algos_tpu/models/centroid.py:58"),
 }
 LABELS = {"contra_inside": "K1", "contra_outside": "K2",
           "turner_inside": "K4", "turner_outside": "K5",
@@ -2990,7 +3125,7 @@ LABELS = {"contra_inside": "K1", "contra_outside": "K2",
           "pairhmm_log_fast": "K15 fast", "pairhmm_rows": "K22",
           "contra_inside_log": "K16", "contra_outside_log": "K17",
           "turner_inside_log": "K18", "turner_outside_log": "K19",
-          "scan_inside": "K20", "scan_outside": "K21"}
+          "scan_inside": "K20", "scan_outside": "K21", "mea_fill": "K23"}
 
 
 def main():
@@ -3003,6 +3138,7 @@ def main():
     from rna_algos_tpu_torch.ops import pallas_align as PA
     from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
     from rna_algos_tpu_torch.ops import fold_scan as FS
+    from rna_algos_tpu_torch.ops import mea_fill as MF
     from rna_algos_tpu_torch.ops import pairhmm_rows as PR
     from rna_algos_tpu_torch.ops import pallas_fold as PF
     from rna_algos_tpu_torch.ops import pallas_fold_long as PL
@@ -3136,6 +3272,7 @@ def main():
     rows_checks(rsets, fast_err, times, dev)
     log_checks(dev, err, rel, times, smi)
     scan_checks(dev, err, fast_err, times, smi)
+    mea_checks(dev, err, times, smi)
 
     lap("kernels")
     # phase 3: the main paths, each counted on its own
@@ -3157,7 +3294,7 @@ def main():
                 PR.launches,
                 PF.contra_inside_log_launches, PF.contra_outside_log_launches,
                 PF.turner_inside_log_launches, PF.turner_outside_log_launches,
-                FS.inside_launches, FS.outside_launches)
+                FS.inside_launches, FS.outside_launches, MF.launches)
     path_kernels = {
         "contra": ("skew", "contra_inside", "contra_outside"),
         "turner": ("skew", "turner_inside", "turner_outside"),
@@ -3177,7 +3314,11 @@ def main():
         "turner_parity_scan": ("skew", "scan_inside", "scan_outside"),
         "turner_scan_long": ("skew", "scan_inside", "scan_outside"),
         "eval": ("skew", "contra_inside", "contra_outside", "turner_inside",
-                 "turner_outside"),
+                 "turner_outside", "mea_fill"),
+        "centroid_contra": ("skew", "contra_inside", "contra_outside",
+                            "mea_fill"),
+        "centroid_turner": ("skew", "turner_inside", "turner_outside",
+                            "mea_fill"),
     }
     results, counts = {}, {}
 
@@ -3328,8 +3469,10 @@ def main():
     # phase 4: the centroid CLI, both models
     golden = ROOT / "tests" / "golden" / "c_baseline"
     fasta = str(ROOT / "assets" / "sampled_trnas.fa")
-    with tempfile.TemporaryDirectory() as tmp:
-        cf_cli.main(["-i", fasta, "-o", tmp, "-c"])
+    with tempfile.TemporaryDirectory() as tmp, \
+            counted_plain_mea() as n_mea:
+        counted("centroid_contra", "centroid_contra",
+                lambda: cf_cli.main(["-i", fasta, "-o", tmp, "-c"]))
         ref_dir = golden / "centroid_contra"
         names = sorted(os.listdir(ref_dir))
         if names != sorted(os.listdir(tmp)):
@@ -3338,11 +3481,16 @@ def main():
             if (ref_dir / nm).read_bytes() != (pathlib.Path(tmp) / nm).read_bytes():
                 raise AssertionError(f"centroid CLI output differs: {nm}")
     print(f"centroid CLI -c: {len(names)} files byte-identical")
-    with tempfile.TemporaryDirectory() as tmp:
-        cf_cli.main(["-i", fasta, "-o", tmp])
+    with tempfile.TemporaryDirectory() as tmp, \
+            counted_plain_mea() as n_mea_t:
+        counted("centroid_turner", "centroid_turner",
+                lambda: cf_cli.main(["-i", fasta, "-o", tmp]))
         verdict = turner_centroid_verdict(golden / "centroid_turner", tmp)
     print(f"centroid CLI Turner: {len(names)} files, verdict {verdict} "
           f"({tie_file} record {tie_rec})")
+    if n_mea[0] or n_mea_t[0]:
+        raise AssertionError("centroid CLI: the plain MEA fill ran on the "
+                             "card")
 
     # cli.mccaskill -c on the tRNAs mixed with a 400-nt and a 900-nt record
     longs = (random_batch(1, 400, 400, seed=400)
@@ -3409,7 +3557,7 @@ def main():
     for k, (src, rep) in REPLACES.items():
         by_shape = times[k]
         head = ("N1024_B16" if k.endswith("_long") else
-                next(iter(by_shape)) if k == "pairhmm_rows" else
+                next(iter(by_shape)) if k in ("pairhmm_rows", "mea_fill") else
                 "N128_P630" if k.startswith("pairhmm") else
                 "N1536_B2_turner" if k.startswith("scan") else "N128_B192")
         paths = [m for m, ks in path_kernels.items() if k in ks]

@@ -15,7 +15,9 @@ The centroid-fold main path, both models, held against the JAX package:
                      models.mccaskill.mccaskill_bpp_batch (kernels K20,
                      K21 in ops.fold_scan, K3)
         -> models.mccaskill._prob_finish                 (kernel K3, inverse)
-        -> models.centroid.mea_fill_gammas + traceback -> dot-bracket files
+        -> models.centroid.centroid_structures: ops.mea_fill.mea_fill_batch
+           (kernel K23, a bucket's records and gammas at once) + traceback
+           -> dot-bracket files
 
 and the Durbin pair-HMM:
 

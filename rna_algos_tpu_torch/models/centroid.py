@@ -1,10 +1,10 @@
 """Gamma-centroid MEA structure estimator (``rna_algos_tpu.models.centroid``).
 
-The fill is a max-plus wavefront over spans with the gamma grid as a batch
-dimension; it keeps the JAX fill's float32 expressions and their order
-(``(m_in + gamma * p) - 1.0`` and ``P + R``, no fused or reassociated
-form), because the host traceback re-derives every choice by float32
-equality.  The traceback is a NumPy loop on the host.
+The fill is a max-plus wavefront over spans with the records and the gamma
+grid as batch dimensions (``ops.mea_fill``: kernel K23 on the card, the
+plain version on the CPU), bitwise the JAX fill, because the host
+traceback re-derives every choice by float32 equality.  The traceback is a
+NumPy loop on the host.
 """
 
 import contextlib
@@ -13,7 +13,7 @@ import os
 import numpy as np
 import torch
 
-from ..constants import NEG_INF
+from ..ops import mea_fill as MF
 from ..utils.output import _fmt, fold_str
 
 # Reference CLI gamma grid: 2^-7 .. 2^10.
@@ -23,48 +23,13 @@ DEFAULT_GAMMAS = tuple(float(2.0 ** k) for k in range(MIN_POW_2, MAX_POW_2 + 1))
 
 
 def mea_fill_gammas(bpp, gammas, N):
-    """(N, N) square BPP + (G,) gammas -> (G, N, N) square MEA fills.
-
-    State is kept in left layout P[g, i, d] = M(i, i + d) and right layout
-    Q[g, j, c] = M(j - c, j), as in the JAX scan."""
-    dev = bpp.device
-    G = len(gammas)
-    gam = torch.as_tensor(np.asarray(gammas, dtype=np.float32), device=dev)
-    gam = gam.view(G, 1)
-    i = torch.arange(N, device=dev)[:, None]
-    dd = torch.arange(N, device=dev)[None, :]
-    j = (i + dd).clamp(max=N - 1)
-    bpp_left = torch.where(i + dd < N, torch.gather(bpp, 1, j.expand(N, N)),
-                           torch.zeros((), device=dev))
-    neg = torch.full((), NEG_INF, device=dev)
-    zcol = torch.zeros((G, 1), device=dev)
-    P = torch.zeros((G, N, N), device=dev)
-    Q = torch.full((G, N, N), NEG_INF, device=dev)
-    for d in range(N):
-        if d == 0:
-            m_new = torch.zeros((G, N), device=dev)
-        else:
-            c2 = P[:, :, d - 1]
-            c1 = torch.cat([c2[:, 1:], zcol], dim=1)
-            p = bpp_left[:, d][None, :]
-            m_in = (
-                torch.cat([P[:, 1:, d - 2], zcol], dim=1) if d >= 2
-                else torch.zeros((G, N), device=dev)
-            )
-            c3 = torch.where(p > 0.0, (m_in + gam * p) - 1.0, neg)
-            c4 = torch.full((G, N), NEG_INF, device=dev)
-            if d >= 2:
-                # t in [1, d-1]: M(i, i+t) + M(i+t+1, i+d), for i + d < N
-                terms = P[:, :N - d, 1:d] + Q[:, d:, :d - 1].flip(-1)
-                c4[:, :N - d] = terms.max(dim=2).values
-            m_new = torch.maximum(torch.maximum(c1, c2), torch.maximum(c3, c4))
-        P[:, :, d] = m_new
-        Q[:, d:, d] = m_new[:, :N - d]
-    # square[g, i, j] = P[g, i, j - i] for j >= i, else 0
-    jj = torch.arange(N, device=dev)[None, :]
-    col = (jj - i).clamp(min=0).expand(G, N, N)
-    return torch.where(jj >= i, torch.gather(P, 2, col),
-                       torch.zeros((), device=dev))
+    """(N, N) square BPP + (G,) gammas -> (G, N, N) square MEA fills: the
+    one-record case of ``ops.mea_fill.mea_fill_batch`` (K23 on a CUDA
+    tensor)."""
+    if tuple(bpp.shape) != (N, N):
+        raise ValueError(f"mea_fill_gammas: BPP of shape {tuple(bpp.shape)}, "
+                         f"expected {(N, N)}")
+    return MF.mea_fill_batch(bpp[None], gammas)[0]
 
 
 def mea_fill(bpp, gamma, N):
@@ -114,34 +79,50 @@ def centroid_fold(bpp, n, gamma):
     return traceback(M, bpp.cpu().numpy(), gamma, n)
 
 
+# The fills of one K23 launch, (records, G, N, N) float32, stay under this
+# many bytes (one record a launch where a record's fills alone exceed it).
+MEA_FILL_CHUNK_BYTES = 256 << 20
+
+
 def centroid_structures(results, gammas, device, timer=None, tag=""):
     """{gamma: [dot-bracket per record]} from (bpp, presence, n) results:
-    each record's BPPs padded to ``pick_bucket(n)``, the fill for all
-    gammas at once on ``device``, the traceback on the host.  ``timer``: a
+    the records grouped by ``pick_bucket(n)``, each group's BPPs padded to
+    its bucket and filled for all gammas at once on ``device`` (one launch
+    a chunk of at most MEA_FILL_CHUNK_BYTES of fills), the traceback on the
+    host; the output in the records' order.  ``timer``: a
     ``utils.trace.PhaseTimer`` that then times the fills (phase
     ``"mea_fill" + tag``, CUDA events on a CUDA device) and the tracebacks
     (``"traceback" + tag``)."""
     from ..parallel.runner import pick_bucket
 
-    def phase(name):
+    def phase(name, records):
         if timer is None:
             return contextlib.nullcontext()
-        return timer.phase(name + tag, items=len(gammas),
+        return timer.phase(name + tag, items=records * len(gammas),
                            device=device if name == "mea_fill" else None)
 
-    out = {g: [] for g in gammas}
-    for bpp, _presence, n in results:
-        N = pick_bucket(n)
-        padded = np.zeros((N, N), dtype=np.float32)
-        padded[:n, :n] = bpp
-        with phase("mea_fill"):
-            fills = mea_fill_gammas(
-                torch.as_tensor(padded, device=device), gammas, N
-            ).cpu().numpy()
-        with phase("traceback"):
-            for g, M in zip(gammas, fills):
-                pairs, _ = traceback(M, padded, g, n)
-                out[g].append(fold_str(pairs, n))
+    groups = {}
+    for k, (_bpp, _presence, n) in enumerate(results):
+        groups.setdefault(pick_bucket(n), []).append(k)
+    out = {g: [None] * len(results) for g in gammas}
+    for N, ks in groups.items():
+        step = max(1, MEA_FILL_CHUNK_BYTES // (len(gammas) * N * N * 4))
+        for c in range(0, len(ks), step):
+            chunk = ks[c:c + step]
+            padded = np.zeros((len(chunk), N, N), dtype=np.float32)
+            for r, k in enumerate(chunk):
+                bpp, _presence, n = results[k]
+                padded[r, :n, :n] = bpp
+            with phase("mea_fill", len(chunk)):
+                fills = MF.mea_fill_batch(
+                    torch.as_tensor(padded, device=device), gammas
+                ).cpu().numpy()
+            with phase("traceback", len(chunk)):
+                for r, k in enumerate(chunk):
+                    n = results[k][2]
+                    for g, M in zip(gammas, fills[r]):
+                        pairs, _ = traceback(M, padded[r], g, n)
+                        out[g][k] = fold_str(pairs, n)
     return out
 
 

@@ -1,4 +1,4 @@
-"""Kernels K1-K5, K8, K9, K12-K22 against their plain versions on a
+"""Kernels K1-K5, K8, K9, K12-K23 against their plain versions on a
 CUDA GPU: the checks of chip_smoke.py, at the main paths' buckets (K1/K2
 and K4/K5 on live cells with their dead cells 0, also on edge batches at
 each bucket <= 256 and with NaN in their dead input cells and scratch; the long
@@ -11,7 +11,8 @@ on the N = 160 edge batch and one parity path past 256; K15's fast
 instance; the Durbin row scan K22 on its edge batch, past 4,096 columns
 (a cluster of blocks a pair, and the runs in the global scratch), on two
 SSU pairs that each span a cluster, and through AlignEngine beside K14 and
-on a 4,100-nt record).  Skipped without
+on a 4,100-nt record; the MEA fill K23 bitwise at buckets 32-384, and
+through centroid_structures).  Skipped without
 a GPU; run on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
 import numpy as np
@@ -576,3 +577,41 @@ def test_phase_timer_times_a_cuda_phase_with_events(device):
     assert s["calls"] == 1 and s["seconds"] > 0
     assert force({"a": x, "b": [x[:0], torch.ones(1)]}) == 2
     assert force_last([x, None]) == 1
+
+
+@pytest.mark.parametrize("N,R", [(32, 3), (96, 6), (256, 4), (384, 2)],
+                         ids=lambda v: str(v))
+def test_mea_fill_kernel_bitwise(device, N, R):
+    """K23 with the 18 gammas on R records of different n in bucket N
+    (the state in shared memory up to 256, in the output at 384): bitwise
+    its plain version, also with its output NaN-filled and with one NaN
+    BPP cell (NaN at the same cells); check_mea raises otherwise."""
+    from rna_algos_tpu_torch.ops import mea_fill as MF
+
+    assert MF.state_in_shared(N) == (N <= 256)
+    x = chip_smoke.mea_inputs(N, R, seed=N, device=device)
+    chip_smoke.check_mea(x, f"N{N}_R{R}")
+
+
+def test_centroid_structures_launch_k23(device, monkeypatch):
+    """centroid_structures on the card: one K23 launch a bucket (64, 96,
+    128, 384), the plain fill never called, the strings of the CPU run."""
+    from rna_algos_tpu_torch.models import centroid as TC
+    from rna_algos_tpu_torch.ops import mea_fill as MF
+
+    rng = np.random.default_rng(17)
+    results = []
+    for n in (70, 40, 110, 90, 300):
+        up = np.triu(np.where(rng.random((n, n)) < 0.3,
+                              rng.random((n, n)) ** 4, 0.0), 1)
+        results.append(((up + up.T).astype(np.float32), None, n))
+    want = TC.centroid_structures(results, TC.DEFAULT_GAMMAS, "cpu")
+
+    def refuse(*args):
+        raise AssertionError("the plain MEA fill ran on the card")
+
+    monkeypatch.setattr(MF, "mea_fill_batch_plain", refuse)
+    MF.launches.reset()
+    got = TC.centroid_structures(results, TC.DEFAULT_GAMMAS, device)
+    assert MF.launches.count == 4
+    assert got == want
