@@ -51,9 +51,14 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    also with NaN in every state cell and every dead score-table cell and
    with the narrowest groups the spans allow on a grid of SCAN_NARROW[1]
    blocks (lanes taken in many rounds); the gamma-centroid MEA fill K23
-   with the 18 gammas on records of different n at buckets 96 and 256
-   (its state in shared memory) and 384 (in the output), bitwise, also
-   with its output NaN-filled and with one NaN BPP cell; and each
+   with the 18 gammas on records of different n (MEA_CHECK: buckets 96
+   and 256, the main paths' 128 x 192 and 256 x 96 records in the
+   launches centroid_structures makes of them, bucket 512 x 8, one
+   1,536-nt record, N = 332 / 333 on each side of the switch from the
+   shared to the cluster form and 511 / 512 of one record on each side of
+   a cluster-size switch), bitwise, also with its output NaN-filled and
+   with one NaN BPP cell, and centroid_structures' fill, copy and
+   traceback timed apart at the two main-path shapes; and each
    one's time
    beside the plain version's, its bound and, for K3, the time of one
    torch.gather computing the same skew, at the main paths' shapes;
@@ -2601,21 +2606,28 @@ def scan_cli(mc_cli, cf_cli):
 
 # K23, the gamma-centroid MEA fill, against its plain version with the 18
 # gammas: (bucket N, records R), the records of different n in the bucket;
-# 96 and 256 keep the fill's state in shared memory, 384 in the output.
-MEA_CHECK = ((96, 6), (256, 4), (384, 2))
+# up to 332 the shared form, past it the cluster form.  (128, 192) and
+# (256, 96) are the main paths' shapes, launched as centroid_structures
+# launches them (fill_chunks); 332 / 333 straddle the form switch and
+# 511 / 512 of one record a cluster-size switch (rna_mea_fill_plan).
+MEA_CHECK = ((96, 6), (256, 4), (384, 2), (128, 192), (256, 96), (512, 8),
+             (1536, 1), (332, 2), (333, 2), (511, 1), (512, 1))
+# the shapes whose centroid_structures run is split into fill, copy and
+# traceback (mea_split)
+MEA_SPLIT = ((128, 192), (256, 96))
 # share of the BPP cells i < j < n that are nonzero in mea_inputs
 MEA_NONZERO = 0.5
 
 
 def mea_inputs(N, R, seed, device):
     """(R, N, N) float32 BPP-like matrices padded to bucket N, record r of
-    length N - r * N // 16: symmetric, MEA_NONZERO of the cells i < j < n
-    nonzero, each a uniform variate to the sixth power (mostly small, as a
-    fold's BPPs are)."""
+    length N - (r % 16) * N // 16: symmetric, MEA_NONZERO of the cells
+    i < j < n nonzero, each a uniform variate to the sixth power (mostly
+    small, as a fold's BPPs are)."""
     rng = np.random.default_rng(seed)
     out = np.zeros((R, N, N), np.float32)
     for r in range(R):
-        n = N - r * (N // 16)
+        n = N - (r % 16) * (N // 16)
         v = rng.random((n, n)) ** 6 * (rng.random((n, n)) < MEA_NONZERO)
         up = np.triu(v, 1).astype(np.float32)
         out[r, :n, :n] = up + up.T
@@ -2659,50 +2671,100 @@ def mea_bitwise(got, want, label):
     return int(gn.sum())
 
 
-def check_mea(x, label):
+def check_mea(x, label, chunks=None):
     """K23 on ``x`` against its plain version, bitwise: as allocated, with
     its output NaN-filled, and with one NaN BPP cell (NaN at the same cells
-    of both).  Returns the plain version's output on ``x``."""
+    of both).  ``chunks``: the (start, stop) record ranges of its launches
+    (one launch by default).  Returns the plain version's output on ``x``
+    and that first plain call's time (CUDA events, ms)."""
     from rna_algos_tpu_torch.models.centroid import DEFAULT_GAMMAS
     from rna_algos_tpu_torch.ops import mea_fill as MF
 
+    chunks = chunks or [(0, x.shape[0])]
+
+    def fill(y):
+        return torch.cat([MF.mea_fill_batch(y[c0:c1], DEFAULT_GAMMAS)
+                          for c0, c1 in chunks])
+
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
     want = MF.mea_fill_batch_plain(x, DEFAULT_GAMMAS)
-    mea_bitwise(MF.mea_fill_batch(x, DEFAULT_GAMMAS), want, label)
+    t1.record()
+    t1.synchronize()
+    mea_bitwise(fill(x), want, label)
     with nan_filled_fills():
-        mea_bitwise(MF.mea_fill_batch(x, DEFAULT_GAMMAS), want,
-                    f"{label}, NaN-filled output")
+        mea_bitwise(fill(x), want, f"{label}, NaN-filled output")
     y = x.clone()
     y[0, 1, x.shape[1] // 2] = float("nan")
-    nans = mea_bitwise(MF.mea_fill_batch(y, DEFAULT_GAMMAS),
-                       MF.mea_fill_batch_plain(y, DEFAULT_GAMMAS),
+    nans = mea_bitwise(fill(y), MF.mea_fill_batch_plain(y, DEFAULT_GAMMAS),
                        f"{label}, one NaN BPP cell")
     print(f"check K23 {label}: bitwise, also NaN-filled and with one NaN "
           f"BPP cell ({nans} NaN fill cells in both)")
-    return want
+    return want, t0.elapsed_time(t1)
 
 
 def mea_checks(device, err, times, smi):
-    """Phase 2 for K23: at each MEA_CHECK shape, ``check_mea``, then the
-    kernel's time (CUDA events, 5 launches after a warm-up) beside the
-    plain loop's (one call) and the bound, into ``times["mea_fill"]``."""
-    from rna_algos_tpu_torch.models.centroid import DEFAULT_GAMMAS
+    """Phase 2 for K23: at each MEA_CHECK shape, ``check_mea`` in the
+    launches ``centroid_structures`` makes (``fill_chunks``), then the
+    kernel's time (CUDA events, the mean of 5 calls of those launches
+    after a warm-up; 2 past N = 1,024) beside the plain loop's (its first
+    call in the check) and the bound, into ``times["mea_fill"]``; then
+    ``mea_split`` at MEA_SPLIT."""
+    from rna_algos_tpu_torch.models.centroid import (DEFAULT_GAMMAS,
+                                                     fill_chunks)
     from rna_algos_tpu_torch.ops import mea_fill as MF
 
     G = len(DEFAULT_GAMMAS)
     for N, R in MEA_CHECK:
         x = mea_inputs(N, R, seed=N + R, device=device)
         shape = f"N{N}_R{R}"
-        state = "shared memory" if MF.state_in_shared(N) else "the output"
-        check_mea(x, f"{shape} G={G} (state in {state})")
+        chunks = fill_chunks(R, G, N)
+        plans = sorted({MF.plan(c1 - c0, G, N) for c0, c1 in chunks})
+        form = "shared" if MF.state_in_shared(N) else "cluster"
+        nl = f"{len(chunks)} launch{'es' if len(chunks) > 1 else ''}"
+        label = f"{shape} G={G} ({form} form, plan {plans}, {nl})"
+        _, pms = check_mea(x, label, chunks)
         err["mea_fill"] = 0.0
-        ms = cuda_ms(lambda: MF.mea_fill_batch(x, DEFAULT_GAMMAS), 5)
-        pms = cuda_ms(lambda: MF.mea_fill_batch_plain(x, DEFAULT_GAMMAS), 1,
-                      warmup=False)
+        ms = cuda_ms(lambda: [MF.mea_fill_batch(x[c0:c1], DEFAULT_GAMMAS)
+                              for c0, c1 in chunks], 5 if N <= 1024 else 2)
         bms, by = mea_bound(R, G, N)
         times["mea_fill"][shape] = (ms, pms, bms, by, None)
         print(f"time {shape} G={G} mea_fill: kernel {ms:.4f} ms "
-              f"({ms / R:.4f} ms a record), plain {pms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}), share {bms / ms:.4f}, on {smi}")
+              f"({ms / R:.4f} ms a record, {nl}), plain "
+              f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), share "
+              f"{bms / ms:.4f}, on {smi}")
+        del x
+        torch.cuda.empty_cache()
+    mea_split(device, smi)
+
+
+def mea_split(device, smi):
+    """``centroid_structures`` on the card at each MEA_SPLIT shape (R
+    records of n in (the bucket below, N], ``mea_inputs``' matrices cut to
+    n), its PhaseTimer phases apart: the K23 launches (CUDA events), the
+    copy of the fills to the host and the traceback (host clock)."""
+    from rna_algos_tpu_torch.models.centroid import (DEFAULT_GAMMAS,
+                                                     centroid_structures)
+    from rna_algos_tpu_torch.parallel.runner import pick_bucket
+    from rna_algos_tpu_torch.utils.trace import PhaseTimer
+
+    for N, R in MEA_SPLIT:
+        x = mea_inputs(N, R, seed=N + R, device="cpu").numpy()
+        results = []
+        for r in range(R):
+            n = N - (r % 8) * (N // 32)
+            results.append((x[r, :n, :n], None, n))
+        assert {pick_bucket(n) for _, _, n in results} == {N}
+        centroid_structures(results[:2], DEFAULT_GAMMAS, device)  # warm-up
+        timer = PhaseTimer()
+        centroid_structures(results, DEFAULT_GAMMAS, device, timer=timer)
+        ph = timer.summary()
+        parts = ", ".join(f"{k} {ph[k]['seconds'] * 1e3:.3f} ms "
+                          f"({ph[k]['calls']} calls)"
+                          for k in ("mea_fill", "fill_copy", "traceback"))
+        print(f"centroid_structures N{N}_R{R} G={len(DEFAULT_GAMMAS)}: "
+              f"{parts}, on {smi}")
 
 
 @contextlib.contextmanager

@@ -84,15 +84,23 @@ def centroid_fold(bpp, n, gamma):
 MEA_FILL_CHUNK_BYTES = 256 << 20
 
 
+def fill_chunks(R, G, N):
+    """The (start, stop) record ranges of ``centroid_structures``' K23
+    launches for R records of bucket N and G gammas: at most
+    MEA_FILL_CHUNK_BYTES of fills a launch, at least one record."""
+    step = max(1, MEA_FILL_CHUNK_BYTES // (G * N * N * 4))
+    return [(c, min(c + step, R)) for c in range(0, R, step)]
+
+
 def centroid_structures(results, gammas, device, timer=None, tag=""):
     """{gamma: [dot-bracket per record]} from (bpp, presence, n) results:
     the records grouped by ``pick_bucket(n)``, each group's BPPs padded to
     its bucket and filled for all gammas at once on ``device`` (one launch
-    a chunk of at most MEA_FILL_CHUNK_BYTES of fills), the traceback on the
-    host; the output in the records' order.  ``timer``: a
-    ``utils.trace.PhaseTimer`` that then times the fills (phase
-    ``"mea_fill" + tag``, CUDA events on a CUDA device) and the tracebacks
-    (``"traceback" + tag``)."""
+    a chunk of ``fill_chunks``), the traceback on the host; the output in
+    the records' order.  ``timer``: a ``utils.trace.PhaseTimer`` that then
+    times the fills (phase ``"mea_fill" + tag``, CUDA events on a CUDA
+    device), their copy to the host (``"fill_copy" + tag``) and the
+    tracebacks (``"traceback" + tag``)."""
     from ..parallel.runner import pick_bucket
 
     def phase(name, records):
@@ -106,17 +114,17 @@ def centroid_structures(results, gammas, device, timer=None, tag=""):
         groups.setdefault(pick_bucket(n), []).append(k)
     out = {g: [None] * len(results) for g in gammas}
     for N, ks in groups.items():
-        step = max(1, MEA_FILL_CHUNK_BYTES // (len(gammas) * N * N * 4))
-        for c in range(0, len(ks), step):
-            chunk = ks[c:c + step]
+        for c0, c1 in fill_chunks(len(ks), len(gammas), N):
+            chunk = ks[c0:c1]
             padded = np.zeros((len(chunk), N, N), dtype=np.float32)
             for r, k in enumerate(chunk):
                 bpp, _presence, n = results[k]
                 padded[r, :n, :n] = bpp
             with phase("mea_fill", len(chunk)):
                 fills = MF.mea_fill_batch(
-                    torch.as_tensor(padded, device=device), gammas
-                ).cpu().numpy()
+                    torch.as_tensor(padded, device=device), gammas)
+            with phase("fill_copy", len(chunk)):
+                fills = fills.cpu().numpy()
             with phase("traceback", len(chunk)):
                 for r, k in enumerate(chunk):
                     n = results[k][2]

@@ -62,7 +62,8 @@ SIGNATURES = {
     "rna_scan_blocks": [_I, _I, _I, _P],
     "rna_scan_pass": [_I, ctypes.POINTER(_P), _P, ctypes.POINTER(_P),
                       ctypes.POINTER(_P)] + [_P] * 5 + [_I] * 7 + [_P],
-    "rna_mea_fill": [_P] * 3 + [_I] * 3 + [_P],
+    "rna_mea_fill": [_P] * 4 + [_I] * 6 + [_P],
+    "rna_mea_fill_plan": [_I, _I, _I, ctypes.POINTER(_I)],
 }
 
 

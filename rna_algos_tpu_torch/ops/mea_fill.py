@@ -3,12 +3,18 @@
 ``mea_fill_gammas``; an XLA loop there, no Pallas kernel).
 
 ``mea_fill_batch`` launches ``csrc/mea_fill.cu`` for CUDA tensors and runs
-the plain version (``mea_fill_batch_plain``) for CPU tensors.  The plain
+the plain version (``mea_fill_batch_plain``) for CPU tensors.  The kernel
+takes a plan (``plan``): the shared form, one block a fill with the
+triangle in shared memory, up to N = 332; past it the cluster form, a
+cluster of C blocks a fill with the triangle in a global workspace.  The plain
 version keeps the JAX fill's float32 expressions and their order
 (``(m_in + gamma * p) - 1.0`` and ``P + R``, no fused or reassociated
 form), because the host traceback re-derives every choice by float32
 equality; the kernel is bitwise the same.
 """
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -17,22 +23,42 @@ from . import _build
 from ..constants import NEG_INF
 from ..utils.platform import on_cuda
 
-# RNA_MEA_SHARED_BYTES in csrc/mea_fill.cu: a fill's live triangle up to
-# this size is kept in shared memory, past it in the output buffer.
+# RNA_MEA_SHARED_BYTES and RNA_MEA_K in csrc/mea_fill.cu: a fill's live
+# triangle, with a band of K bpp values a lane, up to this size is kept in
+# shared memory (N <= 332), past it in a global workspace.
 SHARED_BYTES = 232448
+BAND = 8
 
 launches = _build.LaunchCounter("mea_fill")
 
 
 def state_in_shared(N):
-    """Whether K23 keeps a bucket-N fill's state in shared memory."""
-    return N * (N + 1) // 2 * 4 <= SHARED_BYTES
+    """Whether K23 keeps a bucket-N fill's state in shared memory (the
+    shared form); past it the cluster form keeps it in a workspace."""
+    return (N * (N + 1) // 2 + BAND * N) * 4 <= SHARED_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def plan(R, G, N):
+    """K23's launch of R x G fills at bucket N on the current card:
+    (form, threads a block, blocks a fill), form 0 the shared form and 1
+    the cluster form (``rna_mea_fill_plan``)."""
+    out = (ctypes.c_int * 3)()
+    _build.library().call("rna_mea_fill_plan", R, G, N, out)
+    return tuple(out)
 
 
 def _gammas(gammas, device):
-    """The gamma grid as the float32 values ``np.asarray`` gives."""
-    return torch.as_tensor(np.asarray(gammas, dtype=np.float32),
-                           device=device)
+    """The gamma grid as the float32 values ``np.asarray`` gives, on
+    ``device`` (kept: a copy to the card on every call would wait for the
+    stream)."""
+    return _gammas_on(tuple(np.asarray(gammas, dtype=np.float32).tolist()),
+                      str(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _gammas_on(values, device):
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def mea_fill_batch_plain(bpps, gammas):
@@ -86,9 +112,11 @@ def _fills(R, G, N, device):
     return torch.empty((R, G, N, N), dtype=torch.float32, device=device)
 
 
-def mea_fill_batch(bpps, gammas):
+def mea_fill_batch(bpps, gammas, launch=None):
     """(R, N, N) float32 square BPPs, all padded to one bucket N, + G gammas
-    -> (R, G, N, N) square MEA fills, zero below the diagonal."""
+    -> (R, G, N, N) square MEA fills, zero below the diagonal.  ``launch``:
+    a (form, threads, blocks) plan other than ``plan``'s (the kernel
+    refuses one its form cannot run)."""
     device = bpps.device
     if device.type == "cpu":
         return mea_fill_batch_plain(bpps, gammas)
@@ -99,10 +127,13 @@ def mea_fill_batch(bpps, gammas):
     G = gam.numel()
     _build.check_cuda("mea_fill_batch", {"bpps": bpps, "gammas": gam},
                       {"bpps": (R, N, N), "gammas": (G,)}, device)
+    form, T, C = launch or plan(R, G, N)
     out = _fills(R, G, N, device)
+    work = torch.empty(R * G * N * (N + 1) // 2 if form else 0,
+                       dtype=torch.float32, device=device)
     _build.library().call(
         "rna_mea_fill", _build.ptr(bpps), _build.ptr(gam), _build.ptr(out),
-        R, G, N, _build.stream_ptr(device),
+        _build.ptr(work), R, G, N, form, T, C, _build.stream_ptr(device),
     )
     launches.add()
     return out

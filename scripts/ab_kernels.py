@@ -74,6 +74,18 @@ there (exact), then the row scan's main paths (``AlignEngine``,
 chip_smoke.py's ``ROWS_RUNS``) through each build in the same turns, with
 their pairs/s (CUDA events around 3 calls after a warm-up, each ending in
 the copy to the host) and peak memory.
+``--mea`` times the gamma-centroid MEA fill K23 instead: ``--a`` is the
+``csrc`` of a checkout, driven by that checkout's own ``ops/mea_fill.py``
+(its C entry point may differ from today's).  The fills of the 18 gammas
+(CUDA events, the mean of MEA_REPS calls after a warm-up) per build in
+turns A, B, B, A at ``MEA_AB`` (chip_smoke.py's ``mea_inputs``; the
+main-path shapes N = 128 R = 192 and N = 256 R = 96 as
+``centroid_structures`` launches them, one launch a chunk of
+``fill_chunks``), whether the two builds' fills are bitwise equal there,
+each build's ptxas lines for K23, then the centroid CLI on the committed
+tRNA set (``cli.centroid_fold -c``, host clock around one call after a
+warm-up) through each build in the same turns, its files compared between
+the builds.
 Entry points a build does not define are not bound.  Needs a GPU.
 """
 
@@ -104,6 +116,12 @@ SCAN_REPS = 3
 SCAN_SHAPES = (("contra", 1536, 2, "exact"), ("turner", 1536, 2, "exact"),
                ("contra", 384, 8, "parity"), ("turner", 384, 8, "parity"))
 ROWS_REPS = 3
+MEA_REPS = 3
+# (bucket N, records R) of the K23 A/B
+MEA_AB = ((96, 6), (256, 4), (384, 2), (128, 192), (256, 96), (512, 8),
+          (1536, 1))
+# K23's entry point before its redesign (no workspace, no plan)
+MEA_LEGACY = [_P] * 3 + [_I] * 3 + [_P]
 # K22's entry point before its redesign (no scratch, no cluster size)
 ROWS_LEGACY = [_P] * 9 + [_I] * 5 + [_P]
 # Ring rows a sequence of an older build's ring scratch: CONTRA's window
@@ -239,6 +257,9 @@ def load(csrc, split):
         rows_decl = re.search(r'"C" int rna_pairhmm_rows\(([^)]*)\)', text)
         if rows_decl and "scratch" not in rows_decl.group(1):
             sigs["rna_pairhmm_rows"] = ROWS_LEGACY
+        mea_decl = re.search(r'"C" int rna_mea_fill\(([^)]*)\)', text)
+        if mea_decl and "work" not in mea_decl.group(1):
+            sigs["rna_mea_fill"] = MEA_LEGACY
     _build.SIGNATURES = sigs
     try:
         lib = _build.library()
@@ -296,6 +317,8 @@ def main(argv=None):
                     help="the generic-N scan's kernels K20/K21 instead")
     ap.add_argument("--rows", action="store_true",
                     help="the Durbin row scan K22 instead")
+    ap.add_argument("--mea", action="store_true",
+                    help="the gamma-centroid MEA fill K23 instead")
     ap.add_argument("--paths", action="store_true",
                     help="then the exact main paths through each build")
     args = ap.parse_args(argv)
@@ -317,6 +340,8 @@ def main(argv=None):
                 continue
             if args.rows and "rows" not in name:
                 continue
+            if args.mea and "mea" not in name:
+                continue
             if not args.log or "_log_kernel" in name:
                 print(f"  {k} ptxas: {name}: {line}")
     use(libs["B"])
@@ -324,6 +349,8 @@ def main(argv=None):
         return ab_scan(libs, args, dev, chip_smoke)
     if args.rows:
         return ab_rows(libs, args, dev, chip_smoke)
+    if args.mea:
+        return ab_mea(libs, args, dev, chip_smoke)
     if args.pairhmm:
         return ab_pairhmm(libs, dev, chip_smoke)
     if args.log:
@@ -644,6 +671,91 @@ def ab_rows(libs, args, dev, chip_smoke):
               f"{a_ms / b_ms:.4f}")
     ab_rows_paths(libs, mods, chip_smoke, rsets)
     return 0 if all(same.values()) else 1
+
+
+def ab_mea(libs, args, dev, chip_smoke):
+    """K23 of the two builds in turns A, B, B, A (each build's own
+    ops/mea_fill.py) at MEA_AB, whether their fills are bitwise equal, then
+    the centroid CLI through each build."""
+    from rna_algos_tpu_torch.models.centroid import (DEFAULT_GAMMAS,
+                                                     fill_chunks)
+    from rna_algos_tpu_torch.ops import mea_fill
+
+    mods = {"A": tree_module(args.a, "mea_fill"), "B": mea_fill}
+    G = len(DEFAULT_GAMMAS)
+    times, same = {}, {}
+    for N, R in MEA_AB:
+        x = chip_smoke.mea_inputs(N, R, seed=N + R, device=dev)
+        chunks = fill_chunks(R, G, N)
+        label = f"N{N}_R{R}" + (f" in {len(chunks)} launches"
+                                if len(chunks) > 1 else "")
+        outs = {}
+        for turn, which in enumerate(("A", "B", "B", "A")):
+            use(libs[which])
+            MF = mods[which]
+
+            def fill():
+                return [MF.mea_fill_batch(x[c0:c1], DEFAULT_GAMMAS)
+                        for c0, c1 in chunks]
+
+            ms = chip_smoke.cuda_ms(fill, MEA_REPS)
+            outs[which] = fill()
+            times.setdefault(label, {}).setdefault(which, []).append(ms)
+            print(f"turn {turn} build {which} {label} K23: {ms:.4f} ms")
+        same[label] = all(torch.equal(a.view(torch.int32),
+                                      b.view(torch.int32))
+                          for a, b in zip(outs["A"], outs["B"]))
+        bms, by = chip_smoke.mea_bound(R, G, N)
+        first = chunks[0][1] - chunks[0][0]
+        use(libs["B"])
+        print(f"{label} K23: fills of A and B bitwise equal: "
+              f"{same[label]}; plan of B {mea_fill.plan(first, G, N)} for a "
+              f"launch of {first} records; bound {bms:.4f} ms ({by})")
+        del x, outs
+        torch.cuda.empty_cache()
+    for label, ms in times.items():
+        a_ms, b_ms = (sum(ms[k]) / len(ms[k]) for k in ("A", "B"))
+        N, R = (int(v[1:]) for v in label.split()[0].split("_"))
+        bms, _ = chip_smoke.mea_bound(R, G, N)
+        print(f"mean {label} K23: A {a_ms:.4f} ms (share {bms / a_ms:.4f}), "
+              f"B {b_ms:.4f} ms (share {bms / b_ms:.4f}), A / B "
+              f"{a_ms / b_ms:.4f}")
+    same["cli"] = ab_mea_cli(libs, mods)
+    return 0 if all(same.values()) else 1
+
+
+def ab_mea_cli(libs, mods):
+    """``cli.centroid_fold -c`` on the committed tRNA set through each
+    build in turns A, B, B, A (host clock around one call after a warm-up,
+    the fold included); whether the builds wrote the same files."""
+    import tempfile
+    import time
+
+    from rna_algos_tpu_torch.cli import centroid_fold as cf_cli
+    from rna_algos_tpu_torch.models import centroid as TC
+
+    fasta = str(ROOT / "assets" / "sampled_trnas.fa")
+    saved, files = TC.MF, {}
+    try:
+        for turn, which in enumerate(("A", "B", "B", "A")):
+            use(libs[which])
+            TC.MF = mods[which]
+            with tempfile.TemporaryDirectory() as tmp:
+                cf_cli.main(["-i", fasta, "-o", tmp, "-c"])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cf_cli.main(["-i", fasta, "-o", tmp, "-c"])
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t0
+                files[which] = {p.name: p.read_bytes()
+                                for p in sorted(pathlib.Path(tmp).iterdir())}
+            print(f"turn {turn} build {which} centroid CLI -c, tRNA set: "
+                  f"{s:.4f} s a call")
+    finally:
+        TC.MF = saved
+    same = files["A"] == files["B"]
+    print(f"centroid CLI -c: files of A and B identical: {same}")
+    return same
 
 
 def ab_rows_paths(libs, mods, chip_smoke, rsets):

@@ -11,8 +11,9 @@ on the N = 160 edge batch and one parity path past 256; K15's fast
 instance; the Durbin row scan K22 on its edge batch, past 4,096 columns
 (a cluster of blocks a pair, and the runs in the global scratch), on two
 SSU pairs that each span a cluster, and through AlignEngine beside K14 and
-on a 4,100-nt record; the MEA fill K23 bitwise at buckets 32-384, and
-through centroid_structures).  Skipped without
+on a 4,100-nt record; the MEA fill K23 bitwise at buckets 32-1,536 in
+both its forms and on each side of their switches under the card's plan,
+at N = 96 under other plans, and through centroid_structures).  Skipped without
 a GPU; run on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
 import numpy as np
@@ -579,18 +580,49 @@ def test_phase_timer_times_a_cuda_phase_with_events(device):
     assert force_last([x, None]) == 1
 
 
-@pytest.mark.parametrize("N,R", [(32, 3), (96, 6), (256, 4), (384, 2)],
+@pytest.mark.parametrize("N,R", [(32, 3), (96, 6), (256, 4), (332, 2),
+                                 (333, 2), (384, 2), (511, 1), (512, 1),
+                                 (512, 8), (1536, 1)],
                          ids=lambda v: str(v))
 def test_mea_fill_kernel_bitwise(device, N, R):
-    """K23 with the 18 gammas on R records of different n in bucket N
-    (the state in shared memory up to 256, in the output at 384): bitwise
-    its plain version, also with its output NaN-filled and with one NaN
-    BPP cell (NaN at the same cells); check_mea raises otherwise."""
+    """K23 with the 18 gammas on R records of different n in bucket N,
+    under the plan the card picks: the shared form up to N = 332 (the
+    triangle in shared memory), the cluster form past it (332 / 333 on
+    each side of the switch, 511 / 512 of one record on each side of a
+    cluster-size switch, bucket 512 with 144 fills, one 1,536-nt record):
+    bitwise its plain version, also with its output NaN-filled and with
+    one NaN BPP cell (NaN at the same cells); check_mea raises
+    otherwise."""
     from rna_algos_tpu_torch.ops import mea_fill as MF
 
-    assert MF.state_in_shared(N) == (N <= 256)
+    assert MF.state_in_shared(N) == (N <= 332)
+    form, _T, C = MF.plan(R, 18, N)
+    assert form == (0 if N <= 332 else 1)
+    if form:
+        # a launch with fewer fills than SMs spreads each over C >= 2
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert C >= 2 or R * 18 >= sms
     x = chip_smoke.mea_inputs(N, R, seed=N, device=device)
     chip_smoke.check_mea(x, f"N{N}_R{R}")
+
+
+@pytest.mark.parametrize("plan", [(0, 96, 1), (0, 128, 1), (0, 1024, 1),
+                                  (0, 32, 1), (1, 32, 1), (1, 32, 16),
+                                  (1, 64, 4), (1, 512, 2), (1, 1024, 8)],
+                         ids=lambda v: "-".join(map(str, v)))
+def test_mea_fill_kernel_plans(device, plan):
+    """Other plans than the card's at N = 96 (3 records): the shared form
+    at 32 (fewer threads than lanes), 96, 128 and 1,024 threads, the
+    cluster form at blocks of 32 to 1,024 threads and clusters of 1 to 16
+    blocks (with and without a thread a lane; halos of K - 1 lanes on
+    every block but the last): bitwise the plain version."""
+    x = chip_smoke.mea_inputs(96, 3, seed=5, device=device)
+    from rna_algos_tpu_torch.models.centroid import DEFAULT_GAMMAS
+    from rna_algos_tpu_torch.ops import mea_fill as MF
+
+    chip_smoke.mea_bitwise(MF.mea_fill_batch(x, DEFAULT_GAMMAS, plan),
+                           MF.mea_fill_batch_plain(x, DEFAULT_GAMMAS),
+                           f"N96_R3 plan {plan}")
 
 
 def test_centroid_structures_launch_k23(device, monkeypatch):
