@@ -57,11 +57,18 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    1,536-nt record, N = 332 / 333 on each side of the switch from the
    shared to the cluster form and 511 / 512 of one record on each side of
    a cluster-size switch), bitwise, also with its output NaN-filled and
-   with one NaN BPP cell, and centroid_structures' fill, copy and
-   traceback timed apart at the two main-path shapes; and each
+   with one NaN BPP cell; and each
    one's time
    beside the plain version's, its bound and, for K3, the time of one
-   torch.gather computing the same skew, at the main paths' shapes;
+   torch.gather computing the same skew, at the main paths' shapes; then
+   the native host runtime (_native, csrc/native_host.c, built by cc):
+   its batch traceback on K23's fills at the two main-path shapes and one
+   1,536-nt record, the pairs equal to the plain traceback's at every
+   (record, gamma), each one's time; centroid_structures' fill, copy and
+   native traceback timed apart at the two main-path shapes (the plain
+   traceback never called, the native one once a launch); and its
+   formatter byte-identical to probs2str on the 1,536-nt record's
+   triples, each one's time;
 3. the main paths, FoldEngine(device="cuda").fold_batch for CONTRA and for
    Turner, each on the six tRNAs tiled to B = 192 (bucket 128) and on 96
    seeded random sequences of 150-200 nt (bucket 256), then each on the
@@ -102,14 +109,16 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    plain versions never called, a subset held bitwise against the plain
    path on the card, with pairs/s and peak memory;
 4. the centroid CLI on assets/sampled_trnas.fa, each run counted (K23
-   launched, its plain version never called): with -c byte for byte
+   and the native traceback launched, their plain versions never called): with -c byte for byte
    against tests/golden/c_baseline/centroid_contra/, without -c against
    centroid_turner/ under the gamma = 1 tie rule (``turner_centroid_verdict``);
    and cli.mccaskill -c on the tRNAs mixed with a 400-nt and a 900-nt
    record, in input order, the tRNA records byte-identical to a tRNA-only
    run; cli.durbin --numerics parity against
    tests/golden/c_baseline/durbin.txt (same keys, <= 5e-4) and cli.durbin
-   on the card against --device cpu (<= 1e-5); cli.mccaskill --numerics
+   on the card against --device cpu (<= 1e-5); cli.mccaskill -c and
+   cli.durbin on the tRNAs with each record's native text held against
+   probs2str's on the same triples; cli.mccaskill --numerics
    parity with and without -c against the c_baseline triples (the same
    keys, <= 5e-4) and cli.centroid_fold --numerics parity against the
    centroid goldens (CONTRA byte for byte, Turner under the tie rule);
@@ -123,8 +132,8 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    path and plain path, and the peak device memory of each long batch;
 6. the eval pipeline, eval.pipeline.run_all on assets/synth_rfam_seed.sth
    (both models, both programs, the 18 gammas), its fold and MEA fill
-   counted (K1/K2, K4/K5, K3 and K23 launched, their plain versions never
-   called): 18 rows a
+   counted (K1/K2, K4/K5, K3, K23 and the native traceback launched, their
+   plain versions never called): 18 rows a
    column, strict JSON, each column's best F1 at the floors of the
    committed report's test and best MCC above 0.3; the largest per-gamma
    gap of PPV, sensitivity, F1 and MCC to eval_artifacts/eval_report.json,
@@ -137,7 +146,8 @@ Needs one CUDA GPU and nvcc.  Phases, each fatal on failure:
    wherever a sequence or pair settles on the same ln_sigma with the same
    launch shape, else within TOL_MAIN_VS_PLAIN, the counts printed.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record, after the phases'
+records (the native host runtime's is {"native": ...}); the last line is
 {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and prints
 no result.
 """
@@ -2709,8 +2719,7 @@ def mea_checks(device, err, times, smi):
     launches ``centroid_structures`` makes (``fill_chunks``), then the
     kernel's time (CUDA events, the mean of 5 calls of those launches
     after a warm-up; 2 past N = 1,024) beside the plain loop's (its first
-    call in the check) and the bound, into ``times["mea_fill"]``; then
-    ``mea_split`` at MEA_SPLIT."""
+    call in the check) and the bound, into ``times["mea_fill"]``."""
     from rna_algos_tpu_torch.models.centroid import (DEFAULT_GAMMAS,
                                                      fill_chunks)
     from rna_algos_tpu_torch.ops import mea_fill as MF
@@ -2736,35 +2745,224 @@ def mea_checks(device, err, times, smi):
               f"{bms / ms:.4f}, on {smi}")
         del x
         torch.cuda.empty_cache()
-    mea_split(device, smi)
+
+
+def split_records(N, R):
+    """(bpp, None, n) results of R records of n in (the bucket below, N]:
+    ``mea_inputs``' matrices cut to n."""
+    from rna_algos_tpu_torch.parallel.runner import pick_bucket
+
+    x = mea_inputs(N, R, seed=N + R, device="cpu").numpy()
+    results = []
+    for r in range(R):
+        n = N - (r % 8) * (N // 32)
+        results.append((x[r, :n, :n], None, n))
+    assert {pick_bucket(n) for _, _, n in results} == {N}
+    return results
 
 
 def mea_split(device, smi):
-    """``centroid_structures`` on the card at each MEA_SPLIT shape (R
-    records of n in (the bucket below, N], ``mea_inputs``' matrices cut to
-    n), its PhaseTimer phases apart: the K23 launches (CUDA events), the
-    copy of the fills to the host and the traceback (host clock)."""
+    """``centroid_structures`` on the card at each MEA_SPLIT shape
+    (``split_records``), its PhaseTimer phases apart: the K23 launches
+    (CUDA events), the copy of the fills to the host and the native
+    traceback (host clock); the plain traceback must run 0 times and the
+    native batch traceback once a chunk.  Returns {shape: {phase: ms}}."""
+    from rna_algos_tpu_torch import _native
     from rna_algos_tpu_torch.models.centroid import (DEFAULT_GAMMAS,
-                                                     centroid_structures)
-    from rna_algos_tpu_torch.parallel.runner import pick_bucket
+                                                     centroid_structures,
+                                                     fill_chunks)
     from rna_algos_tpu_torch.utils.trace import PhaseTimer
 
+    out = {}
     for N, R in MEA_SPLIT:
-        x = mea_inputs(N, R, seed=N + R, device="cpu").numpy()
-        results = []
-        for r in range(R):
-            n = N - (r % 8) * (N // 32)
-            results.append((x[r, :n, :n], None, n))
-        assert {pick_bucket(n) for _, _, n in results} == {N}
+        results = split_records(N, R)
         centroid_structures(results[:2], DEFAULT_GAMMAS, device)  # warm-up
         timer = PhaseTimer()
-        centroid_structures(results, DEFAULT_GAMMAS, device, timer=timer)
+        _native.traceback_calls.reset()
+        with counted_plain_traceback() as n_plain:
+            centroid_structures(results, DEFAULT_GAMMAS, device, timer=timer)
+        chunks = len(fill_chunks(R, len(DEFAULT_GAMMAS), N))
+        if n_plain[0] or _native.traceback_calls.count != chunks:
+            raise AssertionError(
+                f"centroid_structures N{N}_R{R}: the plain traceback ran "
+                f"{n_plain[0]} times, the native one "
+                f"{_native.traceback_calls.count} times for {chunks} chunks")
         ph = timer.summary()
         parts = ", ".join(f"{k} {ph[k]['seconds'] * 1e3:.3f} ms "
                           f"({ph[k]['calls']} calls)"
                           for k in ("mea_fill", "fill_copy", "traceback"))
         print(f"centroid_structures N{N}_R{R} G={len(DEFAULT_GAMMAS)}: "
-              f"{parts}, on {smi}")
+              f"{parts}; native traceback calls {chunks}, plain 0; on {smi}")
+        out[f"N{N}_R{R}"] = {k: ph[k]["seconds"] * 1e3
+                             for k in ("mea_fill", "fill_copy", "traceback")}
+    return out
+
+
+@contextlib.contextmanager
+def counted_plain_traceback():
+    """Count the calls of the plain traceback (``models.centroid.traceback``)
+    while the block runs: a one-item list."""
+    from rna_algos_tpu_torch.models import centroid as TC
+
+    calls, orig = [0], TC.traceback
+
+    def plain(*args):
+        calls[0] += 1
+        return orig(*args)
+
+    TC.traceback = plain
+    try:
+        yield calls
+    finally:
+        TC.traceback = orig
+
+
+# The native host runtime (_native, csrc/native_host.c): its batch
+# traceback against the plain traceback at every (record, gamma) of
+# MEA_SPLIT's shapes and one 1,536-nt record, on K23's fills; its formatter
+# against probs2str on that record's triples (the nonzero cells i < j of
+# its BPP-like matrix).
+NATIVE_SHAPES = MEA_SPLIT + ((1536, 1),)
+NATIVE_FORMAT_REPS = 3
+
+
+def native_phase(device, smi):
+    """The native host runtime on the card's path.  At each NATIVE_SHAPES
+    shape: K23's fills of ``split_records``, in the launches
+    ``centroid_structures`` makes, copied to the host; the native batch
+    traceback (one call a launch) and the plain traceback at every
+    (record, gamma), fatal unless their pairs are equal; each one's time
+    (host clock).  Then ``mea_split``, and the formatter against
+    ``probs2str`` on one record's triples: fatal unless the bytes are
+    equal; the plain version's time (one call) beside the native one's
+    (the mean of NATIVE_FORMAT_REPS).  Returns the phase's record."""
+    from rna_algos_tpu_torch import _native
+    from rna_algos_tpu_torch.models.centroid import (DEFAULT_GAMMAS,
+                                                     fill_chunks, traceback)
+    from rna_algos_tpu_torch.ops import mea_fill as MF
+    from rna_algos_tpu_torch.utils.output import probs2str
+
+    t0 = time.perf_counter()
+    _native.library()
+    rec = {"build_s": time.perf_counter() - t0,
+           "library": _native.build().name, "traceback": {}}
+    print(f"native: {rec['library']} built and loaded in "
+          f"{rec['build_s']:.2f} s (cc {' '.join(_native.CC_FLAGS)})")
+    G = len(DEFAULT_GAMMAS)
+    for N, R in NATIVE_SHAPES:
+        results = split_records(N, R)
+        ns = [n for _, _, n in results]
+        padded = np.zeros((R, N, N), np.float32)
+        for r, (bpp, _, n) in enumerate(results):
+            padded[r, :n, :n] = bpp
+        t_native = t_plain = 0.0
+        n_pairs = 0
+        chunks = fill_chunks(R, G, N)
+        for c0, c1 in chunks:
+            fills = MF.mea_fill_batch(torch.as_tensor(padded[c0:c1],
+                                                      device=device),
+                                      DEFAULT_GAMMAS).cpu().numpy()
+            t0 = time.perf_counter()
+            pairs, counts = _native.traceback_batch(
+                fills, padded[c0:c1], ns[c0:c1], DEFAULT_GAMMAS)
+            t_native += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = [[traceback(M, padded[r], g, ns[r])[0]
+                     for g, M in zip(DEFAULT_GAMMAS, fills[r - c0])]
+                    for r in range(c0, c1)]
+            t_plain += time.perf_counter() - t0
+            for r in range(c0, c1):
+                for g in range(G):
+                    got = [tuple(map(int, p))
+                           for p in pairs[r - c0, g, :counts[r - c0, g]]]
+                    if got != want[r - c0][g]:
+                        raise AssertionError(
+                            f"native traceback N{N}_R{R}: record {r} gamma "
+                            f"{DEFAULT_GAMMAS[g]}: pairs differ from the "
+                            "plain traceback's")
+            n_pairs += int(counts.sum())
+            del fills
+        shape = f"N{N}_R{R}"
+        rec["traceback"][shape] = {
+            "structures": R * G, "pairs": n_pairs, "calls": len(chunks),
+            "native_ms": t_native * 1e3, "plain_ms": t_plain * 1e3}
+        print(f"native traceback {shape} G={G}: {R * G} structures, "
+              f"{n_pairs} pairs, equal to the plain traceback's at every "
+              f"(record, gamma); native {t_native * 1e3:.3f} ms in "
+              f"{len(chunks)} calls, plain {t_plain * 1e3:.3f} ms, on {smi}")
+    rec["centroid_structures"] = mea_split(device, smi)
+    bpp, _, n = split_records(1536, 1)[0]
+    iv, jv = np.nonzero(np.triu(bpp, 1))
+    pv = bpp[iv, jv]
+    t0 = time.perf_counter()
+    want = probs2str(zip(iv, jv, pv))
+    t_plain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(NATIVE_FORMAT_REPS):
+        got = _native.probs2str_arrays(iv, jv, pv)
+    t_native = (time.perf_counter() - t0) / NATIVE_FORMAT_REPS
+    if got != want:
+        raise AssertionError("native probs2str: bytes differ from probs2str")
+    rec["probs2str"] = {"triples": len(pv), "bytes": len(got),
+                        "native_ms": t_native * 1e3,
+                        "plain_ms": t_plain * 1e3}
+    print(f"native probs2str, the {n}-nt record's {len(pv)} triples: "
+          f"{len(got)} bytes identical to probs2str; native "
+          f"{t_native * 1e3:.3f} ms, plain {t_plain * 1e3:.3f} ms, on {smi}")
+    return rec
+
+
+@contextlib.contextmanager
+def formatter_checked(modules):
+    """While the block runs, each CLI module's ``probs2str_arrays`` on the
+    card also formats its triples with the plain ``probs2str`` and raises
+    unless the bytes are equal: yields {"calls", "triples", "native_s",
+    "plain_s"}."""
+    from rna_algos_tpu_torch import _native
+    from rna_algos_tpu_torch.utils.output import probs2str, probs2str_arrays
+
+    seen = {"calls": 0, "triples": 0, "native_s": 0.0, "plain_s": 0.0}
+    saved = {m: m.probs2str_arrays for m in modules}
+
+    def checked(iv, jv, pv, device="cpu"):
+        if not _native.on_card(device):
+            raise AssertionError(f"a CLI formatted for {device} on the card")
+        t0 = time.perf_counter()
+        got = probs2str_arrays(iv, jv, pv, device=device)
+        t1 = time.perf_counter()
+        want = probs2str(zip(iv, jv, pv))
+        seen["native_s"] += t1 - t0
+        seen["plain_s"] += time.perf_counter() - t1
+        if got != want:
+            raise AssertionError("a CLI's native text differs from probs2str")
+        seen["calls"] += 1
+        seen["triples"] += len(pv)
+        return got
+
+    for m in modules:
+        m.probs2str_arrays = checked
+    try:
+        yield seen
+    finally:
+        for m, fn in saved.items():
+            m.probs2str_arrays = fn
+
+
+def native_clis(mc_cli, du_cli, fasta):
+    """cli.mccaskill -c and cli.durbin on the card on the tRNAs, each
+    record's text through ``formatter_checked``: the native formatter's
+    bytes are the plain version's on the CLIs' own triples."""
+    with tempfile.TemporaryDirectory() as tmp, \
+            formatter_checked((mc_cli, du_cli)) as seen:
+        mc_cli.main(["-i", fasta, "-o", os.path.join(tmp, "m.txt"), "-c"])
+        du_cli.main(["-i", fasta, "-o", os.path.join(tmp, "d.txt")])
+    if not seen["calls"]:
+        raise AssertionError("the CLIs formatted nothing")
+    print(f"cli.mccaskill -c and cli.durbin on the card: {seen['calls']} "
+          f"records, {seen['triples']} triples, the native text identical "
+          f"to probs2str's; native {seen['native_s'] * 1e3:.3f} ms, plain "
+          f"{seen['plain_s'] * 1e3:.3f} ms")
+    return seen
 
 
 @contextlib.contextmanager
@@ -2851,17 +3049,20 @@ def eval_phase(counted, counts, smi):
     from rna_algos_tpu_torch.eval.pipeline import best, run_all
 
     with tempfile.TemporaryDirectory() as work, \
-            counted_plain_prob() as n_plain, counted_plain_mea() as n_mea:
+            counted_plain_prob() as n_plain, counted_plain_mea() as n_mea, \
+            counted_plain_traceback() as n_tb:
         t0 = time.perf_counter()
         report = counted("eval", "eval", lambda: run_all(
-            str(ROOT / EVAL_SEED_SET), work, device="cuda"))
+            str(ROOT / EVAL_SEED_SET), work, device="cuda",
+            numerics="exact"))
         wall = time.perf_counter() - t0
         saved = strict_json(
             (pathlib.Path(work) / "eval_report.json").read_text())
-    if n_plain[0] or n_mea[0]:
+    if n_plain[0] or n_mea[0] or n_tb[0]:
         raise AssertionError(f"eval: the plain wavefronts ran {n_plain[0]} "
-                             f"times and the plain MEA fill {n_mea[0]} times "
-                             "on the card")
+                             f"times, the plain MEA fill {n_mea[0]} times "
+                             f"and the plain traceback {n_tb[0]} times on "
+                             "the card")
     ref = strict_json((ROOT / EVAL_REPORT).read_text())
     rec = {"num_families": saved["num_families"], "wall_s": wall,
            "phases": saved["phases"], "columns": {}}
@@ -2901,8 +3102,8 @@ def eval_phase(counted, counts, smi):
               f"calls, {ph['items']} items")
     print(f"eval: {saved['num_families']} families, run_all "
           f"{saved['wall_s']:.3f} s inside, {wall:.3f} s around it; fold "
-          f"launches {counts['eval']}; plain wavefront and MEA fill calls "
-          f"0; on {smi}")
+          f"launches {counts['eval']}; plain wavefront, MEA fill and "
+          f"traceback calls 0; on {smi}")
     return rec
 
 
@@ -3196,6 +3397,7 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from rna_algos_tpu_torch import _native
     from rna_algos_tpu_torch.ops import _build
     from rna_algos_tpu_torch.ops import pallas_align as PA
     from rna_algos_tpu_torch.ops import pallas_align_prob as PAP
@@ -3335,8 +3537,10 @@ def main():
     log_checks(dev, err, rel, times, smi)
     scan_checks(dev, err, fast_err, times, smi)
     mea_checks(dev, err, times, smi)
-
     lap("kernels")
+    native_stats = native_phase(dev, smi)
+
+    lap("native")
     # phase 3: the main paths, each counted on its own
     batches = {
         "trna_N128_B192": trnas * 32,
@@ -3356,7 +3560,8 @@ def main():
                 PR.launches,
                 PF.contra_inside_log_launches, PF.contra_outside_log_launches,
                 PF.turner_inside_log_launches, PF.turner_outside_log_launches,
-                FS.inside_launches, FS.outside_launches, MF.launches)
+                FS.inside_launches, FS.outside_launches, MF.launches,
+                _native.traceback_calls)
     path_kernels = {
         "contra": ("skew", "contra_inside", "contra_outside"),
         "turner": ("skew", "turner_inside", "turner_outside"),
@@ -3376,11 +3581,11 @@ def main():
         "turner_parity_scan": ("skew", "scan_inside", "scan_outside"),
         "turner_scan_long": ("skew", "scan_inside", "scan_outside"),
         "eval": ("skew", "contra_inside", "contra_outside", "turner_inside",
-                 "turner_outside", "mea_fill"),
+                 "turner_outside", "mea_fill", "native_traceback"),
         "centroid_contra": ("skew", "contra_inside", "contra_outside",
-                            "mea_fill"),
+                            "mea_fill", "native_traceback"),
         "centroid_turner": ("skew", "turner_inside", "turner_outside",
-                            "mea_fill"),
+                            "mea_fill", "native_traceback"),
     }
     results, counts = {}, {}
 
@@ -3532,7 +3737,7 @@ def main():
     golden = ROOT / "tests" / "golden" / "c_baseline"
     fasta = str(ROOT / "assets" / "sampled_trnas.fa")
     with tempfile.TemporaryDirectory() as tmp, \
-            counted_plain_mea() as n_mea:
+            counted_plain_mea() as n_mea, counted_plain_traceback() as n_tb:
         counted("centroid_contra", "centroid_contra",
                 lambda: cf_cli.main(["-i", fasta, "-o", tmp, "-c"]))
         ref_dir = golden / "centroid_contra"
@@ -3544,7 +3749,8 @@ def main():
                 raise AssertionError(f"centroid CLI output differs: {nm}")
     print(f"centroid CLI -c: {len(names)} files byte-identical")
     with tempfile.TemporaryDirectory() as tmp, \
-            counted_plain_mea() as n_mea_t:
+            counted_plain_mea() as n_mea_t, \
+            counted_plain_traceback() as n_tb_t:
         counted("centroid_turner", "centroid_turner",
                 lambda: cf_cli.main(["-i", fasta, "-o", tmp]))
         verdict = turner_centroid_verdict(golden / "centroid_turner", tmp)
@@ -3553,6 +3759,11 @@ def main():
     if n_mea[0] or n_mea_t[0]:
         raise AssertionError("centroid CLI: the plain MEA fill ran on the "
                              "card")
+    if n_tb[0] or n_tb_t[0]:
+        raise AssertionError("centroid CLI: the plain traceback ran on the "
+                             "card")
+    native_stats["plain_traceback_calls"] = {
+        "centroid_contra": n_tb[0], "centroid_turner": n_tb_t[0]}
 
     # cli.mccaskill -c on the tRNAs mixed with a 400-nt and a 900-nt record
     longs = (random_batch(1, 400, 400, seed=400)
@@ -3585,6 +3796,7 @@ def main():
           "records byte-identical to the tRNA-only run")
 
     durbin_clis(du_cli, fasta, golden)
+    native_stats["clis"] = native_clis(mc_cli, du_cli, fasta)
     rows_cli(du_cli, rsets)
     scan_stats["cli_parity_400_worst"] = scan_cli(mc_cli, cf_cli)
     verdict, tie_bpp = parity_clis(mc_cli, cf_cli, fasta, golden)
@@ -3610,6 +3822,7 @@ def main():
     lap("throughput")
     # phase 6: the eval pipeline on the card
     eval_stats = eval_phase(counted, counts, smi)
+    native_stats["plain_traceback_calls"]["eval"] = 0
     lap("eval")
     # phase 7: both engines over a data mesh on the card
     mesh_stats = mesh_phase(trnas, dsets, rsets, counted, counts, smi)
@@ -3661,6 +3874,7 @@ def main():
     print(json.dumps({"scan_paths": scan_stats}))
     print(json.dumps({"eval": eval_stats}))
     print(json.dumps({"mesh": mesh_stats}))
+    print(json.dumps({"native": native_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

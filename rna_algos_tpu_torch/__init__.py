@@ -16,7 +16,8 @@ The centroid-fold main path, both models, held against the JAX package:
                      K21 in ops.fold_scan, K3)
         -> models.mccaskill._prob_finish                 (kernel K3, inverse)
         -> models.centroid.centroid_structures: ops.mea_fill.mea_fill_batch
-           (kernel K23, a bucket's records and gammas at once) + traceback
+           (kernel K23, a bucket's records and gammas at once) + the
+           traceback on the host (_native, C, on the card's path)
            -> dot-bracket files
 
 and the Durbin pair-HMM:
@@ -34,6 +35,9 @@ Every hand-written kernel (CUDA C++ under ``csrc/``) has a plain PyTorch
 version beside its wrapper; the wrapper takes the plain version only for
 tensors on the CPU and launches the kernel for CUDA tensors.  Kernels are
 built with ``nvcc`` at first use (``ops/_build.py``), never on import.
+The host runtime's C (``csrc/native_host.c``: the centroid traceback and
+the probability text) is built with ``cc`` at first use (``_native.py``)
+and runs on the card's paths; the CPU's run its plain Python versions.
 
 This package imports ``torch`` and never ``jax`` nor anything of the JAX
 package: it keeps its own copies of the framework-free modules it needs

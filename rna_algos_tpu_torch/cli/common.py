@@ -12,12 +12,17 @@ def add_numerics_flag(p, help_text):
     )
 
 
+def default_numerics():
+    """``RNA_ALGOS_NUMERICS``'s mode ("exact" when unset); an invalid value
+    raises, as the JAX package's import does."""
+    return check_mode(os.environ.get("RNA_ALGOS_NUMERICS", "exact"))
+
+
 def numerics_of(args):
     """The numerics mode a CLI runs: ``--numerics`` when given, else
-    ``RNA_ALGOS_NUMERICS`` ("exact" when unset), as the JAX CLIs take it; an
-    invalid ``RNA_ALGOS_NUMERICS`` raises either way, as the JAX package's
-    import does."""
-    env = check_mode(os.environ.get("RNA_ALGOS_NUMERICS", "exact"))
+    ``default_numerics()``, as the JAX CLIs take it; an invalid
+    ``RNA_ALGOS_NUMERICS`` raises either way."""
+    env = default_numerics()
     return args.numerics or env
 
 

@@ -64,7 +64,8 @@ def main(argv=None):
         iv, jv = np.nonzero(mat > 0.0)  # row-major, like the reference walk
         parts.append(
             f"\n\n>{a},{b}\n"
-            + probs2str_arrays(iv - 1, jv - 1, mat[iv, jv])
+            + probs2str_arrays(iv - 1, jv - 1, mat[iv, jv],
+                               device=args.device)
         )
     with open(args.o, "w") as f:
         f.write("".join(parts))

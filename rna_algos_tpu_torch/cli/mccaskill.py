@@ -43,9 +43,8 @@ def main(argv=None):
     parts = [HEADER]
     for rna_id, (bpp, presence) in enumerate(results):
         iv, jv = np.nonzero(presence)  # row-major, deterministic
-        parts.append(
-            f"\n\n>{rna_id}\n" + probs2str_arrays(iv, jv, bpp[iv, jv])
-        )
+        parts.append(f"\n\n>{rna_id}\n" + probs2str_arrays(
+            iv, jv, bpp[iv, jv], device=args.device))
     with open(args.o, "w") as f:
         f.write("".join(parts))
     return 0

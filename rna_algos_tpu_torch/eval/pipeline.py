@@ -9,9 +9,12 @@ with the wall time per column and a ``PhaseTimer`` split of each model's
 stages: fold, MEA fill, traceback, threshold arm, stats.
 
     python -m rna_algos_tpu_torch.eval.pipeline --sth SEED.sth --work DIR \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--numerics exact|fast|parity]
 
-writes only under ``--work``.
+writes only under ``--work``.  The fold runs ``--numerics``' mode, by
+default ``RNA_ALGOS_NUMERICS``'s ("exact" when unset), as the JAX
+pipeline follows the global mode; so do ``run_all`` and
+``run_estimation`` when given no ``numerics``.
 """
 
 import argparse
@@ -21,6 +24,7 @@ import os
 import sys
 import time
 
+from ..cli.common import add_numerics_flag, default_numerics, numerics_of
 from ..models.centroid import (DEFAULT_GAMMAS, centroid_structures,
                                gamma_file_name, write_gamma_files)
 from ..utils.io import read_fasta
@@ -37,12 +41,14 @@ def _families(rna_dir):
 
 
 def run_estimation(rna_dir, out_root, models=("turner", "contra"),
-                   programs=PROGRAMS, device="cuda", timer=None):
+                   programs=PROGRAMS, device="cuda", timer=None,
+                   numerics=None):
     """Fold every family once per model, write gamma-grid structure files.
 
     One directory per (program, model):
     ``{out_root}/{program}_{model}/{family}/centroid_threshold={g}.fa``.
-    BPPs are computed ONCE per (family, model) on ``device`` and shared by
+    BPPs are computed ONCE per (family, model) on ``device`` in the
+    ``numerics`` mode (``RNA_ALGOS_NUMERICS``'s when None) and shared by
     both programs; the centroid program fills all 18 gammas of a record at
     once.  ``timer`` (a ``PhaseTimer``) receives the phases
     ``fold_{model}``, ``mea_fill_{model}``, ``traceback_{model}`` and
@@ -52,11 +58,12 @@ def run_estimation(rna_dir, out_root, models=("turner", "contra"),
     from .baseline import write_gamma_file_threshold
 
     timer = PhaseTimer() if timer is None else timer
+    numerics = default_numerics() if numerics is None else numerics
     fams = _families(rna_dir)
     timings = {}
     for model in models:
         engine = FoldEngine(uses_contra_model=(model == "contra"),
-                            device=device)
+                            device=device, numerics=numerics)
         fold_results = {}
         t0 = time.time()
         for fam in fams:
@@ -139,13 +146,14 @@ def _nan_to_null(obj):
 
 
 def run_all(sth_path, work_dir, models=("turner", "contra"),
-            programs=PROGRAMS, device="cuda"):
+            programs=PROGRAMS, device="cuda", numerics=None):
     """Full pipeline: compile families -> estimate -> stats (run_all.py:7-10).
 
     Writes ``eval_report.json`` (strict JSON: degenerate metric cells are
     null) and, where matplotlib is installed, ``fig_1.png`` into
     ``work_dir``.  The report's ``phases`` holds the ``PhaseTimer`` summary
-    (``stats`` included) and ``wall_s`` the whole run's seconds."""
+    (``stats`` included), ``wall_s`` the whole run's seconds and
+    ``numerics`` the fold's mode (``RNA_ALGOS_NUMERICS``'s when None)."""
     from .rfam import compile_rna_fams
 
     t0 = time.perf_counter()
@@ -154,12 +162,14 @@ def run_all(sth_path, work_dir, models=("turner", "contra"),
     ss_dir = os.path.join(work_dir, "ref_sss")
     out_root = os.path.join(work_dir, "estimates")
     n_fams = compile_rna_fams(sth_path, seq_dir, ss_dir)
+    numerics = default_numerics() if numerics is None else numerics
     timings = run_estimation(seq_dir, out_root, models, programs,
-                             device=device, timer=timer)
+                             device=device, timer=timer, numerics=numerics)
     with timer.phase("stats", items=n_fams):
         curves = compute_stats(out_root, seq_dir, ss_dir, models, programs)
     report = {"num_families": n_fams, "timings_s": timings, "curves": curves,
-              "device": str(device), "phases": timer.summary(),
+              "device": str(device), "numerics": numerics,
+              "phases": timer.summary(),
               "wall_s": time.perf_counter() - t0}
     with open(os.path.join(work_dir, "eval_report.json"), "w") as f:
         json.dump(_nan_to_null(report), f, indent=2, allow_nan=False)
@@ -194,9 +204,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to fold on (default cuda; no "
                     "fallback to the CPU)")
+    add_numerics_flag(ap, "the fold's numerics mode")
     args = ap.parse_args(argv)
     os.makedirs(args.work, exist_ok=True)
-    report = run_all(args.sth, args.work, device=args.device)
+    report = run_all(args.sth, args.work, device=args.device,
+                     numerics=numerics_of(args))
     for key, rows in sorted(report["curves"].items()):
         if "_" not in key:
             continue

@@ -3,8 +3,9 @@
 The fill is a max-plus wavefront over spans with the records and the gamma
 grid as batch dimensions (``ops.mea_fill``: kernel K23 on the card, the
 plain version on the CPU), bitwise the JAX fill, because the host
-traceback re-derives every choice by float32 equality.  The traceback is a
-NumPy loop on the host.
+traceback re-derives every choice by float32 equality.  The traceback runs
+on the host: in C (``_native``, one call a chunk of records and gammas)
+for the card's paths, the NumPy loop ``traceback`` for the CPU's.
 """
 
 import contextlib
@@ -13,8 +14,9 @@ import os
 import numpy as np
 import torch
 
+from .. import _native
 from ..ops import mea_fill as MF
-from ..utils.output import _fmt, fold_str
+from ..utils.output import _fmt, fold_str, fold_strs
 
 # Reference CLI gamma grid: 2^-7 .. 2^10.
 MIN_POW_2 = -7
@@ -38,7 +40,8 @@ def mea_fill(bpp, gamma, N):
 
 
 def traceback(M, bpp, gamma, n):
-    """Stack traceback by float-equality re-derivation on the host.
+    """Stack traceback by float-equality re-derivation on the host: the
+    plain version of ``_native.traceback``.
 
     Returns (pairs, expected accuracy), as ``rna_algos_tpu`` does."""
     M = np.asarray(M, dtype=np.float32)
@@ -74,9 +77,10 @@ def traceback(M, bpp, gamma, n):
 
 def centroid_fold(bpp, n, gamma):
     """Full gamma-centroid estimate from a dense (N, N) BPP tensor:
-    (pairs, expected accuracy)."""
+    (pairs, expected accuracy); the native traceback for a CUDA tensor."""
+    tb = _native.traceback if _native.on_card(bpp.device) else traceback
     M = mea_fill(bpp, gamma, bpp.shape[0]).cpu().numpy()
-    return traceback(M, bpp.cpu().numpy(), gamma, n)
+    return tb(M, bpp.cpu().numpy(), gamma, n)
 
 
 # The fills of one K23 launch, (records, G, N, N) float32, stay under this
@@ -96,12 +100,16 @@ def centroid_structures(results, gammas, device, timer=None, tag=""):
     """{gamma: [dot-bracket per record]} from (bpp, presence, n) results:
     the records grouped by ``pick_bucket(n)``, each group's BPPs padded to
     its bucket and filled for all gammas at once on ``device`` (one launch
-    a chunk of ``fill_chunks``), the traceback on the host; the output in
-    the records' order.  ``timer``: a ``utils.trace.PhaseTimer`` that then
+    a chunk of ``fill_chunks``), the traceback on the host: on a CUDA
+    device ``_native.traceback_batch`` (one call a chunk), on the CPU the
+    plain ``traceback``, any other device raises; the output in the
+    records' order.  ``timer``: a ``utils.trace.PhaseTimer`` that then
     times the fills (phase ``"mea_fill" + tag``, CUDA events on a CUDA
     device), their copy to the host (``"fill_copy" + tag``) and the
     tracebacks (``"traceback" + tag``)."""
     from ..parallel.runner import pick_bucket
+
+    native = _native.on_card(device)
 
     def phase(name, records):
         if timer is None:
@@ -126,11 +134,17 @@ def centroid_structures(results, gammas, device, timer=None, tag=""):
             with phase("fill_copy", len(chunk)):
                 fills = fills.cpu().numpy()
             with phase("traceback", len(chunk)):
-                for r, k in enumerate(chunk):
-                    n = results[k][2]
-                    for g, M in zip(gammas, fills[r]):
-                        pairs, _ = traceback(M, padded[r], g, n)
-                        out[g][k] = fold_str(pairs, n)
+                ns = [results[k][2] for k in chunk]
+                if native:
+                    strs = fold_strs(*_native.traceback_batch(
+                        fills, padded, ns, gammas), ns, N)
+                else:
+                    strs = [[fold_str(traceback(M, padded[r], g, n)[0], n)
+                             for g, M in zip(gammas, fills[r])]
+                            for r, n in enumerate(ns)]
+                for k, recs in zip(chunk, strs):
+                    for g, s in zip(gammas, recs):
+                        out[g][k] = s
     return out
 
 

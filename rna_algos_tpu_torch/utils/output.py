@@ -16,6 +16,21 @@ def fold_str(basepairs, seq_len: int) -> str:
     return "".join(chars)
 
 
+def fold_strs(pairs, counts, ns, N):
+    """``fold_str`` of every structure of ``_native.traceback_batch``'s
+    output (pairs (R, G, cap, 2), counts (R, G)) for records of lengths
+    ``ns`` in bucket N: a list a record of G strings."""
+    import numpy as np
+
+    R, G, cap, _ = pairs.shape
+    chars = np.full((R, G, N), ord(UNPAIR), np.uint8)
+    r, g, k = np.nonzero(np.arange(cap) < counts[..., None])
+    chars[r, g, pairs[r, g, k, 0]] = ord(BASEPAIR_LEFT)
+    chars[r, g, pairs[r, g, k, 1]] = ord(BASEPAIR_RIGHT)
+    return [[chars[r, g, :n].tobytes().decode("ascii") for g in range(G)]
+            for r, n in enumerate(ns)]
+
+
 def pairs_from_fold_str(s: str):
     """Inverse of fold_str (used by the eval stats module)."""
     stack = []
@@ -28,10 +43,17 @@ def pairs_from_fold_str(s: str):
     return pairs
 
 
-def probs2str_arrays(iv, jv, pv) -> str:
-    """Vector form of probs2str (row indices, column indices, values)."""
+def probs2str_arrays(iv, jv, pv, device="cpu") -> str:
+    """Vector form of probs2str (row indices, column indices, values): for
+    a CUDA ``device`` (the CLI's) the native formatter
+    (``_native.probs2str_arrays``, the same bytes), for the CPU the plain
+    ``probs2str``; any other device raises."""
     import numpy as np
 
+    from .. import _native
+
+    if _native.on_card(device):
+        return _native.probs2str_arrays(iv, jv, pv)
     iv = np.ascontiguousarray(iv, dtype=np.int32)
     jv = np.ascontiguousarray(jv, dtype=np.int32)
     pv = np.ascontiguousarray(pv, dtype=np.float32)

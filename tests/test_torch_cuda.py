@@ -13,7 +13,8 @@ instance; the Durbin row scan K22 on its edge batch, past 4,096 columns
 SSU pairs that each span a cluster, and through AlignEngine beside K14 and
 on a 4,100-nt record; the MEA fill K23 bitwise at buckets 32-1,536 in
 both its forms and on each side of their switches under the card's plan,
-at N = 96 under other plans, and through centroid_structures).  Skipped without
+at N = 96 under other plans, and through centroid_structures, whose
+traceback on the card is the native one).  Skipped without
 a GPU; run on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
 import numpy as np
@@ -646,4 +647,24 @@ def test_centroid_structures_launch_k23(device, monkeypatch):
     MF.launches.reset()
     got = TC.centroid_structures(results, TC.DEFAULT_GAMMAS, device)
     assert MF.launches.count == 4
+    assert got == want
+
+
+def test_centroid_structures_native_traceback(device, monkeypatch):
+    """centroid_structures on the card at N = 128 with the 18 gammas: the
+    CPU run's dot-brackets, through the native batch traceback (one call
+    for the one K23 launch), the plain traceback never called."""
+    from rna_algos_tpu_torch import _native
+    from rna_algos_tpu_torch.models import centroid as TC
+
+    results = chip_smoke.split_records(128, 12)
+    want = TC.centroid_structures(results, TC.DEFAULT_GAMMAS, "cpu")
+
+    def refuse(*args):
+        raise AssertionError("the plain traceback ran on the card")
+
+    monkeypatch.setattr(TC, "traceback", refuse)
+    _native.traceback_calls.reset()
+    got = TC.centroid_structures(results, TC.DEFAULT_GAMMAS, device)
+    assert _native.traceback_calls.count == 1
     assert got == want

@@ -189,6 +189,66 @@ def jax_toy(tmp_path_factory):
     return sth, work / "run", report, recorded
 
 
+def test_eval_numerics_from_argument_and_env(tmp_path, monkeypatch):
+    """Fault C6: the pipeline's engines fold in the mode passed to
+    ``run_estimation`` / ``run_all``, else in RNA_ALGOS_NUMERICS's, and
+    ``main``'s ``--numerics`` defaults to RNA_ALGOS_NUMERICS (no family is
+    folded: the engine is a recording stand-in, the families none)."""
+    from rna_algos_tpu_torch.parallel import runner as TR
+
+    modes = []
+
+    class ModeEngine(RecordedEngine):
+        def __init__(self, uses_contra_model=False, device="cpu",
+                     numerics="exact"):
+            super().__init__(uses_contra_model, device)
+            modes.append(numerics)
+
+    monkeypatch.setattr(TR, "FoldEngine", ModeEngine)
+    empty = tmp_path / "fams"
+    empty.mkdir()
+    monkeypatch.delenv("RNA_ALGOS_NUMERICS", raising=False)
+    TP.run_estimation(str(empty), str(tmp_path / "e0"), device="cpu")
+    TP.run_estimation(str(empty), str(tmp_path / "e1"), device="cpu",
+                      numerics="parity")
+    monkeypatch.setenv("RNA_ALGOS_NUMERICS", "fast")
+    TP.run_estimation(str(empty), str(tmp_path / "e2"), device="cpu")
+    TP.run_estimation(str(empty), str(tmp_path / "e3"), device="cpu",
+                      numerics="exact")
+    assert modes == ["exact"] * 2 + ["parity"] * 2 + ["fast"] * 2 + \
+        ["exact"] * 2
+
+    def no_families(sth, seq_dir, ss_dir):
+        os.makedirs(seq_dir, exist_ok=True)
+        return 0
+
+    monkeypatch.setattr(TRF, "compile_rna_fams", no_families)
+    monkeypatch.setattr(TP, "compute_stats", lambda *a, **kw: {})
+    modes.clear()
+    for kw in ({}, {"numerics": "parity"}):
+        report = TP.run_all("unused.sth", str(tmp_path / "w"),
+                            models=("contra",), device="cpu", **kw)
+        assert report["numerics"] == modes[-1]
+    assert modes == ["fast", "parity"]
+
+    seen = []
+
+    def run_all(sth, work, device, numerics):
+        seen.append(numerics)
+        return {"curves": {}, "timings_s": {}, "phases": {}, "wall_s": 0.0}
+
+    monkeypatch.setattr(TP, "run_all", run_all)
+    argv = ["--sth", "unused.sth", "--work", str(tmp_path / "m")]
+    TP.main(argv)
+    TP.main(argv + ["--numerics", "parity"])
+    monkeypatch.delenv("RNA_ALGOS_NUMERICS")
+    TP.main(argv)
+    monkeypatch.setenv("RNA_ALGOS_NUMERICS", "turbo")
+    with pytest.raises(ValueError):
+        TP.main(argv)
+    assert seen == ["fast", "parity", "exact"]
+
+
 def test_gamma_files_and_stats_equal_jax_given_its_bpps(jax_toy, tmp_path,
                                                         monkeypatch):
     from rna_algos_tpu_torch.parallel import runner as TR

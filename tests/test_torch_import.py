@@ -11,6 +11,7 @@ from .conftest import REPO_ROOT
 PROBE = r"""
 import importlib, json, os, pkgutil, sys
 import rna_algos_tpu_torch as pkg
+from rna_algos_tpu_torch import _native
 from rna_algos_tpu_torch.ops import _build
 before = sorted(os.listdir(_build.BUILD_DIR)) if _build.BUILD_DIR.exists() else None
 mods = []
@@ -25,6 +26,7 @@ print(json.dumps({
                           if m == "rna_algos_tpu" or m.startswith("rna_algos_tpu.")),
     "torch": "torch" in sys.modules,
     "built": _build.library.cache_info().currsize,
+    "native_built": _native.library.cache_info().currsize,
     "build_dir_same": before == after,
 }))
 """
@@ -77,12 +79,14 @@ def test_port_imports_no_jax_and_builds_nothing():
         "rna_algos_tpu_torch.eval.plots",
         "rna_algos_tpu_torch.eval.pipeline",
         "rna_algos_tpu_torch.parallel.mesh",
+        "rna_algos_tpu_torch._native",
     }
     assert expected <= set(got["mods"]), got["mods"]
     assert got["jax"] == []
     assert got["jax_package"] == []
     assert got["torch"]
     assert got["built"] == 0
+    assert got["native_built"] == 0
     assert got["build_dir_same"]
 
 
